@@ -6,9 +6,12 @@ hand-written CUDA kernel (``csrc/``, loaded by ``kernels/``). Volumes are
 C-order ``(z, y, x)`` float32 tensors; size tuples facing TIFF files stay
 (x, y, z). Every entry takes an explicit ``torch.device``.
 
-This first slice covers single-view Richardson-Lucy deconvolution
-(``models.deconvolution.decon_singleview`` and the ``cli.decon_sv`` CLI)
-with its separable-conv kernel, TIFF/.tmx I/O and the device census.
+It covers single-view and joint dual-view Richardson-Lucy deconvolution
+(``models.deconvolution.decon_singleview`` / ``decon_dualview``, the
+``cli.decon_sv`` and ``cli.decon_dv`` CLIs) with its two kernels (the
+separable convolution and the FFT convolution), the Wiener-Butterworth
+back-projector generator (``cli.gen_bp``), TIFF/.tmx I/O and the device
+census.
 The JAX package ``microimagelib_tpu`` is the reference it is tested
 against; this package never imports it or JAX.
 """

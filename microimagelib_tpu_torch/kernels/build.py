@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Every ``*.cu`` file under ``microimagelib_tpu_torch/csrc/`` is compiled
-by ``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain
-C interface, loaded with ``ctypes``. The library goes into
+by ``nvcc`` for Hopper (``sm_90a``) into an object, one ``nvcc`` process
+per source, all started together; the objects are linked into one shared
+library with a plain C interface (CUDA runtime only: no cuFFT, no
+cuBLAS), loaded with ``ctypes``. The library goes into
 ``build/microimagelib_tpu_torch/<hash of the sources and flags>/`` at the
 repository root, so an edit to a source rebuilds it and an unchanged tree
 reuses it. Nothing is built or loaded when this module is imported: the
@@ -25,7 +27,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / PKG_DIR.name
 LIB_NAME = "libmil_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _LIB = None
 
@@ -57,9 +59,29 @@ def nvcc_path():
     return os.path.join(home, "bin", "nvcc")
 
 
-def nvcc_command(out_path):
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out_path),
-            *(str(p) for p in sources())]
+def compile_commands(obj_dir):
+    """One ``nvcc -c`` command per source: [(command, object path)]."""
+    cmds = []
+    for src in sources():
+        obj = Path(obj_dir) / (src.stem + ".o")
+        cmds.append(([nvcc_path(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                     obj))
+    return cmds
+
+
+def link_command(objects, out_path):
+    return [nvcc_path(), *NVCC_FLAGS[:2], "-shared", "-o", str(out_path),
+            *(str(o) for o in objects)]
+
+
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+    for cmd, text, rc in outs:
+        if rc != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" + text)
 
 
 def build():
@@ -68,18 +90,20 @@ def build():
     out = library_path()
     if out.is_file():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = nvcc_command(tmp)
-    if not os.path.isfile(cmd[0]):
-        raise RuntimeError(f"nvcc not found (looked for {cmd[0]}); the CUDA "
+    nvcc = nvcc_path()
+    if not os.path.isfile(nvcc):
+        raise RuntimeError(f"nvcc not found (looked for {nvcc}); the CUDA "
                            "kernels cannot be built")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    tmp_dir = out.parent / f"tmp.{os.getpid()}"
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        compiles = compile_commands(tmp_dir)
+        _run_all([cmd for cmd, _obj in compiles])
+        tmp = tmp_dir / LIB_NAME
+        _run_all([link_command([obj for _cmd, obj in compiles], tmp)])
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return out
 
 

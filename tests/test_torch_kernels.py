@@ -4,14 +4,17 @@ imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 
-Tolerance: max|diff| <= 1e-5 x max|ref| — both sides are fp32 FMAs over
-the same taps; only the summation order may differ."""
+Tolerances: K1 max|diff| <= 1e-5 x max|ref| — both sides are fp32 FMAs
+over the same taps; only the summation order may differ. K3 1e-4 x
+max|ref| against complex128 ``torch.fft`` and against its fp32 plain
+version, the JAX package's yardstick (tests/test_fft_pallas.py)."""
 
 import numpy as np
 import pytest
 import torch
 
 from microimagelib_tpu_torch.kernels import conv_sep as K
+from microimagelib_tpu_torch.kernels import fft_ct as F
 from microimagelib_tpu_torch.ops.conv_sep import plan_sep
 
 
@@ -59,3 +62,26 @@ def test_conv3_sep_kernel_matches_plain(cuda, case, mode):
     ref = K.conv3_sep_torch(v, plan, aux=aux, mode=mode)
     err = (out - ref).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (32, 32, 128),
+    (64, 96, 128),    # m = 3 in y
+    (20, 6, 40),      # m = 5 in z and x, m = 3 in y, odd row pairs
+])
+def test_conv3_ct_kernel_matches_references(cuda, shape):
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    psf = rng.random(shape).astype(np.float32)
+    otf = torch.fft.rfftn(torch.from_numpy(psf / psf.sum()).to(cuda)).contiguous()
+    before = F.LAUNCHES
+    out = F.conv3_ct(v, otf)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES == before + 1
+    ref = torch.fft.irfftn(torch.fft.rfftn(v.double()) * otf.to(torch.complex128),
+                           s=shape)
+    m = ref.abs().max().item()
+    assert (out.double() - ref).abs().max().item() <= 1e-4 * m
+    plain = F.conv3_ct_torch(v, otf)
+    assert (out - plain).abs().max().item() <= 1e-4 * m

@@ -51,12 +51,27 @@ def test_no_jax_import_in_sources():
 
 
 def test_nvcc_command_targets_sm90a_and_csrc_only(tmp_path):
-    cmd = build.nvcc_command(tmp_path / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("-o") + 1] == str(tmp_path / "lib.so")
-    srcs = [Path(c) for c in cmd if c.endswith((".cu", ".cpp", ".c"))]
-    assert srcs and all(s.parent == build.CSRC_DIR for s in srcs)
-    assert (build.CSRC_DIR / "conv_sep.cu") in srcs
+    compiles = build.compile_commands(tmp_path)
+    srcs = []
+    for cmd, obj in compiles:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "--use_fast_math" not in cmd     # K3 needs accurate twiddles
+        assert cmd[cmd.index("-o") + 1] == str(obj) and obj.parent == tmp_path
+        src = [Path(c) for c in cmd if c.endswith((".cu", ".cpp", ".c"))]
+        assert len(src) == 1                    # one nvcc per source
+        srcs += src
+    assert all(s.parent == build.CSRC_DIR for s in srcs)
+    assert {build.CSRC_DIR / "conv_sep.cu", build.CSRC_DIR / "fft_ct.cu"} <= set(srcs)
+    link = build.link_command([obj for _cmd, obj in compiles], tmp_path / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
+    assert link[link.index("-o") + 1] == str(tmp_path / "lib.so")
+    # the library links the CUDA runtime only: no cuFFT, cuBLAS or other
+    # library of finished kernels
+    assert not [c for c in link if c.startswith(("-l", "-L")) or "cufft" in c
+                or "cublas" in c]
+    for src in srcs:
+        text = src.read_text()
+        assert "cufft" not in text.lower() and "cublas" not in text.lower()
     # the library lands under build/<package>/<source hash>/
     lib = build.library_path()
     assert lib.parent.parent == ROOT / "build" / "microimagelib_tpu_torch"
@@ -66,9 +81,10 @@ def test_importing_kernels_builds_nothing():
     proc = _run(
         "import microimagelib_tpu_torch.kernels.build as b\n"
         "import microimagelib_tpu_torch.kernels.conv_sep as k\n"
+        "import microimagelib_tpu_torch.kernels.fft_ct as f\n"
         "import microimagelib_tpu_torch.models.deconvolution\n"
         "print('STATE', b._LIB is None, k._lib is None, k.LAUNCHES,\n"
-        "      b.library_path().exists())\n")
+        "      f._lib is None, f.LAUNCHES, b.library_path().exists())\n")
     assert proc.returncode == 0, proc.stderr
     state = proc.stdout.split("STATE")[1].split()
-    assert state[:3] == ["True", "True", "0"]
+    assert state[:5] == ["True", "True", "0", "True", "0"]
