@@ -8,6 +8,15 @@ from microimagelib_tpu_torch.models.deconvolution import (
     rl_decon_dual,
     rl_decon_single,
 )
+from microimagelib_tpu_torch.models.registration import (
+    atrans3dgpu,
+    atrans3dgpu_16bit,
+    checkmatrix,
+    reg3d,
+    reg3d_affine,
+    reg3d_affine_pyramid,
+    zncc,
+)
 
 __all__ = [
     "decon_singleview",
@@ -18,4 +27,11 @@ __all__ = [
     "rl_decon_single",
     "rl_decon_dual",
     "gen_backprojector",
+    "reg3d",
+    "reg3d_affine",
+    "reg3d_affine_pyramid",
+    "atrans3dgpu",
+    "atrans3dgpu_16bit",
+    "checkmatrix",
+    "zncc",
 ]

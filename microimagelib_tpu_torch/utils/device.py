@@ -67,6 +67,13 @@ def require_cuda(device=None):
     return torch.device("cuda", index)
 
 
+def committed_platform(t):
+    """The device type a tensor lives on ('cpu', 'cuda'): the port's
+    counterpart of the JAX package's committed-platform probe, read from
+    the tensor itself."""
+    return t.device.type
+
+
 def free_memory_mb(device=None):
     """Free device memory in MB (``cudaMemGetInfo``, the records-array
     telemetry of reference:src/api_decon.cpp:103-106); -1 for the CPU or

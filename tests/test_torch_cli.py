@@ -136,3 +136,75 @@ def test_decon_dv_cli_size_mismatch_and_usage(tmp_path, capsys):
     assert pdv.HELP == jdv.HELP
     assert pdv.main(["-i1", "x.tif"]) == 1
     assert "mandatory" in capsys.readouterr().out
+
+
+# --------------------------------------------------------------------------
+# reg3D
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits,regc", [(16, 2), (32, 2), (16, 0), (32, 0)],
+                         ids=["u16-affine", "f32-affine", "u16-apply", "f32-apply"])
+def test_reg3d_cli_matches_library(tmp_path, capsys, bits, regc):
+    """The CLI's output image and .tmx file against the library call on the
+    same TIFFs: -bit 16 on 16-bit input takes the native u16 transform."""
+    from microimagelib_tpu_torch.cli import reg3d as preg
+    from microimagelib_tpu_torch.io.tiff import readtifstack_16to16
+    from microimagelib_tpu_torch.io.tmx import read_tmx, write_tmx
+    from microimagelib_tpu_torch.models.registration import atrans3dgpu_16bit, reg3d
+
+    vol = blobs((16, 20, 24), n=6, seed=1) * 50 + 100
+    writetifstack(str(tmp_path / "t.tif"), vol, bits)
+    writetifstack(str(tmp_path / "s.tif"), np.roll(vol, 2, axis=2), bits)
+    m_in = np.array([1, 0, 0, 1.5, 0, 1, 0, -0.5, 0, 0, 1, 0], np.float32)
+    write_tmx(str(tmp_path / "in.tmx"), m_in)
+    args = ["-t", str(tmp_path / "t.tif"), "-s", str(tmp_path / "s.tif"),
+            "-o", str(tmp_path / "r.tif"), "-regc", str(regc), "-affm", "1",
+            "-bit", str(bits), "-otmx", str(tmp_path / "m.tmx"), "-gm", "0",
+            "-verbOFF"]
+    if regc == 0:
+        args += ["-itmx", str(tmp_path / "in.tmx")]
+    assert preg.main(args) == 0
+    assert "Registration choice" in capsys.readouterr().out
+    img1, _ = readtifstack(str(tmp_path / "t.tif"))
+    img2, _ = readtifstack(str(tmp_path / "s.tif"))
+    reg, tmx, rec = reg3d(img1, img2, regc, 1, regc == 0, read_tmx(str(tmp_path / "in.tmx")),
+                          mem_mode=0)
+    np.testing.assert_allclose(read_tmx(str(tmp_path / "m.tmx")), tmx, atol=1e-6)
+    if regc == 2:
+        assert rec[3] > 0.95 and abs(tmx[3] - 2) < 0.35   # the +2 roll
+    else:
+        np.testing.assert_array_equal(tmx, m_in)
+    if bits == 16:
+        out, _ = readtifstack_16to16(str(tmp_path / "r.tif"))
+        src, _ = readtifstack_16to16(str(tmp_path / "s.tif"))
+        np.testing.assert_array_equal(out, atrans3dgpu_16bit(src, tmx, vol.shape,
+                                                             mem_mode=0))
+    else:
+        out, _ = readtifstack(str(tmp_path / "r.tif"))
+        np.testing.assert_array_equal(out, reg)
+
+
+def test_reg3d_cli_matches_jax_cli(tiffs, capsys):
+    """Banner and output lines as the JAX CLI prints them; the matrix
+    within 0.35 voxel of the JAX CLI's."""
+    from microimagelib_tpu.cli import reg3d as jreg
+    from microimagelib_tpu.io.tmx import read_tmx as jax_read_tmx
+    from microimagelib_tpu_torch.cli import reg3d as preg
+    from microimagelib_tpu_torch.io.tmx import read_tmx
+
+    common = ["-t", str(tiffs / "i.tif"), "-s", str(tiffs / "i2.tif"),
+              "-regc", "2", "-affm", "1", "-bit", "32", "-gm", "0", "-verbOFF"]
+    assert preg.main(common + ["-o", str(tiffs / "port.tif"),
+                               "-otmx", str(tiffs / "port.tmx")]) == 0
+    port_out = capsys.readouterr().out
+    assert jreg.main(common + ["-o", str(tiffs / "jax.tif"),
+                               "-otmx", str(tiffs / "jax.tmx")]) == 0
+    jax_out = capsys.readouterr().out
+    banner = [ln.replace("jax.t", "port.t") for ln in _banner(jax_out, "jax.tif")]
+    assert _banner(port_out, "port.tif") == banner
+    m, jm = read_tmx(str(tiffs / "port.tmx")), jax_read_tmx(str(tiffs / "jax.tmx"))
+    np.testing.assert_allclose(m[[3, 7, 11]], jm[[3, 7, 11]], atol=0.35)
+    assert preg.HELP == jreg.HELP
+    assert preg.main(["-h"]) == 0 and "-regc" in capsys.readouterr().out
+    assert preg.main(["-t", "x.tif"]) == 1
+    assert "mandatory" in capsys.readouterr().out

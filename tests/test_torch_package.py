@@ -29,7 +29,12 @@ def _run(code):
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "microimagelib_tpu_torch.models.deconvolution" in mods
+    assert {"microimagelib_tpu_torch.models.deconvolution",
+            "microimagelib_tpu_torch.models.registration",
+            "microimagelib_tpu_torch.models.registration_grad",
+            "microimagelib_tpu_torch.ops.corr",
+            "microimagelib_tpu_torch.kernels.corr",
+            "microimagelib_tpu_torch.cli.reg3d"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -61,7 +66,8 @@ def test_nvcc_command_targets_sm90a_and_csrc_only(tmp_path):
         assert len(src) == 1                    # one nvcc per source
         srcs += src
     assert all(s.parent == build.CSRC_DIR for s in srcs)
-    assert {build.CSRC_DIR / "conv_sep.cu", build.CSRC_DIR / "fft_ct.cu"} <= set(srcs)
+    assert {build.CSRC_DIR / "conv_sep.cu", build.CSRC_DIR / "fft_ct.cu",
+            build.CSRC_DIR / "corr.cu"} <= set(srcs)
     link = build.link_command([obj for _cmd, obj in compiles], tmp_path / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
     assert link[link.index("-o") + 1] == str(tmp_path / "lib.so")
@@ -82,9 +88,12 @@ def test_importing_kernels_builds_nothing():
         "import microimagelib_tpu_torch.kernels.build as b\n"
         "import microimagelib_tpu_torch.kernels.conv_sep as k\n"
         "import microimagelib_tpu_torch.kernels.fft_ct as f\n"
+        "import microimagelib_tpu_torch.kernels.corr as c\n"
         "import microimagelib_tpu_torch.models.deconvolution\n"
+        "import microimagelib_tpu_torch.models.registration\n"
         "print('STATE', b._LIB is None, k._lib is None, k.LAUNCHES,\n"
-        "      f._lib is None, f.LAUNCHES, b.library_path().exists())\n")
+        "      f._lib is None, f.LAUNCHES, c._lib is None, c.K4_LAUNCHES,\n"
+        "      c.K5_LAUNCHES, c.PLAIN_CALLS, b.library_path().exists())\n")
     assert proc.returncode == 0, proc.stderr
     state = proc.stdout.split("STATE")[1].split()
-    assert state[:5] == ["True", "True", "0", "True", "0"]
+    assert state[:9] == ["True", "True", "0", "True", "0", "True", "0", "0", "0"]
