@@ -44,10 +44,33 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      on ``MIL_NCC_IMPL=gather``: NCC within 1e-3, translations within
      0.35 voxel;
  11. the reg3D CLI on two 200 x 512 x 512 16-bit TIFFs, -regc 2 -affm 7
-     -bit 16 -otmx.
+     -bit 16 -otmx;
+ 12. compares the one-launch RL iteration kernel (K2) with its plain
+     version (max|diff| <= 2e-5 x max|ref|) and with a K1 ratio launch
+     followed by a K1 update launch (bit for bit) for the 9^3 bench PSF,
+     the fusion PSFs (z reach 12 for view A, x reach 12 for view B) and a
+     rank-2 pair at (64, 128, 128), (37, 96, 160) and (320, 512, 320); two
+     launches give identical bits; times K2 against the K1 pair;
+ 13. compares the N-probe NCC kernel (K6) with K5 (each probe bit for bit)
+     and with its plain version (rtol 1e-5) for 8 probes along a line plus
+     a 35-degree probe at the five pyramid shapes of Phase 10, and times
+     one 8-probe call against 8 K5 calls;
+ 14. runs ``fusion_dualview`` at full width: bead truth on the isotropic
+     (320, 512, 320) grid, view A blurred along z and view B moved by the
+     reg128 matrix, blurred along x and rotated, both sampled to raw
+     (52, 512, 320) at 0.1625 / 1.0 um pixels; choice 2, method 7,
+     matched PSFs, 10 iterations; (a) with MIL_CONV_SEP_FUSED=1
+     MIL_REG_BATCH_LS=1 (20 K2 launches, no K1 launch, K6 launched, no
+     plain call), (b) with both off; (a) against (b): NCC within 1e-3,
+     matrices within 0.5 voxel, the decon of one registered pair with and
+     without K2 within 2e-4; per-step wall times, ms per dual-view
+     iteration on K2, the K1 pair and ``torch.fft``, and per pyramid level
+     the syncs, evaluations and host share with and without K6;
+ 15. the spimFusion CLI on the same views as 16-bit TIFFs, -bit 16 -otmx,
+     with K2 and K6 on.
 
 It prints the card's name and power limit beside every time, ms per RL
-iteration for the K1, K3 and ``torch.fft`` routes, one JSON line
+iteration for the K1, K2, K3 and ``torch.fft`` routes, one JSON line
 describing each kernel (its time, its plain version's, the least time the
 card could take for the same work and the time of the nearest PyTorch
 library call), and as its last line
@@ -70,18 +93,23 @@ import numpy as np
 import torch
 
 from microimagelib_tpu_torch.cli import decon_dv, decon_sv, gen_bp, reg3d as reg3d_cli
+from microimagelib_tpu_torch.cli import spim_fusion as fusion_cli
 from microimagelib_tpu_torch.io.tiff import readtifstack, readtifstack_16to16, writetifstack
 from microimagelib_tpu_torch.io.tmx import read_tmx
 from microimagelib_tpu_torch.kernels import build
 from microimagelib_tpu_torch.kernels import conv_sep as K
 from microimagelib_tpu_torch.kernels import corr as C
 from microimagelib_tpu_torch.kernels import fft_ct as F
+from microimagelib_tpu_torch.kernels import rl_fused as KF
 from microimagelib_tpu_torch.models import deconvolution as D
+from microimagelib_tpu_torch.models import fusion as FU
 from microimagelib_tpu_torch.models import gen_backprojector
 from microimagelib_tpu_torch.models import registration as R
 from microimagelib_tpu_torch.ops.affine import affine_transform_3d
-from microimagelib_tpu_torch.ops.conv_sep import plan_sep
+from microimagelib_tpu_torch.ops.basics import rot_by_y_axis
+from microimagelib_tpu_torch.ops.conv_sep import plan_rl_fused, plan_sep
 from microimagelib_tpu_torch.ops.matrix import dof_to_matrix
+from microimagelib_tpu_torch.ops.resample import resize3d_separable
 
 SEED = 0
 N_ITERS = 10
@@ -89,6 +117,16 @@ DUAL_SHAPE = (320, 512, 512)
 WB_ITERS = 2          # Guo 2020's count with Wiener-Butterworth projectors
 REG_SHAPE = (256, 512, 512)
 REG_DOF = [2.0, -1.5, 1.0, 2.0, -1.0, 1.5, 1, 1, 1]   # bench_all.py:122
+FUSION_SHAPE = (320, 512, 320)   # isotropic grid of the diSPIM views
+FUSION_RAW = (52, 512, 320)      # raw views: 1.0 um steps, 0.1625 um pixels
+FUSION_PIXEL = (0.1625, 0.1625, 1.0)
+LADDER = (-2.618, -1.0, -0.382, 0.382, 1.0, 1.618, 2.618, 4.236)
+K2_SMALL = ((64, 128, 128), (37, 96, 160))   # the second: nz not a multiple of 8
+# Phase 10's pyramid level shapes; K6's JSON numbers come from the largest
+# level its Powell finisher runs at
+REG_LEVELS = ((16, 32, 128), (32, 64, 256), (64, 128, 512), (128, 256, 512),
+              REG_SHAPE)
+K6_SHAPE = (128, 256, 512)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # fp32 operations per valid voxel, counted from csrc/corr.cu: coordinates
@@ -243,7 +281,7 @@ def main():
     print(f"Phase 2: decon_singleview 512^3, bench PSF, {N_ITERS} iterations")
     psf = bench_psf()
     img = rng.random((512, 512, 512), dtype=np.float32) * 100 + 1
-    fwd, bp = D._sep_plans(psf, flip(psf), img.shape)
+    fwd, bp = D._sep_plans(psf, flip(psf), img.shape)[1]
     img_d = on_card(img)
     imgc = img_d.clamp_min(D.SMALLVALUE)
     est = imgc * 1.0
@@ -287,7 +325,7 @@ def main():
     print(f"Phase 3: decon_singleview (256, 512, 512), tilted PSF, {N_ITERS} iterations")
     tpsf = tilted_psf()
     img3 = rng.random((256, 512, 512), dtype=np.float32) * 100 + 1
-    fwd3, bp3 = D._sep_plans(tpsf, flip(tpsf), img3.shape)
+    fwd3, bp3 = D._sep_plans(tpsf, flip(tpsf), img3.shape)[1]
     print(f"  plans: fwd rank {fwd3.rank}, {fwd3.nsteps} z taps, "
           f"{fwd3.ty.shape[1]} y, {fwd3.tx.shape[1]} x taps, rolls "
           f"{fwd3.rolls is not None}; bp rank {bp3.rank}")
@@ -344,6 +382,11 @@ def main():
     corr_launches = phase10_reg(dev, card)
     phase11_reg_cli(dev)
     torch.cuda.synchronize()
+    k2 = phase12_k2(dev, card)
+    k6 = phase13_k6(dev, card)
+    main14, views = phase14_fusion(dev, card)
+    phase15_fusion_cli(views, card)
+    torch.cuda.synchronize()
 
     print(f"iteration ms at 512^3 [{card}]: " + json.dumps(iter_ms))
     nz, ny, nx = DUAL_SHAPE
@@ -392,6 +435,32 @@ def main():
             "bound_by": c["bound"][1],
             "library_ms": None,   # no single PyTorch call computes the sums
         })
+    kernels.insert(1, {
+        "name": "rl_iter_fused",
+        "route": "cuda",
+        "source": "microimagelib_tpu_torch/csrc/rl_fused.cu",
+        "replaces": "microimagelib_tpu/ops/conv_sep.py:670",
+        "launches": main14["k2"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound"][0],
+        "bound_by": k2["bound"][1],
+        "library_ms": None,   # no single PyTorch call computes an RL iteration
+    })
+    kernels.append({
+        "name": "corr3d_partials_nprobe",
+        "route": "cuda",
+        "source": "microimagelib_tpu_torch/csrc/corr.cu",
+        "replaces": "microimagelib_tpu/ops/pallas_corr.py:242",
+        "launches": main14["k6"],
+        "max_abs_err": k6["max_abs_err"],
+        "ms": k6["ms"],
+        "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound"][0],
+        "bound_by": k6["bound"][1],
+        "library_ms": None,   # no single PyTorch call computes the sums
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -508,7 +577,7 @@ def phase7_dual_matched(dev, psfs, card):
     check_close("dual matched separable vs FFT route", out_k, out_f, 2e-4, 2e-4)
     del out_k, out_f
     a_d, b_d = (torch.from_numpy(x).to(dev) for x in (a, b))
-    plans = [p for psf in (pa, pb) for p in D._sep_plans(psf, flip(psf), DUAL_SHAPE)]
+    plans = [p for psf in (pa, pb) for p in D._sep_plans(psf, flip(psf), DUAL_SHAPE)[1]]
     otfs = [D.gen_otf(p, DUAL_SHAPE, device=dev) for p in (pa, pb, flip(pa), flip(pb))]
     ms = {"K1 route": cuda_ms(lambda: D._rl_dual_sep(a_d, b_d, *plans, N_ITERS,
                                                      False), 2) / N_ITERS}
@@ -815,6 +884,358 @@ def phase11_reg_cli(dev):
               f"{C.K5_LAUNCHES - k5} K5 launches, matrix {err:.4f} voxel from the truth")
         if C.K4_LAUNCHES == k4 or C.K5_LAUNCHES == k5 or err > 0.5:
             raise AssertionError("reg3D did not register on the kernels")
+    torch.cuda.empty_cache()
+
+
+def fusion_psfs():
+    """The diSPIM views' 25^3 Gaussians: sigmas (z, y, x) (3.5, 1.2, 1.2)
+    for view A (z reach 12 on the isotropic grid), (1.2, 1.2, 3.5) for B."""
+    return (gauss3((25, 25, 25), (3.5, 1.2, 1.2)),
+            gauss3((25, 25, 25), (1.2, 1.2, 3.5)))
+
+
+def k2_bound(plan):
+    """(ms, by) of one K2 launch: est and img read once, out written once;
+    an fp32 multiply and add per tap and rank of both stages, plus the
+    ratio, the product and the max per voxel."""
+    n = int(np.prod(plan.shape))
+    taps = sum(p.rank * (p.nsteps + p.ty.shape[1] + p.tx.shape[1])
+               for p in (plan.fwd, plan.bp))
+    return bound(3 * 4 * n, n * (2 * taps + 3))
+
+
+def phase12_k2(dev, card):
+    """K2 against its plain version and the K1 pair; ms per launch at the
+    fusion grid. Returns K2's JSON numbers for view A's plan there."""
+    print("Phase 12: rl_iter_fused kernel (K2) vs rl_iter_fused_torch and the K1 pair")
+    pa, pb = fusion_psfs()
+    r2 = gauss3((7, 9, 11), (1.0, 1.5, 2.0)) + 0.3 * gauss3((7, 9, 11), (2.0, 1.0, 0.8))
+    cases = [("bench 9^3", bench_psf(), K2_SMALL[0]),
+             ("fusion A (z reach 12)", pa, K2_SMALL[0]),
+             ("fusion B (x reach 12)", pb, K2_SMALL[0]),
+             ("rank-2 pair", r2, K2_SMALL[0]),
+             ("fusion A", pa, K2_SMALL[1]),
+             ("bench 9^3", bench_psf(), FUSION_SHAPE),
+             ("fusion A (z reach 12)", pa, FUSION_SHAPE),
+             ("fusion B (x reach 12)", pb, FUSION_SHAPE)]
+    res = {}
+    for name, psf, shape in cases:
+        plan = plan_rl_fused(psf, flip(psf), shape)
+        if plan is None:
+            raise AssertionError(f"{name} {shape}: plan_rl_fused refused")
+        prng = np.random.default_rng(SEED + 12)
+        est = torch.from_numpy(prng.random(shape, dtype=np.float32) * 100 + 1).to(dev)
+        img = torch.from_numpy(prng.random(shape, dtype=np.float32) * 100 + 1).to(dev)
+        before = KF.LAUNCHES
+        out = KF.rl_iter_fused(est, img, plan)
+        again = KF.rl_iter_fused(est, img, plan)
+        torch.cuda.synchronize()
+        if KF.LAUNCHES != before + 2:
+            raise AssertionError(f"{name}: K2 launch count did not rise")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name} {shape}: two K2 launches differ")
+        ref = KF.rl_iter_fused_torch(est, img, plan)
+        err = float((out - ref).abs().max())
+        m = float(ref.abs().max())
+        del ref
+        pair = K.conv3_sep(K.conv3_sep(est, plan.fwd, aux=img, mode="ratio"),
+                           plan.bp, aux=est, mode="update")
+        same = bool(torch.equal(out, pair))
+        del out, again, pair
+        print(f"  {name} {shape}: ranks {plan.fwd.rank}/{plan.bp.rank}, z taps "
+              f"{plan.fwd.nsteps}/{plan.bp.nsteps}, x taps {plan.fwd.tx.shape[1]}/"
+              f"{plan.bp.tx.shape[1]}; vs plain {err:.6g} = {err / m:.3g} x max; "
+              f"equals the K1 pair bit for bit: {same}; launch (grid, blocks/SM, "
+              f"planes per task fwd/bp, smem bytes) {KF.LAST_CONFIG}")
+        if err > 2e-5 * m or not same:
+            raise AssertionError(f"{name} {shape}: K2 disagrees")
+        if shape == FUSION_SHAPE:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            KF.rl_iter_fused(est, img, plan)
+            host_ms = (time.perf_counter() - t) * 1e3
+            k_ms = cuda_ms(lambda: KF.rl_iter_fused(est, img, plan), 10)
+            pair_ms = cuda_ms(lambda: K.conv3_sep(
+                K.conv3_sep(est, plan.fwd, aux=img, mode="ratio"), plan.bp,
+                aux=est, mode="update"), 10)
+            plain_ms = cuda_ms(lambda: KF.rl_iter_fused_torch(est, img, plan), 2)
+            b = k2_bound(plan)
+            print(f"  K2 at {shape}, {name}: {k_ms:.4f} ms per launch, K1 ratio + "
+                  f"update {pair_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{b[0]:.4f} ms ({b[1]}), {3 * 4 * est.numel() / k_ms / 1e6:.1f} GB/s "
+                  f"of est + img + out; the launch call returns in {host_ms:.4f} ms "
+                  f"on the host [{card}]")
+            if name.startswith("fusion A"):
+                res = {"max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+                       "bound": b}
+                device_split(lambda: KF.rl_iter_fused(est, img, plan), 5,
+                             f"K2 at {shape}", card)
+        del est, img
+        torch.cuda.empty_cache()
+    return res
+
+
+def probe_matrices():
+    """A line search's 8 probes (the ladder of ops/powell_device.py) along
+    one direction from the reg128 truth, plus a wild 35-degree probe."""
+    base = np.asarray(dof_to_matrix(REG_DOF, 6), np.float32)
+    step = np.array([0.002, 0, 0.001, 0.5, 0, 0.001, 0, -0.3, 0, 0, 0.002, 0.2],
+                    np.float32)
+    mats = [base + np.float32(a) * step for a in LADDER]
+    mats.append(np.asarray(dof_to_matrix([0, 0, 0, 35.0, 0, 0, 1, 1, 1], 6), np.float32))
+    return np.stack(mats).astype(np.float32)
+
+
+def phase13_k6(dev, card):
+    """K6 against K5 per probe and its plain version at the pyramid shapes
+    of Phase 10; one 8-probe call against 8 K5 calls. Returns K6's JSON
+    numbers at K6_SHAPE."""
+    print("Phase 13: N-probe kernel (K6) vs K5 per probe and corr3d_nprobe_torch")
+    mats = probe_matrices()
+    eight = mats[:8]
+    res = {}
+    for shape in REG_LEVELS:
+        prng = np.random.default_rng(SEED + 13)
+        src = torch.from_numpy(prng.random(shape, dtype=np.float32)).to(dev)
+        tgt = torch.from_numpy(prng.random(shape, dtype=np.float32)).to(dev)
+        before = C.K6_LAUNCHES
+        rows = C.corr3d_nprobe(src, tgt, mats).cpu().numpy()
+        if C.K6_LAUNCHES - before != 2:     # 9 matrices: 8 + 1
+            raise AssertionError("K6: launch count did not rise")
+        if not np.array_equal(rows, C.corr3d_nprobe(src, tgt, mats).cpu().numpy()):
+            raise AssertionError(f"K6 {shape}: two launches differ")
+        for i, m in enumerate(mats):
+            if not np.array_equal(rows[i], C.corr3d(src, tgt, m).cpu().numpy()):
+                raise AssertionError(f"K6 {shape}: probe {i} differs from K5")
+        plain = C.corr3d_nprobe_torch(src, tgt, mats).cpu().numpy()
+        rel = float((np.abs(rows - plain) / np.abs(plain)).max())
+        if rel > 1e-5:
+            raise AssertionError(f"K6 {shape}: off its plain version by {rel}")
+        k6_ms = cuda_ms(lambda: C.corr3d_nprobe(src, tgt, eight), 20)
+        k5_ms = cuda_ms(lambda: [C.corr3d(src, tgt, m) for m in eight], 10)
+        # as the optimizer calls them: one sync per call
+        t = time.time()
+        for _ in range(10):
+            C.corr3d_nprobe(src, tgt, eight).cpu()
+        k6_sync = (time.time() - t) * 100.0
+        t = time.time()
+        for _ in range(10):
+            for m in eight:
+                C.corr3d(src, tgt, m).cpu()
+        k5_sync = (time.time() - t) * 100.0
+        plain_ms = cuda_ms(lambda: C.corr3d_nprobe_torch(src, tgt, eight), 1)
+        ones = torch.ones_like(src)
+        valid = sum(float(C.corr3d_torch(ones, src, m)[0]) for m in eight)
+        b = bound(8 * src.numel(), CORR_OPS[False] * valid)
+        print(f"  K6 {shape}: 9 probes = K5 bit for bit, plain rel {rel:.3g}; 8 probes "
+              f"{k6_ms:.4f} ms per call vs 8 K5 calls {k5_ms:.4f} ms (CUDA events), "
+              f"{k6_sync:.4f} vs {k5_sync:.4f} ms with a sync per call (host clock); "
+              f"plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]}) [{card}]")
+        if shape == K6_SHAPE:
+            res = {"max_abs_err": float(np.abs(rows - plain).max()), "ms": k6_ms,
+                   "plain_ms": plain_ms, "bound": b}
+        del src, tgt, ones
+        torch.cuda.empty_cache()
+    return res
+
+
+def fusion_views(dev):
+    """Raw views of a bead truth on the isotropic FUSION_SHAPE grid, as a
+    diSPIM records them: A blurred by view A's PSF and sampled in z; B the
+    truth moved by the reg128 matrix, blurred by view B's PSF, sampled
+    along x (its detection axis) and turned +90 degrees about y, so that
+    fusion's -90 degree turn and resample give it back on the isotropic
+    grid unshifted. Both raw views are FUSION_RAW (1.0 um steps of
+    0.1625 um pixels) in camera counts (x 2000 + 100). Returns
+    (a_raw, b_raw) numpy float32."""
+    pa, pb = fusion_psfs()
+    truth = beads(FUSION_SHAPE, SEED + 14, dev)
+
+    def blur(v, psf):
+        otf = D.gen_otf(psf, FUSION_SHAPE, device=dev)
+        return torch.fft.irfftn(torch.fft.rfftn(v) * otf, s=FUSION_SHAPE)
+
+    a = resize3d_separable(blur(truth, pa), FUSION_RAW)
+    moved = affine_transform_3d(truth, dof_to_matrix(REG_DOF, 6), FUSION_SHAPE)
+    del truth
+    nz, ny, nx = FUSION_SHAPE
+    b = rot_by_y_axis(resize3d_separable(blur(moved, pb), (nz, ny, FUSION_RAW[0])), 1)
+    del moved
+    views = tuple((v * 2000 + 100).cpu().numpy() for v in (a, b))
+    torch.cuda.empty_cache()
+    return views
+
+
+def zero_counts():
+    K.LAUNCHES = KF.LAUNCHES = F.LAUNCHES = 0
+    C.K4_LAUNCHES = C.K5_LAUNCHES = C.K6_LAUNCHES = C.PLAIN_CALLS = 0
+
+
+def counts():
+    return {"K1": K.LAUNCHES, "K2": KF.LAUNCHES, "K3": F.LAUNCHES,
+            "K4": C.K4_LAUNCHES, "K5": C.K5_LAUNCHES, "K6": C.K6_LAUNCHES,
+            "plain": C.PLAIN_CALLS}
+
+
+FUSED_ON = {"MIL_CONV_SEP_FUSED": "1", "MIL_REG_BATCH_LS": "1"}
+FUSED_OFF = {"MIL_CONV_SEP_FUSED": "0", "MIL_REG_BATCH_LS": "0"}
+
+
+def phase14_fusion(dev, card):
+    """The slice at full width: fusion_dualview with K2 and K6 on (the main
+    path) and off. Returns the main run's K2 and K6 launch counts and the
+    raw views."""
+    print(f"Phase 14: fusion_dualview, raw views {FUSION_RAW} -> {FUSION_SHAPE}, "
+          f"choice 2, method 7, {N_ITERS} iterations")
+    pa, pb = fusion_psfs()
+    t = time.time()
+    a_raw, b_raw = fusion_views(dev)
+    print(f"  views made in {time.time() - t:.3f} s")
+    inv_true = inverse12(dof_to_matrix(REG_DOF, 6))
+    runs = {}
+    for label, flags in (("a", FUSED_ON), ("b", FUSED_OFF)):
+        torch.cuda.synchronize()
+        rec = np.zeros(22)
+        zero_counts()
+        t = time.time()
+        with env(**flags):
+            decon, tmx, reg_b, a_iso = FU.fusion_dualview(
+                a_raw, b_raw, pa, pb, FUSION_PIXEL, FUSION_PIXEL, -1, 2, 7,
+                n_iters=N_ITERS, device=dev, mem_mode=1, records=rec)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        n = counts()
+        err = box_error(tmx, inv_true, FUSION_SHAPE)
+        print(f"  ({label}) {flags}: {wall:.3f} s; steps: preprocess "
+              f"{rec[21] - rec[7] - rec[20]:.3f} s, registration {rec[7]:.3f} s, "
+              f"decon {rec[20]:.3f} s (iterations {rec[19]:.3f} s), total {rec[21]:.3f} s; "
+              f"launches {n}; NCC {rec[3]:.6f} (initial {rec[1]:.6f}), "
+              f"{err:.4f} voxel from the true matrix [{card}]")
+        print(f"  ({label}) records {rec.tolist()}; matrix {np.round(tmx, 5).tolist()} "
+              f"[{card}]")
+        if decon.shape != FUSION_SHAPE or not np.isfinite(decon).all():
+            raise AssertionError(f"({label}) fused volume bad: {decon.shape}")
+        if label == "a" and (n["K2"] != 2 * N_ITERS or n["K1"] != 0 or n["K6"] < 1
+                             or n["plain"] != 0):
+            raise AssertionError(f"(a) took the wrong kernels: {n}")
+        if label == "b" and (n["K1"] != 4 * N_ITERS or n["K2"] or n["K6"]
+                             or n["plain"]):
+            raise AssertionError(f"(b) took the wrong kernels: {n}")
+        runs[label] = (rec, tmx, reg_b, a_iso, n)
+        del decon
+    (rec_a, tmx_a, reg_b, a_iso, n_a), (rec_b, tmx_b, _, _, _) = runs["a"], runs["b"]
+    d_m = box_error(tmx_a, tmx_b, FUSION_SHAPE)
+    print(f"  (a) vs (b): NCC {rec_a[3]:.6f} vs {rec_b[3]:.6f}, matrices {d_m:.4f} voxel "
+          "apart over the central half-box")
+    if abs(rec_a[3] - rec_b[3]) > 1e-3 or d_m > 0.5:
+        raise AssertionError("the K6 and serial registrations disagree")
+    outs = {}
+    for label, flag in (("K2", "1"), ("K1 pair", "0")):
+        with env(MIL_CONV_SEP_FUSED=flag):
+            outs[label] = D.decon_dualview(a_iso, reg_b, pa, pb, n_iters=N_ITERS,
+                                           device=dev, mem_mode=1)
+    check_close("decon of one registered pair, K2 vs K1 pair", outs["K2"],
+                outs["K1 pair"], 2e-4, 2e-4)
+    print(f"  bit for bit: {bool(np.array_equal(outs['K2'], outs['K1 pair']))}")
+    del outs, runs
+
+    a_d = torch.from_numpy(a_iso).to(dev)
+    fa = plan_rl_fused(pa, flip(pa), FUSION_SHAPE)
+    fb = plan_rl_fused(pb, flip(pb), FUSION_SHAPE)
+    otfs = [D.gen_otf(p, FUSION_SHAPE, device=dev) for p in (pa, pb, flip(pa), flip(pb))]
+    ms = {"K2": cuda_ms(lambda: D._rl_dual_sep_fused(a_d, reg_b, fa, fb, N_ITERS,
+                                                      False), 2) / N_ITERS,
+          "K1 pair": cuda_ms(lambda: D._rl_dual_sep(a_d, reg_b, fa.fwd, fa.bp, fb.fwd,
+                                                    fb.bp, N_ITERS, False), 2) / N_ITERS,
+          "torch.fft": cuda_ms(lambda: D._rl_dual(a_d, reg_b, *otfs, N_ITERS, False,
+                                                  "torch"), 2) / N_ITERS}
+    print(f"  ms per dual-view iteration {FUSION_SHAPE}, fusion PSFs [{card}]: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    del otfs, reg_b
+    torch.cuda.empty_cache()
+    reg_levels(dev, a_raw, b_raw, card)
+    return {"k2": n_a["K2"], "k6": n_a["K6"]}, (a_raw, b_raw)
+
+
+def reg_levels(dev, a_raw, b_raw, card):
+    """Per pyramid level of the fusion's registration: syncs, evaluations
+    and host share, with K6 (MIL_REG_BATCH_LS=1) and without."""
+    a_iso, b_iso = FU.preprocess_views(a_raw, b_raw, FUSION_PIXEL, FUSION_PIXEL, -1,
+                                       dev, as_device=True)
+    for label, flag in (("with K6", "1"), ("serial", "0")):
+        levels = []
+
+        def on_level(name, shape, secs):
+            levels.append((name, shape, secs, C.K4_LAUNCHES, C.K5_LAUNCHES,
+                           C.K6_LAUNCHES))
+
+        torch.cuda.synchronize()
+        zero_counts()
+        t = time.time()
+        with env(MIL_REG_BATCH_LS=flag):
+            _, tmx, rec = R.reg3d(a_iso, b_iso, 2, 7, device=dev, want_reg=False,
+                                  on_level=on_level)
+        wall = time.time() - t
+        print(f"  registration {label}: {wall:.3f} s, NCC {rec[3]:.6f}, "
+              f"{C.K4_LAUNCHES} K4, {C.K5_LAUNCHES} K5, {C.K6_LAUNCHES} K6 launches [{card}]")
+        prev = (0, 0, 0)
+        for name, shape, secs, n4, n5, n6 in levels:
+            d4, d5, d6 = n4 - prev[0], n5 - prev[1], n6 - prev[2]
+            prev = (n4, n5, n6)
+            factor = tuple(s // t for s, t in zip(FUSION_SHAPE, shape))
+            src = R._mean_pool(a_iso, factor) if shape != FUSION_SHAPE else a_iso
+            tgt = torch.roll(src, 1, 2).contiguous()
+            m = R._tmx_full_to_coarse(tmx, factor)
+            t4 = cuda_ms(lambda: C.corr3d(src, tgt, m, grad=True), 10)
+            t5 = cuda_ms(lambda: C.corr3d(src, tgt, m, grad=False), 10)
+            t6 = cuda_ms(lambda: C.corr3d_nprobe(src, tgt, np.stack([m] * 8)), 10)
+            kern_ms = d4 * t4 + d5 * t5 + d6 * t6
+            print(f"    level {name} {shape}: {d4 + d5 + d6} syncs, {d4 + d5 + 8 * d6} "
+                  f"evaluations ({d4} K4, {d5} K5, {d6} K6 x 8), {secs:.3f} s, host "
+                  f"share {1 - kern_ms / 1e3 / secs:.3f} (K4 {t4:.4f}, K5 {t5:.4f}, "
+                  f"K6 {t6:.4f} ms per call) [{card}]")
+            del src, tgt
+    del a_iso, b_iso
+    torch.cuda.empty_cache()
+
+
+def phase15_fusion_cli(views, card):
+    """spimFusion CLI on the Phase 14 views as 16-bit TIFFs, -bit 16 -otmx,
+    with K2 and K6 on."""
+    print(f"Phase 15: spimFusion CLI, raw {FUSION_RAW[2]} x {FUSION_RAW[1]} x "
+          f"{FUSION_RAW[0]} 16-bit TIFFs, -bit 16 -otmx, K2 and K6 on")
+    pa, pb = fusion_psfs()
+    with tempfile.TemporaryDirectory() as tmp:
+        f = {n: os.path.join(tmp, n) for n in ("a.tif", "b.tif", "pa.tif", "pb.tif",
+                                                 "out.tif", "m.tmx")}
+        writetifstack(f["a.tif"], views[0], 16)
+        writetifstack(f["b.tif"], views[1], 16)
+        writetifstack(f["pa.tif"], pa, 32)
+        writetifstack(f["pb.tif"], pb, 32)
+        zero_counts()
+        buf = io.StringIO()
+        t = time.time()
+        with env(**FUSED_ON), contextlib.redirect_stdout(buf):
+            rc = fusion_cli.main(["-i1", f["a.tif"], "-i2", f["b.tif"], "-fp1", f["pa.tif"],
+                                  "-fp2", f["pb.tif"], "-o", f["out.tif"], "-regc", "2",
+                                  "-affm", "7", "-it", str(N_ITERS), "-bit", "16",
+                                  "-otmx", f["m.tmx"], "-verbOFF"])
+        wall = time.time() - t
+        if rc != 0:
+            raise AssertionError(f"spimFusion returned {rc}")
+        for ln in buf.getvalue().splitlines():
+            if "time cost" in ln.lower():
+                print("  " + ln.strip("=* ").strip())
+        out, size = readtifstack_16to16(f["out.tif"])
+        n = counts()
+        tmx = read_tmx(f["m.tmx"])
+        err = box_error(tmx, inverse12(dof_to_matrix(REG_DOF, 6)), FUSION_SHAPE)
+        print(f"  spimFusion output {size} (x, y, z) {out.dtype}, {wall:.3f} s in main(), "
+              f"launches {n}, matrix {err:.4f} voxel from the true one [{card}]")
+        if out.shape != FUSION_SHAPE or out.dtype != np.uint16 or not out.any():
+            raise AssertionError(f"spimFusion output {out.shape} {out.dtype}")
+        if n["K2"] != 2 * N_ITERS or n["K6"] < 1 or n["K1"] or n["plain"]:
+            raise AssertionError(f"spimFusion took the wrong kernels: {n}")
     torch.cuda.empty_cache()
 
 

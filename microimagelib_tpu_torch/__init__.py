@@ -8,10 +8,13 @@ C-order ``(z, y, x)`` float32 tensors; size tuples facing TIFF files stay
 
 It covers single-view and joint dual-view Richardson-Lucy deconvolution
 (``models.deconvolution.decon_singleview`` / ``decon_dualview``, the
-``cli.decon_sv`` and ``cli.decon_dv`` CLIs) with its two kernels (the
-separable convolution and the FFT convolution), the Wiener-Butterworth
-back-projector generator (``cli.gen_bp``), TIFF/.tmx I/O and the device
-census.
+``cli.decon_sv`` and ``cli.decon_dv`` CLIs) with its kernels (the
+separable convolution, the whole RL iteration in one launch, the FFT
+convolution), the Wiener-Butterworth back-projector generator
+(``cli.gen_bp``), 3D affine registration (``models.registration.reg3d``,
+``cli.reg3d``) with its resample + NCC kernels, diSPIM dual-view fusion
+(``models.fusion.fusion_dualview``, ``cli.spim_fusion``), TIFF/.tmx I/O
+and the device census.
 The JAX package ``microimagelib_tpu`` is the reference it is tested
 against; this package never imports it or JAX.
 """

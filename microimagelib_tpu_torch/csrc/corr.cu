@@ -40,14 +40,31 @@
 //   * per thread, fp32 partials over its short run (<= ~32 voxels); the
 //     block reduces them in float64 (warp shuffles, then shared memory) and
 //     writes one row of partials: 2 (K5) or 26 (K4) doubles per block. The
-//     wrapper sums the rows in float64 (kernels/corr.py). No atomics: the
+//     rows are summed in float64 by sum_rows_kernel. No atomics: the
 //     result repeats bit for bit from run to run, so the optimizers' paths
 //     repeat. Per-voxel fp64 would put K4 on the fp64 rate; fp64 is kept at
 //     the block level.
 //   * 64-bit source offsets: a clamped z*sy*sx + y*sx + x never wraps.
 //
-// The kernel launches on the caller's stream, does not synchronise and
-// allocates nothing: the wrapper allocates the (blocks, 2 or 26) partials.
+//   * the block rows are summed by a second small kernel, one block per
+//     value, each thread over a fixed stride of rows, then a fixed shared-
+//     memory tree: the order depends only on the number of rows, so a value
+//     sums alike whichever kernel wrote its rows.
+//
+// K6 (corr_nprobe_kernel): K5's ss and st for N matrices in one launch.
+// Replaces microimagelib_tpu/ops/pallas_corr.py::_kernel_nprobe, whose
+// union-footprint DMA box, fit flag and K cascade again exist because a
+// TPU cannot gather; none of it is needed here. The probes of a line
+// search lie along one line in matrix space, so their corners overlap in
+// L1/L2: each thread reads its target voxel once and gathers the 8 corners
+// per matrix with __ldg. Blocks, rows per block, the thread's voxel order,
+// the per-voxel arithmetic, the fp32 partial pair per matrix, the block
+// reduction and the row sum are K5's, so probe i gives K5's bits for
+// matrix i. One launch writes (blocks, N, 2) doubles.
+//
+// The kernels launch on the caller's stream, do not synchronise and
+// allocate nothing: the wrapper allocates the (blocks, 2 or 26) or
+// (blocks, N, 2) partials and the summed output.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -57,9 +74,15 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocks = 2147483647;
+constexpr int kMaxProbes = 8;       // matrices per K6 launch (the ladder's 8)
+constexpr int kSumThreads = 256;
 
 struct Mat {
   float m[12];
+};
+
+struct MatN {
+  float m[kMaxProbes * 12];
 };
 
 __device__ __forceinline__ float lerp(float a, float b, float f) {
@@ -145,8 +168,8 @@ corr_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       const float c0 = lerp(c00, c01, fy), c1 = lerp(c10, c11, fy);
       const float s = lerp(c0, c1, fz);
       const float t = __ldg(trow + x);
-      acc[0] += s * s;
-      acc[1] += s * t;
+      acc[0] = __fmaf_rn(s, s, acc[0]);
+      acc[1] = __fmaf_rn(s, t, acc[1]);
       if constexpr (GRAD) {
         // ds/dc_a: the lerp of the differences along a
         const float dx0 = lerp(__fsub_rn(v001, v000), __fsub_rn(v011, v010), fy);
@@ -181,6 +204,117 @@ corr_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   block_store<NV>(acc, partials);
 }
 
+// K6: K5's voxel loop with an inner loop over the n <= kMaxProbes
+// matrices; each matrix's operations, in K5's order.
+__global__ void __launch_bounds__(kThreads)
+corr_nprobe_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
+                   double* __restrict__ partials, MatN mats, int n, int sz, int sy,
+                   int sx, int rows) {
+  float acc[kMaxProbes][2];
+#pragma unroll
+  for (int i = 0; i < kMaxProbes; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  const float hx = sx - 0.5f, hy = sy - 0.5f, hz = sz - 0.5f;
+  const long long nrows = static_cast<long long>(sz) * sy;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
+  const long long r1 = r0 + rows < nrows ? r0 + rows : nrows;
+
+  for (long long r = r0; r < r1; ++r) {
+    const int z = static_cast<int>(r / sy), y = static_cast<int>(r % sy);
+    const float yf = static_cast<float>(y), zf = static_cast<float>(z);
+    float kr[kMaxProbes][3];
+#pragma unroll
+    for (int i = 0; i < kMaxProbes; ++i) {
+      if (i >= n) break;
+      const float* m = mats.m + 12 * i;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        kr[i][a] = __fadd_rn(__fadd_rn(__fmul_rn(m[4 * a + 1], yf),
+                                       __fmul_rn(m[4 * a + 2], zf)), m[4 * a + 3]);
+    }
+    const float* trow = tgt + r * sx;
+
+    for (int x = threadIdx.x; x < sx; x += kThreads) {
+      const float xf = static_cast<float>(x);
+      const float t = __ldg(trow + x);
+#pragma unroll
+      for (int i = 0; i < kMaxProbes; ++i) {
+        if (i >= n) break;
+        const float* m = mats.m + 12 * i;
+        const float cx = __fadd_rn(__fmul_rn(m[0], xf), kr[i][0]);
+        const float cy = __fadd_rn(__fmul_rn(m[4], xf), kr[i][1]);
+        const float cz = __fadd_rn(__fmul_rn(m[8], xf), kr[i][2]);
+        if (!(cx > -0.5f && cy > -0.5f && cz > -0.5f && cx < hx && cy < hy && cz < hz))
+          continue;
+        const float x0 = floorf(cx), y0 = floorf(cy), z0 = floorf(cz);
+        const float fx = __fsub_rn(cx, x0), fy = __fsub_rn(cy, y0), fz = __fsub_rn(cz, z0);
+        const int xr = static_cast<int>(x0), yr = static_cast<int>(y0), zr = static_cast<int>(z0);
+        const int x0i = max(xr, 0), x1i = min(xr + 1, sx - 1);
+        const int y0i = max(yr, 0), y1i = min(yr + 1, sy - 1);
+        const int z0i = max(zr, 0), z1i = min(zr + 1, sz - 1);
+        const size_t b00 = (static_cast<size_t>(z0i) * sy + y0i) * sx;
+        const size_t b01 = (static_cast<size_t>(z0i) * sy + y1i) * sx;
+        const size_t b10 = (static_cast<size_t>(z1i) * sy + y0i) * sx;
+        const size_t b11 = (static_cast<size_t>(z1i) * sy + y1i) * sx;
+        const float c00 = lerp(__ldg(src + b00 + x0i), __ldg(src + b00 + x1i), fx);
+        const float c01 = lerp(__ldg(src + b01 + x0i), __ldg(src + b01 + x1i), fx);
+        const float c10 = lerp(__ldg(src + b10 + x0i), __ldg(src + b10 + x1i), fx);
+        const float c11 = lerp(__ldg(src + b11 + x0i), __ldg(src + b11 + x1i), fx);
+        const float s = lerp(lerp(c00, c01, fy), lerp(c10, c11, fy), fz);
+        acc[i][0] = __fmaf_rn(s, s, acc[i][0]);
+        acc[i][1] = __fmaf_rn(s, t, acc[i][1]);
+      }
+    }
+  }
+
+  // K5's block reduction, value by value: (probe i, k) -> column 2i + k
+  __shared__ double sh[2 * kMaxProbes][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kMaxProbes; ++i) {
+    if (i >= n) break;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      double v = static_cast<double>(acc[i][k]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) sh[2 * i + k][warp] = v;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * n) {
+    double s = 0.0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += sh[threadIdx.x][w];
+    partials[static_cast<size_t>(blockIdx.x) * 2 * n + threadIdx.x] = s;
+  }
+}
+
+// out[c] = sum over rows b of partials[b * ncols + c], one block per
+// column, in an order fixed by the row count alone.
+__global__ void __launch_bounds__(kSumThreads)
+sum_rows_kernel(const double* __restrict__ partials, double* __restrict__ out,
+                long long nrows, int ncols) {
+  __shared__ double sh[kSumThreads];
+  const int c = blockIdx.x;
+  double s = 0.0;
+  for (long long b = threadIdx.x; b < nrows; b += kSumThreads)
+    s += partials[b * ncols + c];
+  sh[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = kSumThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[c] = sh[0];
+}
+
+int sum_rows(const double* partials, double* out, long long nrows, int ncols,
+             cudaStream_t s) {
+  sum_rows_kernel<<<ncols, kSumThreads, 0, s>>>(partials, out, nrows, ncols);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -192,13 +326,14 @@ long long mil_corr3d_blocks(int sz, int sy, int rows) {
   return (nrows + rows - 1) / rows;
 }
 
-// One K5 (grad = 0) or K4 (grad = 1) launch on `stream`. `m` is a HOST
-// pointer to the 12 float32 matrix entries; `partials` holds
-// mil_corr3d_blocks(...) x (grad ? 26 : 2) doubles on the device. Returns
-// the cudaError_t of the launch, 0 on success.
+// One K5 (grad = 0) or K4 (grad = 1) launch on `stream`, then the row sum.
+// `m` is a HOST pointer to the 12 float32 matrix entries; `partials` holds
+// mil_corr3d_blocks(...) x (grad ? 26 : 2) doubles on the device, `out`
+// receives the (grad ? 26 : 2) sums. Returns the cudaError_t of the
+// launches, 0 on success.
 int mil_corr3d(const float* src, const float* tgt, const float* m,
-               double* partials, int sz, int sy, int sx, int rows, int grad,
-               void* stream) {
+               double* partials, double* out, int sz, int sy, int sx, int rows,
+               int grad, void* stream) {
   const long long blocks = mil_corr3d_blocks(sz, sy, rows);
   if (sx < 1 || blocks < 1 || blocks > kMaxBlocks || m == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -210,7 +345,33 @@ int mil_corr3d(const float* src, const float* tgt, const float* m,
     corr_kernel<true><<<grid, kThreads, 0, s>>>(src, tgt, partials, mat, sz, sy, sx, rows);
   else
     corr_kernel<false><<<grid, kThreads, 0, s>>>(src, tgt, partials, mat, sz, sy, sx, rows);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return sum_rows(partials, out, blocks, grad ? 26 : 2, s);
+}
+
+// Matrices one K6 launch takes.
+int mil_corr3d_max_probes() { return kMaxProbes; }
+
+// One K6 launch on `stream` for `n` (1..kMaxProbes) matrices, then the row
+// sum. `m` is a HOST pointer to n x 12 float32 entries; `partials` holds
+// mil_corr3d_blocks(...) x n x 2 doubles on the device, `out` receives the
+// n x 2 sums (ss, st per matrix). Returns the cudaError_t, 0 on success.
+int mil_corr3d_nprobe(const float* src, const float* tgt, const float* m, int n,
+                      double* partials, double* out, int sz, int sy, int sx,
+                      int rows, void* stream) {
+  const long long blocks = mil_corr3d_blocks(sz, sy, rows);
+  if (sx < 1 || blocks < 1 || blocks > kMaxBlocks || m == nullptr || n < 1 ||
+      n > kMaxProbes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MatN mats;
+  for (int k = 0; k < kMaxProbes * 12; ++k) mats.m[k] = k < 12 * n ? m[k] : 0.f;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  corr_nprobe_kernel<<<dim3(static_cast<unsigned>(blocks)), kThreads, 0, s>>>(
+      src, tgt, partials, mats, n, sz, sy, sx, rows);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return sum_rows(partials, out, blocks, 2 * n, s);
 }
 
 }  // extern "C"

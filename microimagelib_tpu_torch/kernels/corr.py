@@ -1,6 +1,7 @@
-"""K5 and K4: the fused affine resample + NCC partial sums of
-registration, without and with the gradient in the 12 matrix entries —
-wrapper, launch counters and plain PyTorch versions.
+"""K5, K4 and K6: the fused affine resample + NCC partial sums of
+registration, without and with the gradient in the 12 matrix entries, and
+the sums of N matrices in one launch — wrappers, launch counters and plain
+PyTorch versions.
 
 :func:`corr3d` takes a source and a target (z, y, x) float32 volume of one
 shape and a 12-vector matrix, and returns a float64 vector on the volumes'
@@ -12,6 +13,12 @@ autograd through it); a CUDA tensor runs the hand-written kernel
 ``microimagelib_tpu/ops/pallas_corr.py::_kernel`` and ``::_grad_kernel``),
 or the call raises. The kernel is exact for every matrix: there is no fit
 check and no fallback.
+
+:func:`corr3d_nprobe` takes (N, 12) matrices and returns (N, 2) float64
+``[ss, st]`` rows: K6 on a CUDA tensor (``csrc/corr.cu``, replacing
+``microimagelib_tpu/ops/pallas_corr.py::_kernel_nprobe``), whose row i
+equals K5's result for matrix i bit for bit; :func:`corr3d_nprobe_torch`
+on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -24,15 +31,21 @@ import torch
 from microimagelib_tpu_torch.kernels import build
 from microimagelib_tpu_torch.ops.affine import corr3d_grad_torch, corr3d_partials
 
-__all__ = ["corr3d", "corr3d_torch", "plain", "corr3d_partials",
-           "corr3d_grad_torch", "K4_LAUNCHES", "K5_LAUNCHES", "PLAIN_CALLS"]
+__all__ = ["corr3d", "corr3d_torch", "plain", "corr3d_nprobe",
+           "corr3d_nprobe_torch", "plain_nprobe", "corr3d_partials",
+           "corr3d_grad_torch", "K4_LAUNCHES", "K5_LAUNCHES", "K6_LAUNCHES",
+           "PLAIN_CALLS"]
 
-# kernel launches made by corr3d on CUDA tensors: K5 (grad=False), K4
+# kernel launches made by corr3d on CUDA tensors: K5 (grad=False), K4; and
+# by corr3d_nprobe: K6 (one per group of at most MAX_PROBES matrices)
 K5_LAUNCHES = 0
 K4_LAUNCHES = 0
-# calls of the plain version through plain(): CPU tensors, or
-# MIL_NCC_IMPL=gather|mxu (ops/corr.py)
+K6_LAUNCHES = 0
+# calls of the plain versions through plain() and plain_nprobe(): CPU
+# tensors, or MIL_NCC_IMPL=gather|mxu (ops/corr.py)
 PLAIN_CALLS = 0
+# matrices one K6 launch takes (csrc/corr.cu kMaxProbes)
+MAX_PROBES = 8
 
 # output voxels per block: each of the 128 threads sums ~32 in fp32
 VOXELS_PER_BLOCK = 4096
@@ -46,8 +59,14 @@ def _library():
     if _lib is None:
         lib = build.load_library()
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mil_corr3d.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.mil_corr3d.argtypes = [p] * 5 + [i] * 5 + [p]
         lib.mil_corr3d.restype = i
+        lib.mil_corr3d_nprobe.argtypes = [p] * 3 + [i] + [p] * 2 + [i] * 4 + [p]
+        lib.mil_corr3d_nprobe.restype = i
+        lib.mil_corr3d_max_probes.restype = i
+        if lib.mil_corr3d_max_probes() != MAX_PROBES:
+            raise RuntimeError("kernels/corr.py and csrc/corr.cu disagree on "
+                               "the probes per K6 launch")
         lib.mil_corr3d_blocks.argtypes = [i] * 3
         lib.mil_corr3d_blocks.restype = ctypes.c_longlong
         _lib = lib
@@ -83,6 +102,30 @@ def plain(src, tgt, tmx, grad=False):
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     return corr3d_torch(src, tgt, tmx, grad)
+
+
+def matrices12(m12s):
+    """(N, 12) matrix entries as a C-contiguous float32 numpy array."""
+    if isinstance(m12s, torch.Tensor):
+        m12s = m12s.detach().cpu().numpy()
+    m = np.ascontiguousarray(np.asarray(m12s, np.float32))
+    if m.ndim != 2 or m.shape[1] != 12 or m.shape[0] < 1:
+        raise ValueError(f"expected (N, 12) matrices, got {m.shape}")
+    return m
+
+
+def corr3d_nprobe_torch(src, tgt, m12s):
+    """Plain version of :func:`corr3d_nprobe`: (N, 2) float64 rows on the
+    volumes' device, one :func:`corr3d_partials` per matrix."""
+    return torch.stack([torch.stack(corr3d_partials(src, tgt, m))
+                        for m in matrices12(m12s)])
+
+
+def plain_nprobe(src, tgt, m12s):
+    """:func:`corr3d_nprobe_torch`, counted once in :data:`PLAIN_CALLS`."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    return corr3d_nprobe_torch(src, tgt, m12s)
 
 
 def _check(src, tgt):
@@ -126,16 +169,50 @@ def _launch(src, tgt, m, grad):
     blocks = lib.mil_corr3d_blocks(sz, sy, rows)
     nv = 26 if grad else 2
     partials = torch.empty((blocks, nv), dtype=torch.float64, device=src.device)
+    out = torch.empty(nv, dtype=torch.float64, device=src.device)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = lib.mil_corr3d(src.data_ptr(), tgt.data_ptr(), m.ctypes.data,
-                             partials.data_ptr(), sz, sy, sx, rows, int(grad),
-                             stream)
+                             partials.data_ptr(), out.data_ptr(), sz, sy, sx,
+                             rows, int(grad), stream)
     build.check(lib, err, "corr3d kernel launch")
     if grad:
         K4_LAUNCHES += 1
     else:
         K5_LAUNCHES += 1
-    # the counterpart of the TPU wrapper's jnp.sum over the spread
-    # partials: one row per block, summed in float64 (deterministic)
-    return partials.sum(dim=0)
+    return out
+
+
+def corr3d_nprobe(src, tgt, m12s):
+    """K6: (N, 2) float64 ``[ss, st]`` rows of the (N, 12) matrices
+    ``m12s``, on the volumes' device; row i is :func:`corr3d` (K5) of
+    matrix i, bit for bit. Groups of up to :data:`MAX_PROBES` matrices
+    share one launch."""
+    _check(src, tgt)
+    ms = matrices12(m12s)
+    if src.device.type == "cpu":
+        return plain_nprobe(src, tgt, ms)
+    if src.device.type != "cuda":
+        raise ValueError(f"corr3d_nprobe runs on CPU or CUDA tensors, not "
+                         f"{src.device}")
+    return torch.cat([_launch_nprobe(src, tgt, ms[i:i + MAX_PROBES])
+                      for i in range(0, ms.shape[0], MAX_PROBES)])
+
+
+def _launch_nprobe(src, tgt, ms):
+    global K6_LAUNCHES
+    lib = _library()
+    sz, sy, sx = src.shape
+    n = ms.shape[0]
+    rows = rows_per_block(sx)
+    blocks = lib.mil_corr3d_blocks(sz, sy, rows)
+    partials = torch.empty((blocks, n, 2), dtype=torch.float64, device=src.device)
+    out = torch.empty((n, 2), dtype=torch.float64, device=src.device)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.mil_corr3d_nprobe(src.data_ptr(), tgt.data_ptr(), ms.ctypes.data,
+                                    n, partials.data_ptr(), out.data_ptr(), sz,
+                                    sy, sx, rows, stream)
+    build.check(lib, err, "corr3d_nprobe kernel launch")
+    K6_LAUNCHES += 1
+    return out

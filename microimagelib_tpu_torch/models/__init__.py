@@ -8,6 +8,11 @@ from microimagelib_tpu_torch.models.deconvolution import (
     rl_decon_dual,
     rl_decon_single,
 )
+from microimagelib_tpu_torch.models.fusion import (
+    fusion_dualview,
+    imoperation3d,
+    imresize3d,
+)
 from microimagelib_tpu_torch.models.registration import (
     atrans3dgpu,
     atrans3dgpu_16bit,
@@ -34,4 +39,7 @@ __all__ = [
     "atrans3dgpu_16bit",
     "checkmatrix",
     "zncc",
+    "fusion_dualview",
+    "imoperation3d",
+    "imresize3d",
 ]

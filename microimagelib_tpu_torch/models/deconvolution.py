@@ -5,8 +5,10 @@ Guo et al. 2020 Wiener-Butterworth acceleration, models/backprojector.py).
 Two routes run the same RL iteration (reference:src/api_subfunc.cu:
 3404-3416, dual view 3634-3660): the separable route — two launches of
 the compact-PSF conv kernel K1 per view and iteration (ops/conv_sep.py,
-csrc/conv_sep.cu), taken whenever the planner accepts every projector —
-and the FFT route for PSFs the planner refuses (Wiener-Butterworth back
+csrc/conv_sep.cu), taken whenever the planner accepts every projector,
+or with ``MIL_CONV_SEP_FUSED=1`` one launch of K2 per view and iteration
+(the whole iteration fused, ops/conv_sep.py::rl_iter_fused,
+csrc/rl_fused.cu) — and the FFT route for PSFs the planner refuses (Wiener-Butterworth back
 projectors among them), or for every PSF when ``MIL_CONV_SEP=0``. The FFT
 route convolves with the hand-written kernel K3 (ops/fft_ct.py,
 csrc/fft_ct.cu) or with ``torch.fft``, as :func:`_fft_impl` decides.
@@ -41,7 +43,12 @@ from microimagelib_tpu_torch.ops.basics import (
     pad_stack_edge,
     snap_fft_size,
 )
-from microimagelib_tpu_torch.ops.conv_sep import conv3_sep, plan_sep_pair
+from microimagelib_tpu_torch.ops.conv_sep import (
+    conv3_sep,
+    plan_rl_fused,
+    plan_sep_pair,
+    rl_iter_fused,
+)
 from microimagelib_tpu_torch.ops.fft_ct import conv3_ct, ct_supported
 from microimagelib_tpu_torch.utils.device import free_memory_mb, require_cuda
 from microimagelib_tpu_torch.utils.envflags import env_on
@@ -131,21 +138,29 @@ def _convolver(fft_impl, shape, otfs):
 
 
 def _sep_plans(psf, psf_bp, fft_shape):
-    """Plan the separable route for the projector pair, or None for the
+    """Plan the separable route for the projector pair: ('fused',
+    RLFusedPlan) — the whole iteration in one K2 launch — or ('pair',
+    (fwd, bp)) for a K1 ratio launch and a K1 update launch; None for the
     FFT route. ``MIL_CONV_SEP=0`` (or ``off``) forces the FFT route;
     otherwise the separable route is taken whenever the planner accepts
-    both projectors. Tolerance cascade: exact to fp32 first, then the
-    measured-PSF tier (1e-4 relative projector error moves the RL fixed
-    point far less than fp32 FFT noise, and admits tilted/curved PSFs at
-    low rank); ``MIL_CONV_SEP_TOL`` pins one tolerance."""
+    both projectors. ``MIL_CONV_SEP_FUSED=1`` opts into the fused form
+    (default off, as in the JAX package); a pair that K2 does not take
+    (per-tap rolls) stays a pair. Tolerance cascade: exact to fp32 first,
+    then the measured-PSF tier (1e-4 relative projector error moves the RL
+    fixed point far less than fp32 FFT noise, and admits tilted/curved
+    PSFs at low rank); ``MIL_CONV_SEP_TOL`` pins one tolerance."""
     if os.environ.get("MIL_CONV_SEP", "auto") in ("0", "off"):
         return None
     tol_env = os.environ.get("MIL_CONV_SEP_TOL")
-    tols = (float(tol_env),) if tol_env else (1e-6, 1e-4)
-    for tol in tols:
+    fused_env = env_on("MIL_CONV_SEP_FUSED")
+    for tol in (float(tol_env),) if tol_env else (1e-6, 1e-4):
+        if fused_env:
+            fused = plan_rl_fused(psf, psf_bp, fft_shape, tol=tol)
+            if fused is not None:
+                return "fused", fused
         pair = plan_sep_pair(psf, psf_bp, fft_shape, tol=tol)
         if pair is not None:
-            return pair
+            return "pair", pair
     return None
 
 
@@ -251,6 +266,18 @@ def _rl_single_sep(img, fwd, bp, n_iters, const_initial, accel=False,
     return _rl_loop(step, est0, n_iters, accel, stop_tol)
 
 
+def _rl_single_sep_fused(img, plan, n_iters, const_initial, accel=False,
+                         stop_tol=None):
+    """RL where each iteration is ONE launch of K2 (``rl_iter_fused``).
+    The plan has no frame shift, so the image is not pre-rolled."""
+    img, est0 = _initial(img, const_initial)
+
+    def step(est):
+        return rl_iter_fused(est, img, plan, SMALLVALUE)
+
+    return _rl_loop(step, est0, n_iters, accel, stop_tol)
+
+
 def _rl_single(img, otf, otf_bp, n_iters, const_initial, fft_impl,
                accel=False, stop_tol=None):
     """RL over FFT convolutions, by K3 (``fft_impl='ct'``) or ``torch.fft``
@@ -283,9 +310,13 @@ def rl_decon_single(img, otf, otf_bp, n_iters, const_initial=False,
         psf_np = np.asarray(psf, np.float32)
         bp_np = (np.asarray(psf_bp, np.float32) if psf_bp is not None
                  else psf_np[::-1, ::-1, ::-1])
-        pair = _sep_plans(psf_np, bp_np, shape)
-        if pair is not None:
-            return _rl_single_sep(img, *pair, n_iters, const_initial,
+        route = _sep_plans(psf_np, bp_np, shape)
+        if route is not None:
+            kind, plan = route
+            if kind == "fused":
+                return _rl_single_sep_fused(img, plan, n_iters, const_initial,
+                                            _accel_env(), _stop_env(stop_tol))
+            return _rl_single_sep(img, *plan, n_iters, const_initial,
                                   _accel_env(), _stop_env(stop_tol))
         if otf is None:
             otf = gen_otf(psf_np, shape, device=img.device)
@@ -312,6 +343,25 @@ def _rl_dual_sep(img_a, img_b, fwd_a, bp_a, fwd_b, bp_b, n_iters,
         return half(est, img_b, fwd_b, bp_b)
 
     return _rl_loop(step, est0, n_iters, accel, stop_tol)
+
+
+def _rl_dual_sep_fused(img_a, img_b, plan_a, plan_b, n_iters, const_initial,
+                       accel=False, stop_tol=None):
+    """Dual-view RL where each view's half-iteration is ONE launch of K2:
+    two launches per iteration, view A then view B."""
+    img_a, img_b, est0 = _initial_dual(img_a, img_b, const_initial)
+
+    def step(est):
+        est = rl_iter_fused(est, img_a, plan_a, SMALLVALUE)
+        return rl_iter_fused(est, img_b, plan_b, SMALLVALUE)
+
+    return _rl_loop(step, est0, n_iters, accel, stop_tol)
+
+
+def _as_pair(route):
+    """A route's (fwd, bp) K1 plans: a fused plan holds both."""
+    kind, plan = route
+    return plan if kind == "pair" else (plan.fwd, plan.bp)
 
 
 def _rl_dual(img_a, img_b, otf_a, otf_b, otf_bp_a, otf_bp_b, n_iters,
@@ -356,12 +406,18 @@ def rl_decon_dual(img_a, img_b, otf_a, otf_b, otf_bp_a, otf_bp_b, n_iters,
                else pa[::-1, ::-1, ::-1])
         bpb = (np.asarray(psf_bp_b, np.float32) if psf_bp_b is not None
                else pb[::-1, ::-1, ::-1])
-        pair_a = _sep_plans(pa, bpa, shape)
-        pair_b = _sep_plans(pb, bpb, shape) if pair_a is not None else None
-        if pair_b is not None:
-            return _rl_dual_sep(img_a, img_b, *pair_a, *pair_b, n_iters,
-                                const_initial, _accel_env(),
-                                _stop_env(stop_tol))
+        route_a = _sep_plans(pa, bpa, shape)
+        route_b = _sep_plans(pb, bpb, shape) if route_a is not None else None
+        if route_b is not None:
+            if route_a[0] == route_b[0] == "fused":
+                return _rl_dual_sep_fused(img_a, img_b, route_a[1],
+                                          route_b[1], n_iters, const_initial,
+                                          _accel_env(), _stop_env(stop_tol))
+            # mixed fused/pair (one view's pick carries per-tap rolls, which
+            # K2 does not take): both views run as K1 pairs
+            return _rl_dual_sep(img_a, img_b, *_as_pair(route_a),
+                                *_as_pair(route_b), n_iters, const_initial,
+                                _accel_env(), _stop_env(stop_tol))
         if otf_a is None:
             otf_a, otf_b, otf_bp_a, otf_bp_b = (
                 gen_otf(p, shape, device=img_a.device)

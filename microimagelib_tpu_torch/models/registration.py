@@ -14,7 +14,7 @@ on the CUDA ``device`` (default cuda:0); -1 mode 1 when the ladder's
 ~5-volume working set fits the device's free memory. Mode 2 (host-staged
 streaming, ``_reg3d_affine_lowmem``) is not ported. Neither are the
 phasor and 2-D MIP choices of ``reg3d`` (1, 3, 4) nor the ``hybrid``
-engine: ROADMAP.md, queues 3 (fusion, MIPs and batch) and 4 (memory
+engine: ROADMAP.md, queues 3 (phasor, MIPs and batch) and 4 (memory
 tiers).
 """
 
@@ -619,7 +619,7 @@ def reg3d(img1, img2, reg_choice=2, aff_method=7, flag_tmx=False, tmx=None,
         records = np.zeros(11, dtype=np.float64)
     if reg_choice in (1, 3, 4):
         raise _not_ported(f"reg_choice {reg_choice} (phasor / 2-D MIP "
-                          "registration)", "queue 3 (fusion, MIPs and batch)")
+                          "registration)", "queue 3 (phasor, MIPs and batch)")
     if reg_choice not in (0, 2):
         raise ValueError("Wrong registration choice")
     mem_mode, dev = _reg_device(tuple(np.shape(img1)), mem_mode, device)

@@ -1,7 +1,9 @@
 """The affMethod DOF-escalation ladder over Powell (the JAX package's
 ``models/registration_device.py``): the host drives
 :func:`~microimagelib_tpu_torch.ops.powell_device.powell_device` over the
-device cost, one fused resample + NCC call (K5) per evaluation.
+device cost, one fused resample + NCC call (K5) per evaluation — or, with
+``batch_ls`` (``MIL_REG_BATCH_LS=1``), 8 probes per line-search call in one
+launch of K6 and one sync.
 
 The matrix builders are torch twins of ``ops/matrix.py`` on CPU float32
 tensors: the Powell ladder evaluates them without a gradient, and the
@@ -16,7 +18,11 @@ import math
 import numpy as np
 import torch
 
-from microimagelib_tpu_torch.ops.corr import corr3d_auto
+from microimagelib_tpu_torch.ops.corr import (
+    corr3d_auto,
+    corr3d_partials_nprobe,
+    resolve_ncc_impl,
+)
 from microimagelib_tpu_torch.ops.powell_device import powell_device
 
 _F32 = torch.float32
@@ -129,10 +135,18 @@ def _make_cost(src_ms, tgt_ms, sd_t, ncc_impl=None):
 
 
 def _make_cost_batch(src_ms, tgt_ms, sd_t, ncc_impl=None):
-    """The batched probe cost belongs to the N-probe kernel K6."""
-    raise NotImplementedError(
-        "batched line searches (MIL_REG_BATCH_LS=1) need the N-probe kernel "
-        "K6, not ported yet: ROADMAP.md, queue 2 (TPU kernels to port)")
+    """(P, 12) matrices -> (P,) float32 costs: one K6 launch and one device
+    sync on the kernel route, a loop of single costs (the plain version)
+    on the ``gather`` route."""
+    impl = resolve_ncc_impl(src_ms) if ncc_impl is None else ncc_impl
+    if impl == "pallas":
+        def fn(m12s):
+            ss, st = corr3d_partials_nprobe(src_ms, tgt_ms, m12s, impl=impl)
+            return np.array([_ncc_cost(a, b, sd_t) for a, b in zip(ss, st)],
+                            np.float32)
+        return fn
+    cost_m = _make_cost(src_ms, tgt_ms, sd_t, impl)
+    return lambda m12s: np.array([cost_m(m) for m in m12s], np.float32)
 
 
 def _dof_cost(cost_m, dof_num):
@@ -147,6 +161,26 @@ def _p12_cost(cost_m):
     def fn(p):
         return cost_m(params_to_matrix_t(_to_t(p)))
     return fn
+
+
+def _dof_cost_batch(cost_batch_m, dof_num):
+    """(P, dof_num) sub-vectors -> (P,) costs through one batched call;
+    None without a batched cost."""
+    if cost_batch_m is None:
+        return None
+
+    def fn(subs):
+        with torch.no_grad():
+            mats = torch.stack([dof_to_matrix_t(_full_dof(_to_t(s), dof_num),
+                                                dof_num) for s in subs])
+        return cost_batch_m(mats)
+    return fn
+
+
+def _p12_cost_batch(cost_batch_m):
+    if cost_batch_m is None:
+        return None
+    return lambda ps: cost_batch_m(_to_t(ps)[:, _P2M])
 
 
 def _dof_to_p12(sub, dof_num):
@@ -173,49 +207,50 @@ def reg_ladder_device(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
 
     Returns (aff_coef float32 12-vector, fret, stage costs (4,), total
     evaluations), as the JAX version does."""
-    if batch_ls:
-        _make_cost_batch(src_ms, tgt_ms, sd_t, ncc_impl)
     cost_m = _make_cost(src_ms, tgt_ms, sd_t, ncc_impl)
+    cost_batch_m = (_make_cost_batch(src_ms, tgt_ms, sd_t, ncc_impl)
+                    if batch_ls else None)
     cost12 = _p12_cost(cost_m)
+    c12b = _p12_cost_batch(cost_batch_m)
     stage_costs = np.full(4, np.nan, np.float32)
     f32 = np.float32
+
+    def dof_stage(dof_num, sub0, this_ftol, nev0=0):
+        return powell_device(_dof_cost(cost_m, dof_num), sub0, this_ftol,
+                             it_limit, nev0=nev0,
+                             cost_batch=_dof_cost_batch(cost_batch_m, dof_num))
 
     if aff_method in (1, 2, 3, 4):
         dof_num = {1: 3, 2: 6, 3: 7, 4: 9}[aff_method]
         sub0 = np.zeros(dof_num, f32)
         if dof_num >= 7:
             sub0[6:dof_num] = 1.0
-        sub, fret, nev = powell_device(_dof_cost(cost_m, dof_num), sub0, ftol,
-                                       it_limit)
+        sub, fret, nev = dof_stage(dof_num, sub0, ftol)
         aff = _dof_matrix(sub, dof_num)
         stage_costs[0] = fret
     elif aff_method == 5:
         p, fret, nev = powell_device(cost12, np.asarray(p_init12, f32), ftol,
-                                     it_limit)
+                                     it_limit, cost_batch=c12b)
         aff = _p12_matrix(p)
         stage_costs[0] = fret
     elif aff_method == 6:
-        sub, fret, nev = powell_device(_dof_cost(cost_m, 6), np.zeros(6, f32),
-                                       0.01, it_limit)
+        sub, fret, nev = dof_stage(6, np.zeros(6, f32), 0.01)
         stage_costs[0] = fret
         p, fret, nev = powell_device(cost12, _dof_to_p12(sub, 6), ftol,
-                                     it_limit, nev0=nev)
+                                     it_limit, nev0=nev, cost_batch=c12b)
         aff = _p12_matrix(p)
         stage_costs[1] = fret
     elif aff_method == 7:
-        sub3, fret, nev = powell_device(_dof_cost(cost_m, 3), np.zeros(3, f32),
-                                        0.01, it_limit)
+        sub3, fret, nev = dof_stage(3, np.zeros(3, f32), 0.01)
         stage_costs[0] = fret
-        sub6, fret, nev = powell_device(_dof_cost(cost_m, 6),
-                                        np.concatenate([sub3, np.zeros(3, f32)]),
-                                        0.01, it_limit, nev0=nev)
+        sub6, fret, nev = dof_stage(6, np.concatenate([sub3, np.zeros(3, f32)]),
+                                    0.01, nev)
         stage_costs[1] = fret
-        sub9, fret, nev = powell_device(_dof_cost(cost_m, 9),
-                                        np.concatenate([sub6, np.ones(3, f32)]),
-                                        0.005, it_limit, nev0=nev)
+        sub9, fret, nev = dof_stage(9, np.concatenate([sub6, np.ones(3, f32)]),
+                                    0.005, nev)
         stage_costs[2] = fret
         p, fret, nev = powell_device(cost12, _dof_to_p12(sub9, 9), ftol,
-                                     it_limit, nev0=nev)
+                                     it_limit, nev0=nev, cost_batch=c12b)
         aff = _p12_matrix(p)
         stage_costs[3] = fret
     else:

@@ -19,12 +19,14 @@ import torch
 
 from microimagelib_tpu_torch.models.registration_device import (
     _dof_cost,
+    _dof_cost_batch,
     _dof_matrix,
     _dof_to_p12,
     _full_dof,
     _make_cost,
     _make_cost_batch,
     _p12_cost,
+    _p12_cost_batch,
     _p12_matrix,
     _to_t,
     dof_to_matrix_t,
@@ -86,21 +88,24 @@ def reg_ladder_grad(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
     (full reference semantics); ``finish_sweeps`` caps it at N sweeps (None
     = run to Powell's ftol). ``ls_max_iters``/``ls_patience``: the
     per-stage L-BFGS step cap and ftol-stall patience (None: the MIL_LBFGS_*
-    env knobs). ``batch_ls`` needs K6 and raises."""
-    if finish and batch_ls:
-        _make_cost_batch(src_ms, tgt_ms, sd_t, ncc_impl)
+    env knobs). ``batch_ls``: the finisher's line minimizations probe 8
+    points per batched cost call (one K6 launch and one sync on the kernel
+    route) instead of serial mnbrak/brent."""
     cost_grad_m = _make_cost_grad_m(src_ms, tgt_ms, sd_t, ncc_impl)
     cost_m = _make_cost(src_ms, tgt_ms, sd_t, ncc_impl)
+    cost_batch_m = (_make_cost_batch(src_ms, tgt_ms, sd_t, ncc_impl)
+                    if (finish and batch_ls) else None)
     cost12 = _p12_cost(cost_m)
+    c12b = _p12_cost_batch(cost_batch_m)
     f32 = np.float32
 
     def lbfgs(vg, q0, this_ftol, nev0=0):
         return lbfgs_minimize(vg, q0, this_ftol, it_limit, nev0=nev0,
                               max_iters=ls_max_iters, patience=ls_patience)
 
-    def finisher(cost, p, nev):
+    def finisher(cost, p, nev, cost_batch):
         return powell_device(cost, p, ftol, it_limit, nev0=nev,
-                             max_sweeps=finish_sweeps)
+                             cost_batch=cost_batch, max_sweeps=finish_sweeps)
 
     # preconditioning scales: translations/degrees ~1 voxel per unit; scale
     # factors and raw linear entries act through ~extent/2
@@ -133,7 +138,8 @@ def reg_ladder_grad(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
         q, fret, nev = lbfgs(dof_vg(dof_num), sub0 / sc, ftol)
         sub = q * sc
         if finish:
-            sub, fret, nev = finisher(_dof_cost(cost_m, dof_num), sub, nev)
+            sub, fret, nev = finisher(_dof_cost(cost_m, dof_num), sub, nev,
+                                      _dof_cost_batch(cost_batch_m, dof_num))
         aff = _dof_matrix(sub, dof_num)
         stage_costs[0] = fret
     elif aff_method == 5:
@@ -141,7 +147,7 @@ def reg_ladder_grad(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
                              ftol)
         p = q * p12_scale
         if finish:
-            p, fret, nev = finisher(cost12, p, nev)
+            p, fret, nev = finisher(cost12, p, nev, c12b)
         aff = _p12_matrix(p)
         stage_costs[0] = fret
     elif aff_method == 6:
@@ -151,7 +157,7 @@ def reg_ladder_grad(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
         q, fret, nev = lbfgs(p12_vg, p0 / p12_scale, ftol, nev)
         p = q * p12_scale
         if finish:
-            p, fret, nev = finisher(cost12, p, nev)
+            p, fret, nev = finisher(cost12, p, nev, c12b)
         aff = _p12_matrix(p)
         stage_costs[1] = fret
     elif aff_method == 7:
@@ -170,7 +176,7 @@ def reg_ladder_grad(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
         q, fret, nev = lbfgs(p12_vg, p0 / p12_scale, ftol, nev)
         p = q * p12_scale
         if finish:
-            p, fret, nev = finisher(cost12, p, nev)
+            p, fret, nev = finisher(cost12, p, nev, c12b)
         aff = _p12_matrix(p)
         stage_costs[3] = fret
     else:

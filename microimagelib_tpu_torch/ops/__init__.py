@@ -9,6 +9,7 @@ from microimagelib_tpu_torch.ops.basics import (
     flip3,
     pad_psf_to_origin,
     pad_stack_edge,
+    rot_by_y_axis,
     snap_fft_size,
     snap_transform_size,
 )
@@ -16,6 +17,7 @@ from microimagelib_tpu_torch.ops.corr import (
     NCCPartials,
     corr3d_auto,
     corr3d_grad_pallas,
+    corr3d_partials_nprobe,
     corr3d_partials_pallas,
     resolve_ncc_impl,
 )
@@ -31,6 +33,7 @@ from microimagelib_tpu_torch.ops.matrix import (
 )
 from microimagelib_tpu_torch.ops.powell import EvalCounter, powell
 from microimagelib_tpu_torch.ops.powell_device import powell_device
+from microimagelib_tpu_torch.ops.resample import is_diagonal_tmx, resize3d_separable
 
 __all__ = [
     "affine_transform_3d",
@@ -38,6 +41,7 @@ __all__ = [
     "corr3d_grad_torch",
     "corr3d_partials_pallas",
     "corr3d_grad_pallas",
+    "corr3d_partials_nprobe",
     "corr3d_auto",
     "resolve_ncc_impl",
     "NCCPartials",
@@ -46,6 +50,9 @@ __all__ = [
     "flip3",
     "pad_psf_to_origin",
     "pad_stack_edge",
+    "rot_by_y_axis",
+    "resize3d_separable",
+    "is_diagonal_tmx",
     "snap_transform_size",
     "snap_fft_size",
     "identity_tmx",

@@ -79,6 +79,23 @@ def crop_center(img, out_shape):
     return img[..., so[0]:so[0] + oz, so[1]:so[1] + oy, so[2]:so[2] + ox]
 
 
+def rot_by_y_axis(a, direction: int):
+    """+-90-degree rotation about the Y axis by index permutation
+    (reference:include/cukernel.cuh:437-453): x and z swap extents.
+
+    direction  1: out[z', y, x'] = in[x', y, sx-1-z']
+    direction -1: out[z', y, x'] = in[sz-1-x', y, z']
+
+    Returns a contiguous tensor: the resample and NCC kernels read C
+    order."""
+    t = a.permute(2, 1, 0)
+    if direction == 1:
+        return torch.flip(t, dims=(0,)).contiguous()
+    if direction == -1:
+        return torch.flip(t, dims=(2,)).contiguous()
+    raise ValueError(f"Invalid rotation direction {direction}")
+
+
 def align_size_3d(img, out_shape):
     """Centered re-size with zero padding (or centered crop where an
     output axis is smaller) — ``alignsize3Dgpu``

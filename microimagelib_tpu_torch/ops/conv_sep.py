@@ -10,7 +10,9 @@ convolution with them needs short stencils only:
 This module plans that decomposition on the host (two-stage unfold-SVD of
 the PSF: z vs (y, x), then y vs x per component) and hands the taps to
 the hand-written CUDA kernel behind :func:`conv3_sep`
-(kernels/conv_sep.py, csrc/conv_sep.cu). Tilted or curved measured PSFs
+(kernels/conv_sep.py, csrc/conv_sep.cu), or — a whole RL iteration in one
+launch — to :func:`rl_iter_fused` (kernels/rl_fused.py,
+csrc/rl_fused.cu) through :func:`plan_rl_fused`. Tilted or curved measured PSFs
 plan at low rank through :func:`slab_align`: each z slab is recentered on
 its own mass centroid, and the kernel re-applies the shift as an exact
 per-tap xy roll at the z pass.
@@ -35,9 +37,11 @@ import numpy as np
 import torch
 
 from microimagelib_tpu_torch.kernels.conv_sep import conv3_sep, conv3_sep_torch
+from microimagelib_tpu_torch.kernels.rl_fused import rl_iter_fused, rl_iter_fused_torch
 
 __all__ = ["SepPlan", "plan_sep", "plan_from_numpy", "plan_sep_pair",
-           "slab_align", "conv3_sep", "conv3_sep_torch"]
+           "slab_align", "conv3_sep", "conv3_sep_torch", "RLFusedPlan",
+           "plan_rl_fused", "rl_iter_fused", "rl_iter_fused_torch"]
 
 # What the Hopper kernel (csrc/conv_sep.cu) takes; the planner refuses
 # anything beyond, so a plan never fails at launch. Shared memory of the
@@ -313,3 +317,37 @@ def plan_sep_pair(psf, psf_bp, shape, tol=1e-6, max_rank=MAX_RANK):
         if best is None or rank < best[0]:
             best = (rank, (fwd, bp))
     return None if best is None else best[1]
+
+
+@dataclass(frozen=True)
+class RLFusedPlan:
+    """Both RL projector stages planned for ONE kernel launch per
+    iteration (K2, :func:`rl_iter_fused`): the forward plan and the back
+    projector's, on one grid. The plans carry no frame shift (σ = 0, as
+    K1's), so the image needs no pre-roll: the JAX plan's ``meta[14:16]``
+    is (0, 0) here."""
+
+    fwd: SepPlan
+    bp: SepPlan
+
+    @property
+    def shape(self):
+        return self.fwd.shape
+
+
+def plan_rl_fused(psf, psf_bp, shape, tol=1e-6, max_rank=MAX_RANK):
+    """Plan a whole RL iteration (fwd conv -> ratio -> bp conv -> update)
+    as ONE launch of K2. Returns None when :func:`plan_sep_pair` refuses
+    the pair, or when its pick carries per-tap rolls (the recentered
+    tilted form): the JAX planner refuses those too, and callers run them
+    as K1 pairs. K2 takes whatever K1 takes otherwise — rank <= 4,
+    <= 128 z taps (the fusion PSFs' z reach of 12 among them), <= 128 y
+    and x taps — so a plan never fails at launch; the TPU planner's slab
+    height, VMEM and z-reach limits do not apply."""
+    pair = plan_sep_pair(psf, psf_bp, shape, tol=tol, max_rank=max_rank)
+    if pair is None:
+        return None
+    fwd, bp = pair
+    if fwd.rolls is not None or bp.rolls is not None:
+        return None
+    return RLFusedPlan(fwd, bp)

@@ -3,10 +3,11 @@ source against the target, with or without their gradient in the matrix
 (the JAX package's ``ops/pallas_corr.py`` and the dispatch of
 ``ops/affine_fast.py``).
 
-:func:`corr3d_partials_pallas` is K5 and :func:`corr3d_grad_pallas` K4
-(``kernels/corr.py``, ``csrc/corr.cu``); they keep the JAX package's names.
-Each call syncs once: it returns host (CPU) float64 0-d tensors, which is
-where the optimizers read them.
+:func:`corr3d_partials_pallas` is K5, :func:`corr3d_grad_pallas` K4 and
+:func:`corr3d_partials_nprobe` K6 (``kernels/corr.py``, ``csrc/corr.cu``);
+they keep the JAX package's names. Each call syncs once: it returns host
+(CPU) float64 tensors, which is where the optimizers read them — for K6
+one sync for the whole batch of matrices.
 
 ``MIL_NCC_IMPL`` selects the route, read per call from the array's own
 device: ``auto`` (default) or ``pallas`` take the kernel on a CUDA tensor;
@@ -24,7 +25,7 @@ import torch
 from microimagelib_tpu_torch.kernels import corr as K
 
 __all__ = ["corr3d_partials_pallas", "corr3d_grad_pallas", "corr3d_auto",
-           "resolve_ncc_impl", "NCCPartials"]
+           "corr3d_partials_nprobe", "resolve_ncc_impl", "NCCPartials"]
 
 _IMPLS = ("auto", "pallas", "gather", "mxu")
 
@@ -74,6 +75,23 @@ def corr3d_auto(src, tgt, tmx, impl=None):
     ``src`` (or ``impl``)."""
     v = _packed(src, tgt, tmx, False, impl)
     return v[0], v[1]
+
+
+def corr3d_partials_nprobe(src, tgt, m12s, impl=None):
+    """(ss, st) of the (N, 12) matrices ``m12s`` as host float64 tensors
+    of shape (N,), with one device sync: K6 on the kernel route (row i
+    equals K5 on matrix i bit for bit), the plain version's per-matrix
+    loop on the ``gather`` route (``impl`` as for :func:`corr3d_auto`)."""
+    if impl is None:
+        impl = resolve_ncc_impl(src)
+    if impl == "pallas":
+        out = K.corr3d_nprobe(src, tgt, m12s)
+    elif impl == "gather":
+        out = K.plain_nprobe(src, tgt, K.matrices12(m12s))
+    else:
+        raise ValueError(f"unknown NCC implementation {impl!r}")
+    out = out.cpu()
+    return out[:, 0], out[:, 1]
 
 
 class NCCPartials(torch.autograd.Function):

@@ -14,8 +14,10 @@ shared evaluation cap checked between line minimizations
 (reference:src/api_powell.c:119-360). Every value is a numpy float32, as
 the lax version's are.
 
-Not ported: the batched multi-probe line search (``cost_batch``) — it
-exists for the N-probe kernel K6 (ROADMAP.md, queue 2).
+``cost_batch`` switches the line minimizations to the batched multi-probe
+search (:func:`_linmin_nprobe`): one call evaluates 8 probes, which the
+registration ladder runs as one launch of the N-probe kernel K6 and one
+device sync.
 """
 
 from __future__ import annotations
@@ -187,13 +189,71 @@ def _linmin(cost, p, xi):
     return p + xi_new, xi_new, fmin, nev1 + nev2
 
 
-def powell_device(cost, p0, ftol, it_limit, nev0=0, max_sweeps=None):
+LS_LADDER = (-2.618, -1.0, -0.382, 0.382, 1.0, 1.618, 2.618, 4.236)
+LS_REFINE_ROUNDS = 3
+
+
+def _linmin_nprobe(cost_batch, p, xi, fret):
+    """Vectorized line minimization (the lax ``_linmin_nprobe``): one
+    two-sided golden ladder call brackets the minimum around alpha = 0,
+    then grid-refine rounds shrink the bracket (expanding golden-style
+    instead when the best probe sits on an edge) — 1 + LS_REFINE_ROUNDS
+    batched cost calls replace the ~20 serial mnbrak/brent evaluations
+    (SURVEY.md §7 step 4's multi-probe deviation). alpha = 0 (the incoming
+    point, cost ``fret``) is always a candidate, so the step never
+    regresses. ``cost_batch``: (P, n) float32 -> (P,) float32.
+    Returns (p', xi', f', nev)."""
+    n_probes = len(LS_LADDER)
+    alphas = np.array(LS_LADDER, np.float32)
+    denom = F32(n_probes + 1)
+
+    def probe(al):
+        return np.asarray(cost_batch(p[None, :] + al[:, None] * xi[None, :]),
+                          np.float32)
+
+    f1 = probe(alphas)
+    all_a = np.concatenate([np.zeros(1, np.float32), alphas])
+    all_f = np.concatenate([np.asarray([fret], np.float32), f1])
+    order = np.argsort(all_a, kind="stable")
+    a_s, f_s = all_a[order], all_f[order]
+    b = int(np.argmin(f_s))
+    n_all = n_probes + 1
+    lo = a_s[b - 1] if b > 0 else a_s[0] - (a_s[1] - a_s[0]) * GOLD
+    hi = a_s[b + 1] if b < n_all - 1 else a_s[-1] + (a_s[-1] - a_s[-2]) * GOLD
+    xb, fb = a_s[b], f_s[b]
+    nev = n_probes
+    steps = np.arange(1, n_probes + 1, dtype=np.float32) / denom
+    for _ in range(LS_REFINE_ROUNDS):
+        grid = lo + (hi - lo) * steps
+        fg = probe(grid)
+        gb = int(np.argmin(fg))
+        better = fg[gb] < fb
+        if better:
+            xb, fb = grid[gb], fg[gb]
+        width = hi - lo
+        stepw = width / denom
+        # best on an edge: the minimum may lie outside — expand golden-
+        # style past that edge instead of shrinking onto it
+        lo2 = lo - width * GOLD if better and gb == 0 else xb - stepw
+        hi = hi + width * GOLD if better and gb == n_probes - 1 else xb + stepw
+        lo = lo2
+        nev += n_probes
+    xi_new = xi * xb
+    return p + xi_new, xi_new, fb, nev
+
+
+def powell_device(cost, p0, ftol, it_limit, nev0=0, cost_batch=None,
+                  max_sweeps=None):
     """Powell over ``cost``: (n,) float32 numpy -> numpy float32 scalar.
     Returns (p_min, f_min, total_evals). ``it_limit`` caps cost
     evaluations as the reference's itNumStatic does; ``nev0`` carries the
-    count across ladder stages. ``max_sweeps`` caps the outer
-    direction-set sweeps (the gradient ladder's budgeted finisher); None
-    runs to Powell's own ftol convergence."""
+    count across ladder stages. ``cost_batch``: optional (P, n) -> (P,)
+    batched cost; when given, line minimizations run
+    :func:`_linmin_nprobe` instead of serial mnbrak/brent — same
+    direction-set semantics, 1.001 abort and it_limit accounting.
+    ``max_sweeps`` caps the outer direction-set sweeps (the gradient
+    ladder's budgeted finisher); None runs to Powell's own ftol
+    convergence."""
     p = np.asarray(p0, np.float32).copy()
     n = p.shape[0]
     ftol = F32(ftol)
@@ -202,6 +262,12 @@ def powell_device(cost, p0, ftol, it_limit, nev0=0, max_sweeps=None):
                                                         int(max_sweeps))
     fret = F32(cost(p))
     nev = int(nev0) + 1
+
+    def linmin(p, xit, fcur):
+        if cost_batch is None:
+            return _linmin(cost, p, xit)
+        return _linmin_nprobe(cost_batch, p, xit, fcur)
+
     xi = np.eye(n, dtype=np.float32)
     pt = p.copy()
     done = fret >= COST_ABORT
@@ -216,7 +282,7 @@ def powell_device(cost, p0, ftol, it_limit, nev0=0, max_sweeps=None):
                 break
             xit = xi[:, i].copy()
             fptt = fret
-            p, xit, fret, nev_lm = _linmin(cost, p, xit)
+            p, xit, fret, nev_lm = linmin(p, xit, fret)
             xi[:, i] = xit
             if abs(fptt - fret) > delta:
                 delta = abs(fptt - fret)
@@ -235,7 +301,7 @@ def powell_device(cost, p0, ftol, it_limit, nev0=0, max_sweeps=None):
                 t = (_TWO * (fp - _TWO * fret + fptt) * (fp - fret - delta) ** 2
                      - delta * (fp - fptt) ** 2)
                 if t < 0:
-                    p, xit, fret, nev_lm = _linmin(cost, p, xit)
+                    p, xit, fret, nev_lm = linmin(p, xit, fret)
                     xi[:, ibig] = xi[:, n - 1]
                     xi[:, n - 1] = xit
                     nev += nev_lm

@@ -126,7 +126,8 @@ def test_rl_tilted_psf_takes_rolled_sep_route(rng):
     img = _img(rng, shape)
     psf = tilted_gauss((17, 9, 25))
     bp = np.ascontiguousarray(psf[::-1, ::-1, ::-1])
-    fwd, bpp = PD._sep_plans(psf, bp, shape)
+    kind, (fwd, bpp) = PD._sep_plans(psf, bp, shape)
+    assert kind == "pair"
     assert fwd.rank > 1 and fwd.rolls is not None and bpp.rolls is not None
     ref = np.asarray(JD.rl_decon_single(
         jnp.asarray(img), JD.gen_otf(jnp.asarray(psf), shape),

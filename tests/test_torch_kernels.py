@@ -10,7 +10,10 @@ max|ref| against complex128 ``torch.fft`` and against its fp32 plain
 version, the JAX package's yardstick (tests/test_fft_pallas.py). K5 and
 K4: ss and st within rtol 1e-5, gs and gt within 2e-4 x max|ref| of their
 plain versions (tests/test_registration_grad.py's bounds), and equal bit
-for bit from one launch to the next."""
+for bit from one launch to the next. K2 within 2e-5 x max of its plain
+version and bit for bit a K1 ratio launch followed by a K1 update launch.
+K6's row i bit for bit K5 on matrix i, rtol 1e-5 against its plain
+version."""
 
 import numpy as np
 import pytest
@@ -19,7 +22,8 @@ import torch
 from microimagelib_tpu_torch.kernels import conv_sep as K
 from microimagelib_tpu_torch.kernels import corr as C
 from microimagelib_tpu_torch.kernels import fft_ct as F
-from microimagelib_tpu_torch.ops.conv_sep import plan_sep
+from microimagelib_tpu_torch.kernels import rl_fused as KF
+from microimagelib_tpu_torch.ops.conv_sep import plan_rl_fused, plan_sep
 from microimagelib_tpu_torch.ops.matrix import dof_to_matrix
 
 
@@ -124,3 +128,60 @@ def test_corr3d_kernels_match_plain(cuda, shape, grad):
                 scale = max(np.abs(ref[lo:hi]).max(), 1e-6)
                 np.testing.assert_allclose(out[lo:hi], ref[lo:hi],
                                            atol=2e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ("bench9", _gauss((9, 9, 9), (1.5, 1.5, 1.5)), (64, 128, 128)),
+    ("fusionA", _gauss((25, 25, 25), (3.5, 1.2, 1.2)), (40, 96, 160)),
+    ("fusionB", _gauss((25, 25, 25), (1.2, 1.2, 3.5)), (37, 96, 160)),
+    ("rank2", _gauss((7, 9, 11), (1.0, 1.5, 2.0)) + 0.3 * _gauss((7, 9, 11), (2.0, 1.0, 0.8)),
+     (20, 48, 100)),
+], ids=lambda c: c[0])
+def test_rl_fused_kernel_matches_plain_and_k1_pair(cuda, case):
+    """K2 against its plain version (2e-5 x max, tests/test_conv_sep.py's
+    bound), and bit for bit against a K1 ratio launch then a K1 update
+    launch (the same fp32 operations in the same order)."""
+    _name, psf, shape = case
+    plan = plan_rl_fused(psf, np.ascontiguousarray(psf[::-1, ::-1, ::-1]), shape)
+    assert plan is not None
+    rng = np.random.default_rng(0)
+    est = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100 + 1).to(cuda)
+    img = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100 + 1).to(cuda)
+    before = KF.LAUNCHES
+    out = KF.rl_iter_fused(est, img, plan)
+    again = KF.rl_iter_fused(est, img, plan)
+    torch.cuda.synchronize()
+    assert KF.LAUNCHES == before + 2
+    assert torch.equal(out, again)
+    ref = KF.rl_iter_fused_torch(est, img, plan)
+    assert (out - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+    ratio = K.conv3_sep(est, plan.fwd, aux=img, mode="ratio")
+    pair = K.conv3_sep(ratio, plan.bp, aux=est, mode="update")
+    assert torch.equal(out, pair)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 32, 128), (9, 7, 300), (32, 64, 512)])
+def test_nprobe_kernel_equals_k5_per_probe(cuda, shape):
+    """K6's row i is K5 on matrix i bit for bit, for 8 probes along a line
+    plus a wild 35-degree probe (two launches), and repeats bit for bit."""
+    rng = np.random.default_rng(0)
+    src = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda)
+    tgt = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda)
+    base = _CORR_MATRICES[1]
+    step = np.array([0.01, 0, 0, 0.4, 0, 0, 0, -0.2, 0, 0, 0, 0.1], np.float32)
+    mats = np.stack([base + a * step for a in (-2.618, -1.0, -0.382, 0.382,
+                                                1.0, 1.618, 2.618, 4.236)]
+                    + [dof_to_matrix([0, 0, 0, 35.0, 0, 0, 1, 1, 1], 6)]
+                    ).astype(np.float32)
+    before = (C.K6_LAUNCHES, C.K5_LAUNCHES, C.PLAIN_CALLS)
+    rows = C.corr3d_nprobe(src, tgt, mats).cpu().numpy()
+    again = C.corr3d_nprobe(src, tgt, mats).cpu().numpy()
+    assert (C.K6_LAUNCHES, C.K5_LAUNCHES, C.PLAIN_CALLS) == \
+        (before[0] + 4, before[1], before[2])
+    np.testing.assert_array_equal(rows, again)
+    for i, m in enumerate(mats):
+        np.testing.assert_array_equal(rows[i], C.corr3d(src, tgt, m).cpu().numpy())
+    plain = C.corr3d_nprobe_torch(src, tgt, mats).cpu().numpy()
+    np.testing.assert_allclose(rows, plain, rtol=1e-5)

@@ -34,7 +34,11 @@ def test_every_module_imports_without_jax():
             "microimagelib_tpu_torch.models.registration_grad",
             "microimagelib_tpu_torch.ops.corr",
             "microimagelib_tpu_torch.kernels.corr",
-            "microimagelib_tpu_torch.cli.reg3d"} <= set(mods)
+            "microimagelib_tpu_torch.cli.reg3d",
+            "microimagelib_tpu_torch.models.fusion",
+            "microimagelib_tpu_torch.ops.resample",
+            "microimagelib_tpu_torch.kernels.rl_fused",
+            "microimagelib_tpu_torch.cli.spim_fusion"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

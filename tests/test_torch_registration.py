@@ -92,7 +92,7 @@ def test_engine_auto_and_env(pair, monkeypatch):
     assert rec[5] == rec_g[5] and rec[3] == rec_g[3] and rec[5] <= 500
 
 
-def test_not_ported_raise(pair, monkeypatch):
+def test_not_ported_raise(pair):
     vol, moved = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         R.reg3d_affine(vol, moved, aff_method=1, mem_mode=0, engine="hybrid")
@@ -101,10 +101,6 @@ def test_not_ported_raise(pair, monkeypatch):
     for choice in (1, 3, 4):
         with pytest.raises(NotImplementedError, match="queue 3"):
             R.reg3d(vol, moved, reg_choice=choice, mem_mode=0)
-    monkeypatch.setenv("MIL_REG_BATCH_LS", "1")
-    for engine in ("grad", "device"):
-        with pytest.raises(NotImplementedError, match="K6"):
-            R.reg3d_affine(vol, moved, aff_method=1, mem_mode=0, engine=engine)
 
 
 def test_needs_cuda_outside_mode_0(pair, monkeypatch):
