@@ -53,8 +53,11 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      launches give identical bits; times K2 against the K1 pair;
  13. compares the N-probe NCC kernel (K6) with K5 (each probe bit for bit)
      and with its plain version (rtol 1e-5) for 8 probes along a line plus
-     a 35-degree probe at the five pyramid shapes of Phase 10, and times
-     one 8-probe call against 8 K5 calls;
+     a 35-degree probe at every level shape of Phase 14's registration
+     ((10, 16, 320) ... (320, 512, 320)) and at the five pyramid shapes of
+     Phase 10, and times one 8-probe call against 8 K5 calls; K6's numbers
+     in the kernels line are those of the largest level where Phase 14
+     launched it;
  14. runs ``fusion_dualview`` at full width: bead truth on the isotropic
      (320, 512, 320) grid, view A blurred along z and view B moved by the
      reg128 matrix, blurred along x and rotated, both sampled to raw
@@ -122,11 +125,10 @@ FUSION_RAW = (52, 512, 320)      # raw views: 1.0 um steps, 0.1625 um pixels
 FUSION_PIXEL = (0.1625, 0.1625, 1.0)
 LADDER = (-2.618, -1.0, -0.382, 0.382, 1.0, 1.618, 2.618, 4.236)
 K2_SMALL = ((64, 128, 128), (37, 96, 160))   # the second: nz not a multiple of 8
-# Phase 10's pyramid level shapes; K6's JSON numbers come from the largest
-# level its Powell finisher runs at
+# Phase 10's pyramid level shapes (x = 128, 256, 512), which Phase 13 checks
+# K6 at beside the fusion's own levels
 REG_LEVELS = ((16, 32, 128), (32, 64, 256), (64, 128, 512), (128, 256, 512),
               REG_SHAPE)
-K6_SHAPE = (128, 256, 512)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # fp32 operations per valid voxel, counted from csrc/corr.cu: coordinates
@@ -201,6 +203,23 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def alone_cuda_ms(fn, reps):
+    """Mean ms of ``fn`` with the device idle before each call (CUDA events
+    around each call alone), after one warm-up call."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def check_close(name, out, ref, rtol, atol_rel):
@@ -387,6 +406,16 @@ def main():
     main14, views = phase14_fusion(dev, card)
     phase15_fusion_cli(views, card)
     torch.cuda.synchronize()
+    # K6 was held against K5 at every shape the fusion launched it at; its
+    # JSON numbers are those of the largest such shape
+    unchecked = set(main14["k6_shapes"]) - set(k6)
+    if not main14["k6_shapes"] or unchecked:
+        raise AssertionError(f"K6 launched at {main14['k6_shapes']}, Phase 13 did not "
+                             f"check {sorted(unchecked)}")
+    k6_shape = max(main14["k6_shapes"], key=lambda s: int(np.prod(s)))
+    print(f"K6's numbers below are at {k6_shape}, the largest level the fusion's "
+          f"finisher launched K6 at (of {main14['k6_shapes']})")
+    k6 = k6[k6_shape]
 
     print(f"iteration ms at 512^3 [{card}]: " + json.dumps(iter_ms))
     nz, ny, nx = DUAL_SHAPE
@@ -718,8 +747,10 @@ def phase9_corr(dev, card):
 
 
 def device_split(fn, reps, label, card):
-    """Device time per call of each kernel ``fn`` launches, by
-    torch.profiler (printed; 'not measured' when the trace has none)."""
+    """Device time per launch of each kernel ``fn`` launches, by
+    torch.profiler, with the number of launches the trace holds out of the
+    ``reps`` calls (a trace can miss some; printed, 'not measured' when the
+    trace has none)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -728,11 +759,11 @@ def device_split(fn, reps, label, card):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.device_time_total / 1e3 / reps)
-            for e in prof.key_averages() if e.device_time_total > 0]
-    text = ", ".join(f"{k[:40]} {v:.4f} ms" for k, v in
+    rows = [(e.key, e.device_time_total / 1e3 / e.count, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0 and e.count]
+    text = ", ".join(f"{k[:40]} {v:.4f} ms ({n} in the trace)" for k, v, n in
                      sorted(rows, key=lambda r: -r[1])) or "not measured"
-    print(f"  {label}, device time per call by kernel: {text} [{card}]")
+    print(f"  {label}, device time per launch by kernel, {reps} calls: {text} [{card}]")
 
 
 def beads(shape, seed, dev, sigma=3.0):
@@ -955,12 +986,14 @@ def phase12_k2(dev, card):
             KF.rl_iter_fused(est, img, plan)
             host_ms = (time.perf_counter() - t) * 1e3
             k_ms = cuda_ms(lambda: KF.rl_iter_fused(est, img, plan), 10)
+            alone_ms = alone_cuda_ms(lambda: KF.rl_iter_fused(est, img, plan), 5)
             pair_ms = cuda_ms(lambda: K.conv3_sep(
                 K.conv3_sep(est, plan.fwd, aux=img, mode="ratio"), plan.bp,
                 aux=est, mode="update"), 10)
             plain_ms = cuda_ms(lambda: KF.rl_iter_fused_torch(est, img, plan), 2)
             b = k2_bound(plan)
-            print(f"  K2 at {shape}, {name}: {k_ms:.4f} ms per launch, K1 ratio + "
+            print(f"  K2 at {shape}, {name}: {k_ms:.4f} ms per launch ({alone_ms:.4f} "
+                  f"ms for a launch alone), K1 ratio + "
                   f"update {pair_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
                   f"{b[0]:.4f} ms ({b[1]}), {3 * 4 * est.numel() / k_ms / 1e6:.1f} GB/s "
                   f"of est + img + out; the launch call returns in {host_ms:.4f} ms "
@@ -986,15 +1019,25 @@ def probe_matrices():
     return np.stack(mats).astype(np.float32)
 
 
+def fusion_levels():
+    """The shapes the fusion's registration runs at: each level of the
+    automatic pyramid of FUSION_SHAPE (x stays 320: it pools only while it
+    stays a multiple of 128), then full size."""
+    return [tuple(s // k for s, k in zip(FUSION_SHAPE, f))
+            for f in R.pyramid_levels(R._auto_pool_factors(FUSION_SHAPE))] \
+        + [FUSION_SHAPE]
+
+
 def phase13_k6(dev, card):
-    """K6 against K5 per probe and its plain version at the pyramid shapes
-    of Phase 10; one 8-probe call against 8 K5 calls. Returns K6's JSON
-    numbers at K6_SHAPE."""
+    """K6 against K5 per probe and its plain version at every level shape of
+    the fusion's registration (Phase 14's main path) and at Phase 10's
+    pyramid shapes; one 8-probe call against 8 K5 calls. Returns K6's JSON
+    numbers per shape."""
     print("Phase 13: N-probe kernel (K6) vs K5 per probe and corr3d_nprobe_torch")
     mats = probe_matrices()
     eight = mats[:8]
     res = {}
-    for shape in REG_LEVELS:
+    for shape in fusion_levels() + list(REG_LEVELS):
         prng = np.random.default_rng(SEED + 13)
         src = torch.from_numpy(prng.random(shape, dtype=np.float32)).to(dev)
         tgt = torch.from_numpy(prng.random(shape, dtype=np.float32)).to(dev)
@@ -1031,9 +1074,8 @@ def phase13_k6(dev, card):
               f"{k6_ms:.4f} ms per call vs 8 K5 calls {k5_ms:.4f} ms (CUDA events), "
               f"{k6_sync:.4f} vs {k5_sync:.4f} ms with a sync per call (host clock); "
               f"plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]}) [{card}]")
-        if shape == K6_SHAPE:
-            res = {"max_abs_err": float(np.abs(rows - plain).max()), "ms": k6_ms,
-                   "plain_ms": plain_ms, "bound": b}
+        res[shape] = {"max_abs_err": float(np.abs(rows - plain).max()), "ms": k6_ms,
+                      "plain_ms": plain_ms, "bound": b}
         del src, tgt, ones
         torch.cuda.empty_cache()
     return res
@@ -1153,15 +1195,17 @@ def phase14_fusion(dev, card):
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
     del otfs, reg_b
     torch.cuda.empty_cache()
-    reg_levels(dev, a_raw, b_raw, card)
-    return {"k2": n_a["K2"], "k6": n_a["K6"]}, (a_raw, b_raw)
+    k6_shapes = reg_levels(dev, a_raw, b_raw, card)
+    return {"k2": n_a["K2"], "k6": n_a["K6"], "k6_shapes": k6_shapes}, (a_raw, b_raw)
 
 
 def reg_levels(dev, a_raw, b_raw, card):
     """Per pyramid level of the fusion's registration: syncs, evaluations
-    and host share, with K6 (MIL_REG_BATCH_LS=1) and without."""
+    and host share, with K6 (MIL_REG_BATCH_LS=1) and without. Returns the
+    shapes of the levels where K6 launched."""
     a_iso, b_iso = FU.preprocess_views(a_raw, b_raw, FUSION_PIXEL, FUSION_PIXEL, -1,
                                        dev, as_device=True)
+    k6_shapes = []
     for label, flag in (("with K6", "1"), ("serial", "0")):
         levels = []
 
@@ -1182,6 +1226,8 @@ def reg_levels(dev, a_raw, b_raw, card):
         for name, shape, secs, n4, n5, n6 in levels:
             d4, d5, d6 = n4 - prev[0], n5 - prev[1], n6 - prev[2]
             prev = (n4, n5, n6)
+            if d6:
+                k6_shapes.append(tuple(shape))
             factor = tuple(s // t for s, t in zip(FUSION_SHAPE, shape))
             src = R._mean_pool(a_iso, factor) if shape != FUSION_SHAPE else a_iso
             tgt = torch.roll(src, 1, 2).contiguous()
@@ -1197,6 +1243,7 @@ def reg_levels(dev, a_raw, b_raw, card):
             del src, tgt
     del a_iso, b_iso
     torch.cuda.empty_cache()
+    return k6_shapes
 
 
 def phase15_fusion_cli(views, card):

@@ -34,11 +34,13 @@
 //     times. Loads go out four planes at a time, and the z taps sit in
 //     shared memory between zero pads, so the (plane, output) FMAs need no
 //     range test (an earlier form with per-FMA range tests was bound by its
-//     ~3x more instructions). Then, per plane, the y stencil into a staging
-//     row block and the x stencil into registers, summing the ranks there.
-//     Q shrinks when
-//     the halo is wide, so a block stays within ~110 KB of shared memory
-//     (two blocks per SM) or, for the widest taps, within 227 KB (one).
+//     ~3x more instructions); only a column whose outputs come out inf or
+//     NaN is summed again with the tests, so that 0 * inf cannot reach an
+//     output the value's taps do not. Then, per plane, the y stencil into a
+//     staging row block and the x stencil into registers, summing the ranks
+//     there. Q shrinks when the halo is wide, so a block stays within
+//     ~110 KB of shared memory (two blocks per SM) or, for the widest taps,
+//     within 227 KB (one).
 //   * rounding: every z tap, y tap and x tap is an fmaf in K1's order
 //     (csrc/conv_sep.cu), the ranks add in K1's order and the epilogues are
 //     K1's, so K2 gives the bits of a K1 ratio launch followed by a K1
@@ -99,6 +101,57 @@ struct Params {
 __device__ __forceinline__ int wrap(int i, int n) {
   const int r = i % n;
   return r < 0 ? r + n : r;
+}
+
+// The z convolution of one halo column for the up to kMaxQ outputs of a
+// task: zacc[qq] = sum over t of tzr[t] * col[plane zstart + qq + t]. The
+// kLoadBatch planes of a batch are loaded before any of them is used, so
+// that many loads are in flight per thread; the FMAs then run in plane
+// order, which keeps every output's taps in K1's order. Plane pl feeds
+// output qq with tap pl - qq. Untested (TESTED false), a tap out of range
+// reads a zero pad, and fmaf(0, v, acc) leaves acc as it is for a finite v;
+// TESTED skips those FMAs, for columns that hold an inf or NaN.
+template <int STAGE, bool TESTED>
+__device__ __forceinline__ void z_column(const float* col, int zstart, int nplanes, int nz,
+                                         size_t plane, const float* tzr, int nsteps,
+                                         float (&zacc)[kMaxQ]) {
+#pragma unroll
+  for (int qq = 0; qq < kMaxQ; ++qq) zacc[qq] = 0.f;
+  int zi = zstart;
+  for (int pl0 = 0; pl0 < nplanes; pl0 += kLoadBatch) {
+    float val[kLoadBatch];
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+      val[u] = 0.f;
+      if (pl0 + u < nplanes) {
+        const float* src = col + (size_t)zi * plane;
+        val[u] = STAGE == 0 ? __ldg(src) : __ldcg(src);
+        zi = (zi + 1 == nz) ? 0 : zi + 1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+#pragma unroll
+      for (int qq = 0; qq < kMaxQ; ++qq) {
+        const int t = pl0 + u - qq;
+        if (!TESTED || (t >= 0 && t < nsteps)) zacc[qq] = fmaf(tzr[t], val[u], zacc[qq]);
+      }
+    }
+  }
+}
+
+// The tested z_column, out of line (it runs only for non-finite columns,
+// and must not cost the common path registers), writing output qq < qn to
+// dst[qq * stride].
+template <int STAGE>
+__device__ __noinline__ void z_column_tested(const float* col, int zstart, int nplanes,
+                                             int nz, size_t plane, const float* tzr,
+                                             int nsteps, int qn, float* dst, int stride) {
+  float zacc[kMaxQ];
+  z_column<STAGE, true>(col, zstart, nplanes, nz, plane, tzr, nsteps, zacc);
+#pragma unroll
+  for (int qq = 0; qq < kMaxQ; ++qq)
+    if (qq < qn) dst[qq * stride] = zacc[qq];
 }
 
 // STAGE 0: ratio = img / fwd(est). STAGE 1: out = max(est * bp(ratio), sv).
@@ -163,37 +216,22 @@ __device__ void run_stage(const Params& p, float* smem) {
         const int iy = e / hx, ix = e - iy * hx;
         const float* col = in + (size_t)s_row[iy] * nx + s_col[ix];
         float zacc[kMaxQ];
-#pragma unroll
-        for (int qq = 0; qq < kMaxQ; ++qq) zacc[qq] = 0.f;
-        // kLoadBatch planes are loaded before any of them is used, so that
-        // many loads are in flight per thread; the FMAs then run in plane
-        // order, which keeps every output's taps in K1's order
-        int zi = zstart;
-        for (int pl0 = 0; pl0 < nplanes; pl0 += kLoadBatch) {
-          float val[kLoadBatch];
-#pragma unroll
-          for (int u = 0; u < kLoadBatch; ++u) {
-            val[u] = 0.f;
-            if (pl0 + u < nplanes) {
-              const float* src = col + (size_t)zi * plane;
-              val[u] = STAGE == 0 ? __ldg(src) : __ldcg(src);
-              zi = (zi + 1 == nz) ? 0 : zi + 1;
-            }
-          }
-          // plane pl feeds output qq with tap pl - qq; out of the tap
-          // range the padded tap is 0 and fmaf(0, v, acc) leaves acc as it
-          // is (the planes hold finite values), so each output still sums
-          // exactly its taps, in order
-#pragma unroll
-          for (int u = 0; u < kLoadBatch; ++u) {
-#pragma unroll
-            for (int qq = 0; qq < kMaxQ; ++qq)
-              zacc[qq] = fmaf(tzr[pl0 + u - qq], val[u], zacc[qq]);
-          }
-        }
+        z_column<STAGE, false>(col, zstart, nplanes, nz, plane, tzr, nsteps, zacc);
+        // the untested FMAs turn 0 * inf into NaN in outputs the inf does
+        // not reach (a ratio over fwd(est) <= 0 holds such planes): a
+        // column with a non-finite output is summed again with range tests
+        bool finite = true;
 #pragma unroll
         for (int qq = 0; qq < kMaxQ; ++qq)
-          if (qq < qn) s_zs[qq * halo + e] = zacc[qq];
+          finite = finite && (qq >= qn || isfinite(zacc[qq]));
+        if (finite) {
+#pragma unroll
+          for (int qq = 0; qq < kMaxQ; ++qq)
+            if (qq < qn) s_zs[qq * halo + e] = zacc[qq];
+        } else {
+          z_column_tested<STAGE>(col, zstart, nplanes, nz, plane, tzr, nsteps, qn,
+                                 s_zs + e, halo);
+        }
       }
       const float* kyr = s_ty + r * ly;
       const float* kxr = s_tx + r * lx;

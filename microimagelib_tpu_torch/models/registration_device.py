@@ -18,11 +18,7 @@ import math
 import numpy as np
 import torch
 
-from microimagelib_tpu_torch.ops.corr import (
-    corr3d_auto,
-    corr3d_partials_nprobe,
-    resolve_ncc_impl,
-)
+from microimagelib_tpu_torch.ops.corr import corr3d_auto, corr3d_partials_nprobe
 from microimagelib_tpu_torch.ops.powell_device import powell_device
 
 _F32 = torch.float32
@@ -135,18 +131,14 @@ def _make_cost(src_ms, tgt_ms, sd_t, ncc_impl=None):
 
 
 def _make_cost_batch(src_ms, tgt_ms, sd_t, ncc_impl=None):
-    """(P, 12) matrices -> (P,) float32 costs: one K6 launch and one device
-    sync on the kernel route, a loop of single costs (the plain version)
-    on the ``gather`` route."""
-    impl = resolve_ncc_impl(src_ms) if ncc_impl is None else ncc_impl
-    if impl == "pallas":
-        def fn(m12s):
-            ss, st = corr3d_partials_nprobe(src_ms, tgt_ms, m12s, impl=impl)
-            return np.array([_ncc_cost(a, b, sd_t) for a, b in zip(ss, st)],
-                            np.float32)
-        return fn
-    cost_m = _make_cost(src_ms, tgt_ms, sd_t, impl)
-    return lambda m12s: np.array([cost_m(m) for m in m12s], np.float32)
+    """(P, 12) matrices -> (P,) float32 costs through one
+    ``corr3d_partials_nprobe`` call and one device sync: K6 on the kernel
+    route, its plain version (one single cost per matrix) on ``gather``."""
+    def fn(m12s):
+        ss, st = corr3d_partials_nprobe(src_ms, tgt_ms, m12s, impl=ncc_impl)
+        return np.array([_ncc_cost(a, b, sd_t) for a, b in zip(ss, st)],
+                        np.float32)
+    return fn
 
 
 def _dof_cost(cost_m, dof_num):

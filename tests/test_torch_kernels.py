@@ -162,7 +162,33 @@ def test_rl_fused_kernel_matches_plain_and_k1_pair(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 32, 128), (9, 7, 300), (32, 64, 512)])
+@pytest.mark.parametrize("where", ["zero-slab", "inf-plane"])
+def test_rl_fused_kernel_nonfinite_planes_match_k1_pair(cuda, where):
+    """A zero slab in est makes fwd(est) 0 and the ratio inf (stage 2 sees
+    inf planes); an inf plane in est reaches stage 1. Either way K2 gives
+    the K1 pair's bits: a non-finite value spreads only as far as its
+    taps reach, not to the other outputs of its z batch."""
+    shape = (48, 32, 64)
+    psf = _gauss((9, 5, 5), (1.5, 1.0, 1.0))
+    plan = plan_rl_fused(psf, np.ascontiguousarray(psf[::-1, ::-1, ::-1]), shape)
+    rng = np.random.default_rng(0)
+    est = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100 + 1).to(cuda)
+    img = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100 + 1).to(cuda)
+    if where == "zero-slab":
+        est[13:33] = 0.0
+    else:
+        est[21] = float("inf")
+    out = KF.rl_iter_fused(est, img, plan)
+    ratio = K.conv3_sep(est, plan.fwd, aux=img, mode="ratio")
+    pair = K.conv3_sep(ratio, plan.bp, aux=est, mode="update")
+    stage_input = ratio if where == "zero-slab" else est
+    assert not torch.isfinite(stage_input).all()
+    assert torch.equal(out.view(torch.int32), pair.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 32, 128), (9, 7, 300), (32, 64, 512),
+                                   (10, 16, 320)])
 def test_nprobe_kernel_equals_k5_per_probe(cuda, shape):
     """K6's row i is K5 on matrix i bit for bit, for 8 probes along a line
     plus a wild 35-degree probe (two launches), and repeats bit for bit."""

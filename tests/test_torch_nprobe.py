@@ -165,7 +165,7 @@ def test_batch_ls_registration_reaches_serial_ncc(pair, monkeypatch, engine):
 def test_batch_ladder_kernel_route_matches_plain_route(pair):
     """The ladder's batched cost on the kernel route (corr3d_partials_nprobe,
     one call per batch: K6 on a card, its plain version here) and on the
-    plain route (a loop of single costs) walk the same points."""
+    plain route (the same call's gather branch) walk the same points."""
     vol, moved = pair
     src, tgt, _se2, st2 = R._reg_stats(torch.from_numpy(moved), torch.from_numpy(vol))
     sd_t = float(np.sqrt(st2))
@@ -176,7 +176,9 @@ def test_batch_ladder_kernel_route_matches_plain_route(pair):
     n_kernel_route = K.PLAIN_CALLS - before
     out_p = RD.reg_ladder_device(src, tgt, sd_t, p0, 6, 1e-4, 3000,
                                  ncc_impl="gather", batch_ls=True)
+    n_plain_route = K.PLAIN_CALLS - before - n_kernel_route
     np.testing.assert_array_equal(out_k[0], out_p[0])
     assert out_k[1] == out_p[1] and out_k[3] == out_p[3]
     # one plain call per batched cost call, one per single evaluation
     assert 0 < n_kernel_route < out_k[3]
+    assert n_plain_route == n_kernel_route
