@@ -70,7 +70,16 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      iteration on K2, the K1 pair and ``torch.fft``, and per pyramid level
      the syncs, evaluations and host share with and without K6;
  15. the spimFusion CLI on the same views as 16-bit TIFFs, -bit 16 -otmx,
-     with K2 and K6 on.
+     with K2 and K6 on;
+ 16. compares the copy in K1's launch shapes (K7) with its plain version,
+     bit for bit, in both geometries at 512^3 (shift 4) and at four
+     smaller shapes, two of them off the tile multiples; two launches
+     give identical bits; holds it against ``torch.add(aux, v,
+     alpha=1e-6)`` (within 1 ulp: that call need not round as one FMA)
+     and times the three; then runs
+     the roofline tool (``microimagelib_tpu_torch.tools.conv_roofline``)
+     at 512^3 in-process, prints its lines and checks every value is
+     finite and positive and that K1 and K7 launched in its run.
 
 It prints the card's name and power limit beside every time, ms per RL
 iteration for the K1, K2, K3 and ``torch.fft`` routes, one JSON line
@@ -103,6 +112,7 @@ from microimagelib_tpu_torch.kernels import build
 from microimagelib_tpu_torch.kernels import conv_sep as K
 from microimagelib_tpu_torch.kernels import corr as C
 from microimagelib_tpu_torch.kernels import fft_ct as F
+from microimagelib_tpu_torch.kernels import pipe_copy as P
 from microimagelib_tpu_torch.kernels import rl_fused as KF
 from microimagelib_tpu_torch.models import deconvolution as D
 from microimagelib_tpu_torch.models import fusion as FU
@@ -113,6 +123,7 @@ from microimagelib_tpu_torch.ops.basics import rot_by_y_axis
 from microimagelib_tpu_torch.ops.conv_sep import plan_rl_fused, plan_sep
 from microimagelib_tpu_torch.ops.matrix import dof_to_matrix
 from microimagelib_tpu_torch.ops.resample import resize3d_separable
+from microimagelib_tpu_torch.tools import conv_roofline
 
 SEED = 0
 N_ITERS = 10
@@ -135,6 +146,11 @@ FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # 6, box 6, floor and fractions 6, seven lerps 21, ss/st 4 (K5); the three
 # derivative lerps 19 and the gradient sums 24 on top (K4)
 CORR_OPS = {False: 43, True: 86}
+# K7's (shape, shift) cases: the roofline's 512^3 with the bench plan's z
+# reach; two shapes off the 8-plane chunk and the (16, 64) tile, the last
+# with nz - 1; one chunk and tile; the TPU's shift at the CPU test's shape
+PIPE_COPY_CASES = (((512, 512, 512), 4), ((24, 40, 100), 0), ((37, 96, 160), 36),
+                   ((8, 16, 64), 0), ((32, 128, 128), 8))
 
 
 def gauss3(p, s):
@@ -406,6 +422,7 @@ def main():
     main14, views = phase14_fusion(dev, card)
     phase15_fusion_cli(views, card)
     torch.cuda.synchronize()
+    k7 = phase16_roofline(dev, card)
     # K6 was held against K5 at every shape the fusion launched it at; its
     # JSON numbers are those of the largest such shape
     unchecked = set(main14["k6_shapes"]) - set(k6)
@@ -489,6 +506,19 @@ def main():
         "bound_ms": k6["bound"][0],
         "bound_by": k6["bound"][1],
         "library_ms": None,   # no single PyTorch call computes the sums
+    })
+    kernels.append({
+        "name": "pipe_copy",
+        "route": "cuda",
+        "source": "microimagelib_tpu_torch/csrc/pipe_copy.cu",
+        "replaces": "tools/conv_roofline.py:130",
+        "launches": k7["launches"],
+        "max_abs_err": k7["max_abs_err"],
+        "ms": k7["ms"],
+        "plain_ms": k7["plain_ms"],
+        "bound_ms": k7["bound"][0],
+        "bound_by": k7["bound"][1],
+        "library_ms": k7["library_ms"],
     })
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1109,14 +1139,14 @@ def fusion_views(dev):
 
 
 def zero_counts():
-    K.LAUNCHES = KF.LAUNCHES = F.LAUNCHES = 0
+    K.LAUNCHES = KF.LAUNCHES = F.LAUNCHES = P.LAUNCHES = 0
     C.K4_LAUNCHES = C.K5_LAUNCHES = C.K6_LAUNCHES = C.PLAIN_CALLS = 0
 
 
 def counts():
     return {"K1": K.LAUNCHES, "K2": KF.LAUNCHES, "K3": F.LAUNCHES,
             "K4": C.K4_LAUNCHES, "K5": C.K5_LAUNCHES, "K6": C.K6_LAUNCHES,
-            "plain": C.PLAIN_CALLS}
+            "K7": P.LAUNCHES, "plain": C.PLAIN_CALLS}
 
 
 FUSED_ON = {"MIL_CONV_SEP_FUSED": "1", "MIL_REG_BATCH_LS": "1"}
@@ -1284,6 +1314,90 @@ def phase15_fusion_cli(views, card):
         if n["K2"] != 2 * N_ITERS or n["K6"] < 1 or n["K1"] or n["plain"]:
             raise AssertionError(f"spimFusion took the wrong kernels: {n}")
     torch.cuda.empty_cache()
+
+
+def k7_times(v, aux, shift, card):
+    """K7 at ``v``'s shape against ``torch.add(aux, v, alpha=1e-6)`` (the
+    PyTorch call for the same function at shift 0, within 1 ulp: it need
+    not round as one FMA), then ms per call of both geometries, the plain
+    version and that call."""
+    n_vox = v.numel()
+    lib = torch.add(aux, v, alpha=1e-6)
+    d = (P.pipe_copy(v, aux, 0) - lib).abs()
+    ulps = float((d / (torch.nextafter(lib.abs(), torch.full_like(lib, math.inf))
+                       - lib.abs())).max())
+    print(f"  torch.add(aux, v, alpha=1e-6) vs K7 at shift 0, {tuple(v.shape)}: "
+          f"{int((d > 0).sum())} voxels differ, at most {ulps:.3g} ulp (tolerance 1 ulp)")
+    if ulps > 1:
+        raise AssertionError("K7 and torch.add differ by more than 1 ulp")
+    del lib, d
+    ms = {g: cuda_ms(lambda: P.pipe_copy(v, aux, shift, g), 20) for g in P.GEOMETRIES}
+    plain_ms = cuda_ms(lambda: P.pipe_copy_torch(v, aux, shift), 2)
+    lib_ms = cuda_ms(lambda: torch.add(aux, v, alpha=1e-6), 20)
+    b = bound(3 * 4 * n_vox, n_vox)
+    print(f"  K7 at {tuple(v.shape)} shift {shift}: z geometry {ms['z']:.4f} ms "
+          f"({12 * n_vox / ms['z'] / 1e6:.1f} GB/s), xy geometry {ms['xy']:.4f} ms "
+          f"({12 * n_vox / ms['xy'] / 1e6:.1f} GB/s); torch.add {lib_ms:.4f} ms "
+          f"({12 * n_vox / lib_ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]}) [{card}]")
+    return {"ms": ms["xy"], "plain_ms": plain_ms, "bound": b, "library_ms": lib_ms}
+
+
+def phase16_roofline(dev, card):
+    """K7 against its plain version at PIPE_COPY_CASES and timed at 512^3;
+    then the roofline tool at 512^3, its path's run, with the counts zeroed
+    before it. Returns K7's JSON numbers."""
+    print("Phase 16: pipe_copy kernel (K7) vs pipe_copy_torch; the conv_roofline "
+          "tool at 512^3")
+    t16 = time.time()
+    err = 0.0
+    for shape, shift in PIPE_COPY_CASES:
+        prng = np.random.default_rng(SEED + 16)
+        v = torch.from_numpy(prng.random(shape, dtype=np.float32) * 100 + 1).to(dev)
+        aux = torch.from_numpy(prng.random(shape, dtype=np.float32) * 100 + 1).to(dev)
+        ref = P.pipe_copy_torch(v, aux, shift)
+        for geometry in P.GEOMETRIES:
+            before = P.LAUNCHES
+            out = P.pipe_copy(v, aux, shift, geometry)
+            again = P.pipe_copy(v, aux, shift, geometry)
+            torch.cuda.synchronize()
+            if P.LAUNCHES != before + 2:
+                raise AssertionError(f"K7 {shape}: launch count did not rise")
+            if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+                raise AssertionError(f"K7 {shape} {geometry}: two launches differ")
+            if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"K7 {shape} shift {shift} {geometry}: differs "
+                                     "from pipe_copy_torch")
+            err = max(err, float((out - ref).abs().max()))
+        print(f"  K7 {shape} shift {shift}: geometries z and xy equal pipe_copy_torch "
+              "bit for bit, two launches identical")
+        del out, again, ref
+        if shape == (512, 512, 512):
+            timed = k7_times(v, aux, shift, card)
+        del v, aux
+        torch.cuda.empty_cache()
+
+    zero_counts()
+    buf = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = conv_roofline.main(["--size", "512"])
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    n = counts()
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print("  " + ln)
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    bad = [r["metric"] for r in rows if not (math.isfinite(r["value"]) and r["value"] > 0)]
+    print(f"  conv_roofline: {len(rows)} metrics in {wall:.3f} s, launches {n}")
+    if rc != 0 or len(rows) != 22 or bad:
+        raise AssertionError(f"conv_roofline: rc {rc}, {len(rows)} metrics, bad {bad}")
+    if n["K7"] == 0 or n["K1"] == 0:
+        raise AssertionError(f"conv_roofline did not run on K1 and K7: {n}")
+    torch.cuda.empty_cache()
+    print(f"  Phase 16 took {time.time() - t16:.3f} s")
+    return dict(timed, launches=n["K7"], max_abs_err=err)
 
 
 def rl_iteration_ms(img_d, psf, fwd, bp, card, label):

@@ -13,8 +13,9 @@ separable convolution, the whole RL iteration in one launch, the FFT
 convolution), the Wiener-Butterworth back-projector generator
 (``cli.gen_bp``), 3D affine registration (``models.registration.reg3d``,
 ``cli.reg3d``) with its resample + NCC kernels, diSPIM dual-view fusion
-(``models.fusion.fusion_dualview``, ``cli.spim_fusion``), TIFF/.tmx I/O
-and the device census.
+(``models.fusion.fusion_dualview``, ``cli.spim_fusion``), TIFF/.tmx I/O,
+the device census, and the separable convolution's roofline probe
+(``tools.conv_roofline``) with its copy kernel.
 The JAX package ``microimagelib_tpu`` is the reference it is tested
 against; this package never imports it or JAX.
 """

@@ -15,7 +15,7 @@ import torch
 
 from microimagelib_tpu_torch.kernels import build
 
-__all__ = ["conv3_sep", "conv3_sep_torch", "LAUNCHES"]
+__all__ = ["conv3_sep", "conv3_sep_torch", "zpass_torch", "xypass_torch", "LAUNCHES"]
 
 # kernel launches made by conv3_sep (one per call on a CUDA tensor)
 LAUNCHES = 0
@@ -44,28 +44,42 @@ def _epilogue(acc, aux, mode, smallvalue):
     return acc
 
 
-def conv3_sep_torch(v, plan, aux=None, mode="plain", smallvalue=0.01):
-    """Plain version of :func:`conv3_sep`: ``torch.roll`` and multiply-add
-    over the taps, per rank z (with the per-tap xy rolls), then y, then x,
-    then the epilogue — the kernel's order."""
-    acc = torch.zeros_like(v)
+def zpass_torch(v, plan):
+    """The plain version of the kernel's first launch: the (R, nz, ny, nx)
+    rank volumes of the z taps (with the per-tap xy rolls)."""
+    zs = torch.zeros((plan.rank, *v.shape), dtype=v.dtype, device=v.device)
     for r in range(plan.rank):
-        zs = torch.zeros_like(v)
         for s in range(plan.nsteps):
             t = float(plan.tz[r, s])
             if t == 0.0:
                 continue
             dy, dx = (0, 0) if plan.rolls is None else plan.rolls[s]
-            zs.add_(torch.roll(v, (plan.a - s, int(dy), int(dx)), (0, 1, 2)),
-                    alpha=t)
-        ys = torch.zeros_like(v)
+            zs[r].add_(torch.roll(v, (plan.a - s, int(dy), int(dx)), (0, 1, 2)),
+                       alpha=t)
+    return zs
+
+
+def xypass_torch(zs, plan, aux=None, mode="plain", smallvalue=0.01):
+    """The plain version of the kernel's second launch: per rank volume
+    the y taps, then the x taps, summed over the ranks, then the
+    epilogue."""
+    acc = torch.zeros_like(zs[0])
+    for r in range(plan.rank):
+        ys = torch.zeros_like(acc)
         for i in range(plan.ty.shape[1]):
-            ys.add_(torch.roll(zs, plan.oy + i, 1), alpha=float(plan.ty[r, i]))
-        xs = zs.zero_()
+            ys.add_(torch.roll(zs[r], plan.oy + i, 1), alpha=float(plan.ty[r, i]))
+        xs = torch.zeros_like(acc)
         for j in range(plan.tx.shape[1]):
             xs.add_(torch.roll(ys, plan.ox + j, 2), alpha=float(plan.tx[r, j]))
         acc += xs
     return _epilogue(acc, aux, mode, smallvalue)
+
+
+def conv3_sep_torch(v, plan, aux=None, mode="plain", smallvalue=0.01):
+    """Plain version of :func:`conv3_sep`: ``torch.roll`` and multiply-add
+    over the taps, per rank z (with the per-tap xy rolls), then y, then x,
+    then the epilogue — the kernel's order and its two launches."""
+    return xypass_torch(zpass_torch(v, plan), plan, aux, mode, smallvalue)
 
 
 def _check(t, name, shape):

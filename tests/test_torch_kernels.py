@@ -13,7 +13,8 @@ plain versions (tests/test_registration_grad.py's bounds), and equal bit
 for bit from one launch to the next. K2 within 2e-5 x max of its plain
 version and bit for bit a K1 ratio launch followed by a K1 update launch.
 K6's row i bit for bit K5 on matrix i, rtol 1e-5 against its plain
-version."""
+version. K7 bit for bit its plain version in both launch geometries (one
+float32 FMA per voxel on both sides)."""
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ import torch
 from microimagelib_tpu_torch.kernels import conv_sep as K
 from microimagelib_tpu_torch.kernels import corr as C
 from microimagelib_tpu_torch.kernels import fft_ct as F
+from microimagelib_tpu_torch.kernels import pipe_copy as K7
 from microimagelib_tpu_torch.kernels import rl_fused as KF
 from microimagelib_tpu_torch.ops.conv_sep import plan_rl_fused, plan_sep
 from microimagelib_tpu_torch.ops.matrix import dof_to_matrix
@@ -211,3 +213,27 @@ def test_nprobe_kernel_equals_k5_per_probe(cuda, shape):
         np.testing.assert_array_equal(rows[i], C.corr3d(src, tgt, m).cpu().numpy())
     plain = C.corr3d_nprobe_torch(src, tgt, mats).cpu().numpy()
     np.testing.assert_allclose(rows, plain, rtol=1e-5)
+
+
+# K7's shapes in chip_smoke.py's Phase 16: the roofline's 512^3 with the
+# bench plan's shift, and shapes off the z-chunk and xy-tile multiples
+PIPE_COPY_CASES = [((512, 512, 512), 4), ((24, 40, 100), 0), ((37, 96, 160), 36),
+                   ((8, 16, 64), 0), ((32, 128, 128), 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PIPE_COPY_CASES, ids=lambda c: f"{c[0]}-shift{c[1]}")
+@pytest.mark.parametrize("geometry", ["z", "xy"])
+def test_pipe_copy_kernel_equals_plain(cuda, case, geometry):
+    shape, shift = case
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100 + 1).to(cuda)
+    aux = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100 + 1).to(cuda)
+    before = K7.LAUNCHES
+    out = K7.pipe_copy(v, aux, shift, geometry)
+    again = K7.pipe_copy(v, aux, shift, geometry)
+    torch.cuda.synchronize()
+    assert K7.LAUNCHES == before + 2
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    ref = K7.pipe_copy_torch(v, aux, shift)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))

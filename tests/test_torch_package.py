@@ -38,7 +38,9 @@ def test_every_module_imports_without_jax():
             "microimagelib_tpu_torch.models.fusion",
             "microimagelib_tpu_torch.ops.resample",
             "microimagelib_tpu_torch.kernels.rl_fused",
-            "microimagelib_tpu_torch.cli.spim_fusion"} <= set(mods)
+            "microimagelib_tpu_torch.cli.spim_fusion",
+            "microimagelib_tpu_torch.kernels.pipe_copy",
+            "microimagelib_tpu_torch.tools.conv_roofline"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -71,7 +73,7 @@ def test_nvcc_command_targets_sm90a_and_csrc_only(tmp_path):
         srcs += src
     assert all(s.parent == build.CSRC_DIR for s in srcs)
     assert {build.CSRC_DIR / "conv_sep.cu", build.CSRC_DIR / "fft_ct.cu",
-            build.CSRC_DIR / "corr.cu"} <= set(srcs)
+            build.CSRC_DIR / "corr.cu", build.CSRC_DIR / "pipe_copy.cu"} <= set(srcs)
     link = build.link_command([obj for _cmd, obj in compiles], tmp_path / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
     assert link[link.index("-o") + 1] == str(tmp_path / "lib.so")
@@ -93,11 +95,15 @@ def test_importing_kernels_builds_nothing():
         "import microimagelib_tpu_torch.kernels.conv_sep as k\n"
         "import microimagelib_tpu_torch.kernels.fft_ct as f\n"
         "import microimagelib_tpu_torch.kernels.corr as c\n"
+        "import microimagelib_tpu_torch.kernels.pipe_copy as p\n"
         "import microimagelib_tpu_torch.models.deconvolution\n"
         "import microimagelib_tpu_torch.models.registration\n"
+        "import microimagelib_tpu_torch.tools.conv_roofline\n"
         "print('STATE', b._LIB is None, k._lib is None, k.LAUNCHES,\n"
         "      f._lib is None, f.LAUNCHES, c._lib is None, c.K4_LAUNCHES,\n"
-        "      c.K5_LAUNCHES, c.PLAIN_CALLS, b.library_path().exists())\n")
+        "      c.K5_LAUNCHES, c.PLAIN_CALLS, p._lib is None, p.LAUNCHES,\n"
+        "      b.library_path().exists())\n")
     assert proc.returncode == 0, proc.stderr
     state = proc.stdout.split("STATE")[1].split()
-    assert state[:9] == ["True", "True", "0", "True", "0", "True", "0", "0", "0"]
+    assert state[:11] == ["True", "True", "0", "True", "0", "True", "0", "0", "0",
+                          "True", "0"]
