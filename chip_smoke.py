@@ -18,17 +18,25 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      volume (rank > 1 with per-tap rolls; rtol/atol 5e-4);
   4. runs the deconSingleView CLI on a 200 x 512 x 512 16-bit TIFF;
   5. compares the FFT-convolution kernel (K3) with complex128
-     ``torch.fft`` and with its fp32 plain version at four grids, odd
-     factors 3 and 5 among them (max|diff| <= 1e-4 * max|ref|);
+     ``torch.fft`` and with its fp32 plain version at ten grids, odd
+     factors 3 and 5 among them and 128, 256, 320 and 512 on every axis
+     (max|diff| <= 1e-4 * max|ref|), checking that the kernel's radix
+     plans and spectrum pitch are the host's and which axes took the
+     length-specialised transforms; at (320, 512, 512) the five launches'
+     device times (torch.profiler), each against the bytes it must move
+     and the z-shaped K7 copy's rate, and each kernel's registers, shared
+     bytes and resident blocks; then K3 against ``torch.fft`` on a ladder
+     of eleven grids and the voxel count from which K3 wins on those whose
+     every axis takes the specialised transform;
   6. runs ``decon_dualview`` on two (320, 512, 512) views with
      anisotropic 25^3 PSFs and Wiener-Butterworth back projectors, 2
-     iterations: exactly 8 K3 calls, no K1 launch, and within 2e-3 of the
-     same run on ``torch.fft``;
+     iterations, MIL_FFT_IMPL=pallas: exactly 8 K3 calls, no K1 launch,
+     and within 2e-3 of the same run on ``torch.fft``;
   7. the same views with matched (flipped) PSFs, 10 iterations: the
      separable route, exactly 40 K1 launches, within 2e-4 of the FFT
      route;
   8. the genBackProjector and deconDualView CLIs on two 200 x 512 x 512
-     16-bit TIFFs (grid (256, 512, 512), so K3 runs);
+     16-bit TIFFs (grid (256, 512, 512), MIL_FFT_IMPL=pallas, so K3 runs);
   9. compares the registration kernels K5 (resample + NCC sums) and K4
      (the sums and their gradient in the matrix) with their plain
      versions at (16, 32, 128), (64, 128, 512) and (256, 512, 512), five
@@ -528,41 +536,153 @@ def main():
     return 0
 
 
+# Phase 5's gate grids: the first four, then the card test's grids that put
+# 128, 256, 320 and 512 on each axis (and an odd row count)
+K3_GRIDS = ((32, 32, 128), (64, 96, 128), DUAL_SHAPE, (256, 512, 512),
+            (128, 256, 128), (320, 48, 512), (64, 512, 320), (256, 40, 256), (5, 3, 512),
+            (512, 24, 64))
+# grids, by voxel count, on which K3 is timed against torch.fft. Among those
+# whose every axis takes the length-specialised transform, the smallest
+# count from which K3 wins at that grid and every larger one is the FFT
+# route's auto threshold (models/deconvolution.py CT_MIN_VOXELS); the rest
+# (z 64 in the first, generic lengths snap_fft_size gives in the last three)
+# show what the generic path costs, where auto takes torch.fft
+K3_LADDER = ((128, 128, 128), (128, 128, 256), (64, 256, 256), (128, 256, 256),
+             (128, 256, 512), (128, 512, 512), (256, 512, 512), DUAL_SHAPE,
+             (64, 384, 384), (192, 384, 384), (384, 512, 512))
+
+
+def k3_inputs(shape, rng, dev):
+    """A volume from ``rng`` and the OTF of a random PSF (seeded), on the card."""
+    psf = np.random.default_rng(SEED).random(shape, dtype=np.float32)
+    otf = torch.fft.rfftn(torch.from_numpy(psf / psf.sum()).to(dev)).contiguous()
+    v = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100).to(dev)
+    return v, otf
+
+
 def phase5_k3(dev, rng, card):
-    """K3 against complex128 torch.fft and its fp32 plain version; ms per
-    convolution at the two large grids. Returns the kernel's JSON numbers
-    at DUAL_SHAPE."""
+    """K3 against complex128 torch.fft and its fp32 plain version at
+    K3_GRIDS, with the axes that took the length-specialised path; the
+    five launches' split at DUAL_SHAPE; the ladder and the threshold it
+    gives. Returns the kernel's JSON numbers at DUAL_SHAPE and the
+    threshold."""
     print("Phase 5: conv3_ct kernel vs complex128 torch.fft and conv3_ct_torch")
     res = {}
-    for shape in ((32, 32, 128), (64, 96, 128), DUAL_SHAPE, (256, 512, 512)):
-        prng = np.random.default_rng(SEED)
-        psf = prng.random(shape, dtype=np.float32)
-        otf = torch.fft.rfftn(torch.from_numpy(psf / psf.sum()).to(dev)).contiguous()
-        del psf
-        v = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100).to(dev)
-        before = F.LAUNCHES
+    lengths = sorted({n for shape in K3_GRIDS + K3_LADDER for n in shape})
+    for n in lengths:   # the kernel's plan tables against the host's
+        want = (F.spec_pitch(n), F.radix_plan(n) or ())
+        if F.kernel_plan(n) != want:
+            raise AssertionError(f"K3 length {n}: kernel plan {F.kernel_plan(n)}, "
+                                 f"host {want}")
+    print(f"  kernel plans and pitches match the host's at lengths {lengths}")
+    # the grids added after the first four draw from their own generator, so
+    # the later phases' data stay as they were
+    own = np.random.default_rng(SEED + 5)
+    for i, shape in enumerate(K3_GRIDS):
+        v, otf = k3_inputs(shape, rng if i < 4 else own, dev)
+        before, spec_before = F.LAUNCHES, dict(F.LAUNCHES_SPECIALISED)
         out = F.conv3_ct(v, otf)
         torch.cuda.synchronize()
         if F.LAUNCHES != before + 1:
             raise AssertionError(f"K3 {shape}: launch count did not rise")
+        rose = {a: F.LAUNCHES_SPECIALISED[a] - spec_before[a] for a in "xyz"}
+        want = {a: int(F.radix_plan(n) is not None) for a, n in zip("zyx", shape)}
+        if rose != want:
+            raise AssertionError(f"K3 {shape}: specialised axes {rose}, expected {want}")
         ref = torch.fft.irfftn(torch.fft.rfftn(v.double()) * otf.to(torch.complex128),
                                s=shape).float()
-        check_close(f"K3 {shape} vs complex128", out.cpu(), ref.cpu(), 0.0, 1e-4)
+        check_close(f"K3 {shape} (specialised {''.join(a for a in 'xyz' if rose[a]) or '-'})"
+                    " vs complex128", out.cpu(), ref.cpu(), 0.0, 1e-4)
         del ref
         plain = F.conv3_ct_torch(v, otf)
         check_close(f"K3 {shape} vs conv3_ct_torch", out.cpu(), plain.cpu(), 0.0, 1e-4)
-        err = float((out - plain).abs().max())
-        del out, plain
-        if shape[0] >= 256:
-            k_ms = cuda_ms(lambda: F.conv3_ct(v, otf), 10)
-            p_ms = cuda_ms(lambda: F.conv3_ct_torch(v, otf), 10)
-            print(f"  K3 at {shape}: kernel {k_ms:.3f} ms, conv3_ct_torch "
-                  f"{p_ms:.3f} ms per convolution [{card}]")
-            if shape == DUAL_SHAPE:
-                res = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+        if shape == DUAL_SHAPE:
+            res["max_abs_err"] = float((out - plain).abs().max())
+        del out, plain, v, otf
+        torch.cuda.empty_cache()
+    split, timed = k3_split(dev, card)
+    res.update(ms=timed["ms"], plain_ms=timed["plain_ms"], split=split)
+
+    print(f"  K3 against torch.fft by grid (CUDA events, 10 calls) [{card}]:")
+    ladder = []
+    for shape in K3_LADDER:
+        v, otf = k3_inputs(shape, own, dev)
+        k_ms = cuda_ms(lambda: F.conv3_ct(v, otf), 10)
+        t_ms = cuda_ms(lambda: F.conv3_ct_torch(v, otf), 10)
+        full = F.ct_specialised(shape)
+        if full:
+            ladder.append((int(np.prod(shape)), k_ms, t_ms))
+        generic = "".join(a for a, n in zip("zyx", shape) if not F.radix_plan(n))
+        print(f"    {shape} ({int(np.prod(shape))} voxels, generic axes "
+              f"{generic or '-'}): K3 {k_ms:.3f} ms, torch.fft {t_ms:.3f} ms "
+              f"({'K3' if k_ms < t_ms else 'torch.fft'} wins; auto takes "
+              f"{D._fft_impl(shape, v)})")
         del v, otf
         torch.cuda.empty_cache()
+    ladder.sort()
+    res["threshold"] = next((vox for i, (vox, _k, _t) in enumerate(ladder)
+                             if all(k < t for _v, k, t in ladder[i:])), None)
+    print(f"  on the all-specialised grids K3 wins from {res['threshold']} voxels on "
+          f"(None: nowhere); the FFT route's auto default is {D.CT_MIN_VOXELS}")
     return res
+
+
+# K3's five launches in order, each with the kernel names that run it (the
+# y launches of the first version shared one name, y_kernel)
+K3_LAUNCHES = (("x forward", ("x_forward",)), ("y forward", ("y_forward", "y_kernel")),
+               ("z x OTF", ("z_kernel",)), ("y inverse", ("y_inverse", "y_kernel")),
+               ("x inverse", ("x_inverse",)))
+
+
+def k3_launch_bytes(shape):
+    """Bytes each of K3's five launches must move at ``shape``: v and out
+    float32, the half spectrum and the OTF complex64, each read or written
+    once per launch."""
+    nz, ny, nx = shape
+    vol, spec = 4 * nz * ny * nx, 8 * nz * ny * (nx // 2 + 1)
+    return {"x forward": vol + spec, "y forward": 2 * spec, "z x OTF": 3 * spec,
+            "y inverse": 2 * spec, "x inverse": spec + vol}
+
+
+def k3_split(dev, card, shape=DUAL_SHAPE):
+    """K3's five launches at ``shape``: device time per launch by
+    torch.profiler (``device_split``), each launch's bytes and its rate
+    against the z-shaped K7 copy timed at the same shape in this run; then
+    K3 and ``torch.fft`` per call. Returns {launch: ms} and the call times."""
+    prng = np.random.default_rng(SEED + 5)
+    v = torch.from_numpy(prng.random(shape, dtype=np.float32) * 100).to(dev)
+    otf = torch.fft.rfftn(v / v.sum()).contiguous()
+    aux = v + 1
+    ceil = 12 * v.numel() / (cuda_ms(lambda: P.pipe_copy(v, aux, 4, "z"), 20) * 1e-3)
+    del aux
+    rows = device_split(lambda: F.conv3_ct(v, otf), 10, f"K3 {shape}", card)
+    nbytes = k3_launch_bytes(shape)
+    split = {}
+    print(f"  K3 {shape} by launch, against the z-shaped K7 copy's {ceil / 1e12:.3f} "
+          f"TB/s at that shape [{card}]:")
+    for launch, names in K3_LAUNCHES:
+        hits = [ms for key, ms, _n in rows if any(n in key for n in names)]
+        if len(hits) != 1:
+            raise AssertionError(f"K3 split: {len(hits)} kernels for {launch}")
+        ms = split[launch] = hits[0]
+        rate = nbytes[launch] / (ms * 1e-3)
+        print(f"    {launch}: {ms:.4f} ms, {nbytes[launch] / 1e6:.1f} MB, "
+              f"{rate / 1e12:.3f} TB/s = {100 * rate / ceil:.1f}% of the copy")
+    total = sum(nbytes.values())
+    print(f"    five launches {sum(split.values()):.4f} ms for {total / 1e9:.3f} GB; "
+          f"at the copy's rate {total / ceil * 1e3:.4f} ms")
+    k_ms = cuda_ms(lambda: F.conv3_ct(v, otf), 10)
+    t_ms = cuda_ms(lambda: F.conv3_ct_torch(v, otf), 10)
+    print(f"  K3 {shape}: kernel {k_ms:.3f} ms, torch.fft {t_ms:.3f} ms per call [{card}]")
+    attrs = F.kernel_attrs(shape)
+    for (launch, _names), a in zip(K3_LAUNCHES, attrs):
+        print(f"    {launch}: {a['registers']} registers ({a['spill_bytes']} bytes "
+              f"spilled) a thread, {a['static_smem'] + a['dynamic_smem']} shared bytes "
+              f"and {a['threads']} threads a block, {a['blocks_per_sm']} blocks "
+              f"({a['blocks_per_sm'] * a['threads'] // 32} warps) per SM")
+    del v, otf
+    torch.cuda.empty_cache()
+    return split, {"ms": k_ms, "plain_ms": t_ms, "copy_bps": ceil, "attrs": attrs}
 
 
 def dual_psfs():
@@ -587,8 +707,9 @@ def phase6_dual_wb(dev, rng, card):
     K.LAUNCHES = 0
     F.LAUNCHES = 0
     rec = np.zeros(10)
-    out_k = D.decon_dualview(a, b, pa, pb, n_iters=WB_ITERS, psf_bp_a=wa,
-                             psf_bp_b=wb, device=dev, mem_mode=1, records=rec)
+    with env(MIL_FFT_IMPL="pallas"):   # K3 whatever the auto threshold
+        out_k = D.decon_dualview(a, b, pa, pb, n_iters=WB_ITERS, psf_bp_a=wa,
+                                 psf_bp_b=wb, device=dev, mem_mode=1, records=rec)
     ct_launches, sep_launches = F.LAUNCHES, K.LAUNCHES
     print(f"  K3 route: {ct_launches} K3 calls, {sep_launches} K1 launches, "
           f"decon {rec[8]:.3f} s (records {rec.tolist()}) [{card}]")
@@ -667,9 +788,10 @@ def phase8_dual_cli(rng, psfs):
                 raise AssertionError("genBackProjector failed")
         before_ct, before_sep = F.LAUNCHES, K.LAUNCHES
         t = time.time()
-        rc = decon_dv.main(["-i1", f["a"], "-i2", f["b"], "-fp1", f["pa"],
-                            "-fp2", f["pb"], "-bp1", f["wa"], "-bp2", f["wb"],
-                            "-o", f["out"], "-it", str(WB_ITERS), "-bit", "32"])
+        with env(MIL_FFT_IMPL="pallas"):   # K3 whatever the auto threshold
+            rc = decon_dv.main(["-i1", f["a"], "-i2", f["b"], "-fp1", f["pa"],
+                                "-fp2", f["pb"], "-bp1", f["wa"], "-bp2", f["wb"],
+                                "-o", f["out"], "-it", str(WB_ITERS), "-bit", "32"])
         wall = time.time() - t
         if rc != 0:
             raise AssertionError(f"deconDualView returned {rc}")
@@ -794,6 +916,7 @@ def device_split(fn, reps, label, card):
     text = ", ".join(f"{k[:40]} {v:.4f} ms ({n} in the trace)" for k, v, n in
                      sorted(rows, key=lambda r: -r[1])) or "not measured"
     print(f"  {label}, device time per launch by kernel, {reps} calls: {text} [{card}]")
+    return rows
 
 
 def beads(shape, seed, dev, sigma=3.0):
@@ -1140,6 +1263,7 @@ def fusion_views(dev):
 
 def zero_counts():
     K.LAUNCHES = KF.LAUNCHES = F.LAUNCHES = P.LAUNCHES = 0
+    F.LAUNCHES_SPECIALISED = dict.fromkeys("xyz", 0)
     C.K4_LAUNCHES = C.K5_LAUNCHES = C.K6_LAUNCHES = C.PLAIN_CALLS = 0
 
 

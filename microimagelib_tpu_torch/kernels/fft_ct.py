@@ -7,7 +7,10 @@ tensor runs :func:`conv3_ct_torch`; a CUDA tensor runs the hand-written
 kernel ``csrc/fft_ct.cu`` (which replaces the JAX package's Pallas kernels
 ``microimagelib_tpu/ops/fft_pallas.py::_kernel_a/_kernel_b/_kernel_c``),
 or the call raises. The kernel computes every 1-D transform itself: no
-cuFFT, no ``torch.fft`` and no cuBLAS on the CUDA path.
+cuFFT, no ``torch.fft`` and no cuBLAS on the CUDA path. An axis whose
+length has a :func:`radix_plan` takes the kernel's length-specialised
+transform (register butterflies of those radices); any other length takes
+its generic mixed-radix path.
 """
 
 from __future__ import annotations
@@ -19,10 +22,22 @@ import torch
 
 from microimagelib_tpu_torch.kernels import build
 
-__all__ = ["conv3_ct", "conv3_ct_torch", "ct_supported", "LAUNCHES"]
+__all__ = ["conv3_ct", "conv3_ct_torch", "ct_specialised", "ct_supported", "radix_plan",
+           "spec_pitch", "kernel_attrs", "kernel_plan", "LAUNCHES",
+           "LAUNCHES_SPECIALISED"]
 
 # conv3_ct calls on a CUDA tensor (each is five kernel launches)
 LAUNCHES = 0
+# of those calls, the ones whose transform along each axis took the
+# length-specialised path
+LAUNCHES_SPECIALISED = {"x": 0, "y": 0, "z": 0}
+
+# the radices of the length-specialised transforms, in pass order; the
+# kernel's own table (csrc/fft_ct.cu Len<N>::plan) is held to this one on
+# the card through kernel_plan
+_PLANS = {128: (8, 4, 4), 256: (8, 8, 4), 320: (8, 8, 5), 512: (8, 8, 8)}
+# spectrum rows are padded to a multiple of this many complex64 (128 bytes)
+PITCH_QUANTUM = 16
 
 # longest line on any axis (csrc/fft_ct.cu kMaxLen: two shared buffers of
 # one 8192-point complex line are 128 KB of the 227 KB a block may use)
@@ -43,6 +58,31 @@ def ct_supported(shape):
             and max(nz, ny, nx) <= MAX_LEN)
 
 
+def radix_plan(n):
+    """The radices, in pass order, of the kernel's length-specialised
+    transform of length ``n``, or None where ``n`` takes the generic path."""
+    return _PLANS.get(int(n))
+
+
+def ct_specialised(shape):
+    """Whether every axis of a (z, y, x) grid takes the kernel's
+    length-specialised transform."""
+    return _len_mask(shape) == 7
+
+
+def spec_pitch(nx):
+    """Row pitch, in complex64 values, of the kernel's spectrum scratch:
+    nx//2 + 1 rounded up to :data:`PITCH_QUANTUM`."""
+    kx = nx // 2 + 1
+    return -(-kx // PITCH_QUANTUM) * PITCH_QUANTUM
+
+
+def _len_mask(shape):
+    """Bit a set (0 x, 1 y, 2 z) where that axis has a :func:`radix_plan`."""
+    nz, ny, nx = shape
+    return sum(1 << a for a, n in enumerate((nx, ny, nz)) if radix_plan(n))
+
+
 def conv3_ct_torch(v, otf):
     """Plain version of :func:`conv3_ct` (``torch.fft``)."""
     return torch.fft.irfftn(torch.fft.rfftn(v) * otf, s=tuple(v.shape))
@@ -53,8 +93,12 @@ def _library():
     if _lib is None:
         lib = build.load_library()
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mil_conv3_ct.argtypes = [p] * 7 + [i] * 3 + [p]
+        lib.mil_conv3_ct.argtypes = [p] * 7 + [i] * 4 + [p]
         lib.mil_conv3_ct.restype = i
+        lib.mil_conv3_ct_attrs.argtypes = [i] * 4 + [p]
+        lib.mil_conv3_ct_attrs.restype = i
+        lib.mil_conv3_ct_plan.argtypes = [i, p]
+        lib.mil_conv3_ct_plan.restype = i
         _lib = lib
     return _lib
 
@@ -98,6 +142,8 @@ def conv3_ct(v, otf):
         raise ValueError(f"conv3_ct runs on CPU or CUDA tensors, not {v.device}")
     if not (v.is_contiguous() and otf.is_contiguous()):
         raise ValueError("v and otf must be contiguous")
+    if v.data_ptr() % 16:   # the x launches read v as float4
+        raise ValueError("v must start on a 16-byte boundary")
     return _launch(v, otf)
 
 
@@ -105,15 +151,46 @@ def _launch(v, otf):
     global LAUNCHES
     lib = _library()
     nz, ny, nx = v.shape
+    mask = _len_mask(v.shape)
     out = torch.empty_like(v)
-    spec = torch.empty((nz, ny, nx // 2 + 1), dtype=torch.complex64,
+    spec = torch.empty((nz, ny, spec_pitch(nx)), dtype=torch.complex64,
                        device=v.device)
     tabs = [_table(n, v.device) for n in (nx, ny, nz)]
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         err = lib.mil_conv3_ct(v.data_ptr(), otf.data_ptr(), spec.data_ptr(),
                                out.data_ptr(), *(t.data_ptr() for t in tabs),
-                               nz, ny, nx, stream)
+                               nz, ny, nx, mask, stream)
     build.check(lib, err, "fft_ct kernel launch")
     LAUNCHES += 1
+    for a, axis in enumerate("xyz"):
+        if mask >> a & 1:
+            LAUNCHES_SPECIALISED[axis] += 1
     return out
+
+
+def kernel_attrs(shape, device=None):
+    """What each of the five launches at ``shape`` compiled to, on the
+    current (or the given) CUDA device: a list of dicts, in launch order,
+    of registers and spilled bytes a thread, static and dynamic shared
+    bytes a block, threads a block and resident blocks per SM."""
+    lib = _library()
+    nz, ny, nx = (int(s) for s in shape)
+    vals = (ctypes.c_int * 30)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        err = lib.mil_conv3_ct_attrs(nz, ny, nx, _len_mask(shape), vals)
+    build.check(lib, err, "fft_ct kernel attributes")
+    keys = ("registers", "spill_bytes", "static_smem", "dynamic_smem", "threads",
+            "blocks_per_sm")
+    return [dict(zip(keys, vals[6 * i:6 * i + 6])) for i in range(5)]
+
+
+def kernel_plan(n):
+    """What the compiled kernel does with an axis of length ``n``: (the
+    spectrum's row pitch where ``n`` is nx, the radices of its
+    length-specialised transform in pass order, () on the generic path).
+    Equals (:func:`spec_pitch`, :func:`radix_plan`) where the two tables
+    agree."""
+    out = (ctypes.c_int * 8)()
+    count = _library().mil_conv3_ct_plan(int(n), out)
+    return out[0], tuple(out[1:1 + count])

@@ -49,7 +49,7 @@ from microimagelib_tpu_torch.ops.conv_sep import (
     plan_sep_pair,
     rl_iter_fused,
 )
-from microimagelib_tpu_torch.ops.fft_ct import conv3_ct, ct_supported
+from microimagelib_tpu_torch.ops.fft_ct import conv3_ct, ct_specialised, ct_supported
 from microimagelib_tpu_torch.utils.device import free_memory_mb, require_cuda
 from microimagelib_tpu_torch.utils.envflags import env_on
 
@@ -105,14 +105,25 @@ def _on_cuda(arr):
     return isinstance(arr, torch.Tensor) and arr.is_cuda
 
 
+# Default of MIL_FFT_CT_MIN_VOXELS: the smallest voxel count from which K3
+# beats torch.fft at that grid and every larger one among the grids of
+# chip_smoke.py's Phase 5 ladder whose three axes all take K3's
+# length-specialised transform, on an NVIDIA H100 (PERF.md section 6):
+# 128^3, the smallest such grid.
+CT_MIN_VOXELS = 2 ** 21
+
+
 def _fft_impl(shape, arr=None):
     """The FFT route's convolution: 'ct' (K3, :func:`conv3_ct`) or 'torch'
     (``torch.fft``). ``MIL_FFT_IMPL`` as in the JAX package: ``xla`` and
     ``matmul`` run ``torch.fft`` (the matmul DFT is not ported);
     ``pallas`` runs K3 wherever :func:`ct_supported` holds (its plain
     version on a CPU tensor); ``auto`` (default) runs K3 on a CUDA
-    ``arr`` of at least ``MIL_FFT_CT_MIN_VOXELS`` voxels (default 2^25)
-    that K3 supports, else ``torch.fft``."""
+    ``arr`` of at least ``MIL_FFT_CT_MIN_VOXELS`` voxels (default
+    :data:`CT_MIN_VOXELS`) whose every axis takes K3's length-specialised
+    transform (:func:`ct_specialised`), else ``torch.fft``: with 384 on
+    every axis the generic path ran 1.6-1.7x slower than ``torch.fft`` on
+    an H100."""
     impl = os.environ.get("MIL_FFT_IMPL", "auto")
     if impl in ("xla", "matmul"):
         return "torch"
@@ -121,8 +132,8 @@ def _fft_impl(shape, arr=None):
     if not _on_cuda(arr):
         return "torch"
     vox = shape[0] * shape[1] * shape[2]
-    ct_min = int(os.environ.get("MIL_FFT_CT_MIN_VOXELS", str(2 ** 25)))
-    return "ct" if vox >= ct_min and ct_supported(shape) else "torch"
+    ct_min = int(os.environ.get("MIL_FFT_CT_MIN_VOXELS") or CT_MIN_VOXELS)
+    return "ct" if vox >= ct_min and ct_specialised(shape) else "torch"
 
 
 def _convolver(fft_impl, shape, otfs):

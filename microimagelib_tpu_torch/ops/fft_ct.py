@@ -10,6 +10,11 @@ K3 (kernels/fft_ct.py, csrc/fft_ct.cu); on a CPU tensor, its plain
 layout (``permute_otf``) is not needed here.
 """
 
-from microimagelib_tpu_torch.kernels.fft_ct import conv3_ct, conv3_ct_torch, ct_supported
+from microimagelib_tpu_torch.kernels.fft_ct import (
+    conv3_ct,
+    conv3_ct_torch,
+    ct_specialised,
+    ct_supported,
+)
 
-__all__ = ["conv3_ct", "conv3_ct_torch", "ct_supported"]
+__all__ = ["conv3_ct", "conv3_ct_torch", "ct_specialised", "ct_supported"]

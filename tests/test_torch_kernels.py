@@ -80,6 +80,13 @@ def test_conv3_sep_kernel_matches_plain(cuda, case, mode):
     (32, 32, 128),
     (64, 96, 128),    # m = 3 in y
     (20, 6, 40),      # m = 5 in z and x, m = 3 in y, odd row pairs
+    # the length-specialised transforms: 128, 256, 320 and 512 on each axis
+    (128, 256, 128),
+    (320, 48, 512),   # y generic (48 = 16 x 3)
+    (64, 512, 320),   # z generic; kx = 161 in a pitch of 176
+    (256, 40, 256),
+    (5, 3, 512),      # 15 rows: the last x pair has no partner, one partial block
+    (512, 24, 64),    # z 512: the OTF read from device memory, not staged
 ])
 def test_conv3_ct_kernel_matches_references(cuda, shape):
     rng = np.random.default_rng(0)
@@ -87,15 +94,42 @@ def test_conv3_ct_kernel_matches_references(cuda, shape):
     psf = rng.random(shape).astype(np.float32)
     otf = torch.fft.rfftn(torch.from_numpy(psf / psf.sum()).to(cuda)).contiguous()
     before = F.LAUNCHES
+    spec_before = dict(F.LAUNCHES_SPECIALISED)
     out = F.conv3_ct(v, otf)
     torch.cuda.synchronize()
     assert F.LAUNCHES == before + 1
+    for axis, n in zip("zyx", shape):
+        rose = F.LAUNCHES_SPECIALISED[axis] - spec_before[axis]
+        assert rose == (1 if F.radix_plan(n) else 0), (axis, n)
     ref = torch.fft.irfftn(torch.fft.rfftn(v.double()) * otf.to(torch.complex128),
                            s=shape)
     m = ref.abs().max().item()
     assert (out.double() - ref).abs().max().item() <= 1e-4 * m
     plain = F.conv3_ct_torch(v, otf)
     assert (out - plain).abs().max().item() <= 1e-4 * m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [40, 64, 128, 256, 320, 384, 512])
+def test_conv3_ct_kernel_plan_is_the_hosts(cuda, n):
+    """The compiled kernel's radix plan and spectrum pitch are the ones the
+    host dispatches on and allocates for."""
+    assert F.kernel_plan(n) == (F.spec_pitch(n), F.radix_plan(n) or ())
+
+
+@pytest.mark.cuda
+def test_conv3_ct_refuses_a_misaligned_volume(cuda):
+    """The x launches read v as float4: a contiguous view off a 16-byte
+    boundary is refused before any launch."""
+    base = torch.zeros(1 + 4 * 8 * 128, device=cuda)
+    v = base[1:].view(4, 8, 128)
+    assert v.is_contiguous() and v.data_ptr() % 16
+    otf = torch.zeros((4, 8, 65), dtype=torch.complex64, device=cuda)
+    before = F.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        F.conv3_ct(v, otf)
+    assert F.LAUNCHES == before
+    torch.cuda.synchronize()
 
 
 _CORR_MATRICES = [
