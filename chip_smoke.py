@@ -6,17 +6,24 @@
 Builds the port's CUDA kernels from ``microimagelib_tpu_torch/csrc/``
 with nvcc (sm_90a, one nvcc per source, in parallel), then:
 
-  1. compares the separable-conv kernel (K1) with its plain PyTorch
-     version on the card, in all three epilogue modes, for five PSF/grid
-     cases (max|diff| <= 1e-5 * max|ref|: both are fp32 FMAs, only the
-     summation order differs);
+  1. compares the separable-conv kernel (K1, one launch a call) with its
+     plain PyTorch version on the card, in all three epilogue modes, for
+     six PSF/grid cases (max|diff| <= 1e-5 * max|ref|: both are fp32 FMAs,
+     only the summation order differs), checks that two launches and each
+     of the kernel's measurement switches give the same bits, and that the
+     compiled launch plan is the host's;
   2. runs ``decon_singleview`` on a 512^3 volume with the 9^3 Gaussian
-     PSF of bench.py, 10 iterations, and checks it against the
-     ``torch.fft`` route (rtol 2e-4, atol 2e-4 * max) and that K1
-     launched exactly 20 times;
+     PSF of bench.py, 10 iterations, on the separable route
+     (MIL_CONV_SEP=1), and checks it against the ``torch.fft`` route
+     (rtol 2e-4, atol 2e-4 * max) and that K1 launched exactly 20 times;
+     prints the route MIL_CONV_SEP=auto takes there, K1's launch plan,
+     registers and resident blocks, the peak device memory of one K1 call,
+     its time against the z-shaped K7 copy at 512^3 and the time of each
+     measurement switch;
   3. the same for a 45-degree tilted (17, 9, 25) PSF on a (256, 512, 512)
      volume (rank > 1 with per-tap rolls; rtol/atol 5e-4);
-  4. runs the deconSingleView CLI on a 200 x 512 x 512 16-bit TIFF;
+  4. runs the deconSingleView CLI on a 200 x 512 x 512 16-bit TIFF (on
+     the route auto takes);
   5. compares the FFT-convolution kernel (K3) with complex128
      ``torch.fft`` and with its fp32 plain version at ten grids, odd
      factors 3 and 5 among them and 128, 256, 320 and 512 on every axis
@@ -33,8 +40,8 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      iterations, MIL_FFT_IMPL=pallas: exactly 8 K3 calls, no K1 launch,
      and within 2e-3 of the same run on ``torch.fft``;
   7. the same views with matched (flipped) PSFs, 10 iterations: the
-     separable route, exactly 40 K1 launches, within 2e-4 of the FFT
-     route;
+     separable route (MIL_CONV_SEP=1), exactly 40 K1 launches, within 2e-4
+     of the FFT route; the route auto takes;
   8. the genBackProjector and deconDualView CLIs on two 200 x 512 x 512
      16-bit TIFFs (grid (256, 512, 512), MIL_FFT_IMPL=pallas, so K3 runs);
   9. compares the registration kernels K5 (resample + NCC sums) and K4
@@ -72,10 +79,11 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      (52, 512, 320) at 0.1625 / 1.0 um pixels; choice 2, method 7,
      matched PSFs, 10 iterations; (a) with MIL_CONV_SEP_FUSED=1
      MIL_REG_BATCH_LS=1 (20 K2 launches, no K1 launch, K6 launched, no
-     plain call), (b) with both off; (a) against (b): NCC within 1e-3,
-     matrices within 0.5 voxel, the decon of one registered pair with and
-     without K2 within 2e-4; per-step wall times, ms per dual-view
-     iteration on K2, the K1 pair and ``torch.fft``, and per pyramid level
+     plain call), (b) with both off (40 K1 launches or 40 K3 calls, as
+     auto's route for the fusion PSFs says); (a) against (b): NCC within
+     1e-3, matrices within 0.5 voxel, the decon of one registered pair with
+     and without K2 within 2e-4; per-step wall times, ms per dual-view
+     iteration on K2, the K1 pair, K3 and ``torch.fft``, and per pyramid level
      the syncs, evaluations and host share with and without K6;
  15. the spimFusion CLI on the same views as 16-bit TIFFs, -bit 16 -otmx,
      with K2 and K6 on;
@@ -86,8 +94,9 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      alpha=1e-6)`` (within 1 ulp: that call need not round as one FMA)
      and times the three; then runs
      the roofline tool (``microimagelib_tpu_torch.tools.conv_roofline``)
-     at 512^3 in-process, prints its lines and checks every value is
-     finite and positive and that K1 and K7 launched in its run.
+     at 512^3 in-process, prints its lines and checks it printed every
+     metric, each finite and positive, and that K1 and K7 launched in its
+     run.
 
 It prints the card's name and power limit beside every time, ms per RL
 iteration for the K1, K2, K3 and ``torch.fft`` routes, one JSON line
@@ -301,6 +310,7 @@ def main():
         ("d oversized (5,41,9) on ny=32", gauss3((5, 41, 9), (1.0, 4.0, 1.5)),
          (32, 32, 128), {}),
         ("e nx=100 (not /128)", bench_psf(), (24, 40, 100), {}),
+        ("f fusion A 25 z taps, nz=37", fusion_psfs()[0], (37, 64, 96), {}),
     ]
     for name, psf, shape, kw in cases:
         plan = plan_sep(psf, shape, **kw)
@@ -310,6 +320,9 @@ def main():
             raise AssertionError(f"{name}: no per-tap rolls planned")
         v = on_card(rng.random(shape, dtype=np.float32) * 100)
         aux = on_card(rng.random(shape, dtype=np.float32) + 0.5)
+        host, compiled = K.plan_of(plan), k1_kernel_plan(plan)
+        if host != compiled:
+            raise AssertionError(f"{name}: kernel plan {compiled}, host {host}")
         for mode in ("plain", "ratio", "update"):
             before = K.LAUNCHES
             out = K.conv3_sep(v, plan, aux=aux, mode=mode)
@@ -319,12 +332,21 @@ def main():
             ref = K.conv3_sep_torch(v, plan, aux=aux, mode=mode)
             check_close(f"{name} rank {plan.rank} {mode}", out.cpu(), ref.cpu(),
                         0.0, 1e-5)
+            for flags in K1_VARIANTS:
+                if not torch.equal(out.view(torch.int32), K.conv3_sep(
+                        v, plan, aux=aux, mode=mode, flags=flags).view(torch.int32)):
+                    raise AssertionError(f"{name} {mode}: switches {flags} change the bits")
+        print(f"  {name}: plan {host}; two launches and the switches "
+              f"{K1_VARIANTS} give the same bits")
 
     # ---- Phase 2: the headline configuration ---------------------------
     print(f"Phase 2: decon_singleview 512^3, bench PSF, {N_ITERS} iterations")
     psf = bench_psf()
     img = rng.random((512, 512, 512), dtype=np.float32) * 100 + 1
-    fwd, bp = D._sep_plans(psf, flip(psf), img.shape)[1]
+    with env(MIL_CONV_SEP="1"):
+        fwd, bp = D._sep_plans(psf, flip(psf), img.shape)[1]
+    print(f"  MIL_CONV_SEP=auto takes the {auto_route([psf], img.shape, dev)} route "
+          f"here (tap cost {D.tap_cost(fwd)}, ceiling {D.SEP_MAX_TAP_COST})")
     img_d = on_card(img)
     imgc = img_d.clamp_min(D.SMALLVALUE)
     est = imgc * 1.0
@@ -341,6 +363,7 @@ def main():
     p_ms = cuda_ms(lambda: K.conv3_sep_torch(est, fwd, aux=imgc, mode="ratio"), 3)
     print(f"  K1 at 512^3 (ratio mode): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
           f"[{card}]")
+    k1_report(est, fwd, imgc, k_ms, card, "512^3")
     k1_lib_ms = conv3d_library_ms(est, psf, fwd, card)
     n_vox = est.numel()
     taps = fwd.nsteps + fwd.ty.shape[1] + fwd.tx.shape[1]
@@ -348,8 +371,9 @@ def main():
 
     K.LAUNCHES = 0
     rec = np.zeros(10)
-    out_k = D.decon_singleview(img, psf, n_iters=N_ITERS, device=dev,
-                               mem_mode=1, records=rec)
+    with env(MIL_CONV_SEP="1"):
+        out_k = D.decon_singleview(img, psf, n_iters=N_ITERS, device=dev,
+                                   mem_mode=1, records=rec)
     main_launches = K.LAUNCHES
     print(f"  separable route: {main_launches} K1 launches, decon {rec[8]:.3f} s, "
           f"total {rec[9]:.3f} s (records {rec.tolist()})")
@@ -368,14 +392,17 @@ def main():
     print(f"Phase 3: decon_singleview (256, 512, 512), tilted PSF, {N_ITERS} iterations")
     tpsf = tilted_psf()
     img3 = rng.random((256, 512, 512), dtype=np.float32) * 100 + 1
-    fwd3, bp3 = D._sep_plans(tpsf, flip(tpsf), img3.shape)[1]
+    with env(MIL_CONV_SEP="1"):
+        fwd3, bp3 = D._sep_plans(tpsf, flip(tpsf), img3.shape)[1]
     print(f"  plans: fwd rank {fwd3.rank}, {fwd3.nsteps} z taps, "
           f"{fwd3.ty.shape[1]} y, {fwd3.tx.shape[1]} x taps, rolls "
-          f"{fwd3.rolls is not None}; bp rank {bp3.rank}")
+          f"{fwd3.rolls is not None}; bp rank {bp3.rank}; MIL_CONV_SEP=auto takes the "
+          f"{auto_route([tpsf], img3.shape, dev)} route (tap cost {D.tap_cost(fwd3)})")
     if fwd3.rank < 2 or fwd3.rolls is None or bp3.rolls is None:
         raise AssertionError("the tilted PSF did not plan at rank > 1 with rolls")
     K.LAUNCHES = 0
-    out_k = D.decon_singleview(img3, tpsf, n_iters=N_ITERS, device=dev, mem_mode=1)
+    with env(MIL_CONV_SEP="1"):
+        out_k = D.decon_singleview(img3, tpsf, n_iters=N_ITERS, device=dev, mem_mode=1)
     if K.LAUNCHES != 2 * N_ITERS:
         raise AssertionError(f"expected {2 * N_ITERS} K1 launches, got {K.LAUNCHES}")
     with env(MIL_CONV_SEP="0", MIL_FFT_IMPL="xla"):
@@ -392,6 +419,7 @@ def main():
     p3_ms = cuda_ms(lambda: K.conv3_sep_torch(est3, fwd3, aux=est3, mode="ratio"), 2)
     print(f"  K1 at (256,512,512) tilted rank {fwd3.rank} (ratio mode): kernel "
           f"{k3_ms:.3f} ms, plain {p3_ms:.3f} ms [{card}]")
+    k1_report(est3, fwd3, est3, k3_ms, card, "tilted (256,512,512)")
     rl_iteration_ms(img3_d, tpsf, fwd3, bp3, card, "tilted (256,512,512)")
     del img3_d, est3
 
@@ -403,7 +431,8 @@ def main():
         writetifstack(f_img, rng.random((200, 512, 512), dtype=np.float32)
                       * 1000 + 100, 16)
         writetifstack(f_psf, psf, 32)
-        before = K.LAUNCHES
+        route = auto_route([psf], D._fft_grid((200, 512, 512)), dev)
+        before, before_ct = K.LAUNCHES, F.LAUNCHES
         rc = decon_sv.main(["-i", f_img, "-fp", f_psf, "-o", f_out,
                             "-it", str(N_ITERS), "-bit", "32"])
         if rc != 0:
@@ -411,9 +440,12 @@ def main():
         res, size = readtifstack(f_out)
         if res.shape != (200, 512, 512) or not np.isfinite(res).all():
             raise AssertionError(f"CLI output bad: shape {res.shape}")
-        if K.LAUNCHES - before != 2 * N_ITERS:
-            raise AssertionError(f"CLI: {K.LAUNCHES - before} K1 launches")
-        print(f"  CLI output {size} (x, y, z), finite, {K.LAUNCHES - before} K1 launches")
+        n1, n3 = K.LAUNCHES - before, F.LAUNCHES - before_ct
+        if (n1, n3) != {"separable": (2 * N_ITERS, 0), "K3": (0, 2 * N_ITERS),
+                        "torch.fft": (0, 0)}[route]:
+            raise AssertionError(f"CLI: {n1} K1 launches, {n3} K3 calls on the {route} route")
+        print(f"  CLI output {size} (x, y, z), finite, auto's {route} route: {n1} K1 "
+              f"launches, {n3} K3 calls")
     torch.cuda.synchronize()
 
     ct = phase5_k3(dev, rng, card)
@@ -746,10 +778,12 @@ def phase7_dual_matched(dev, psfs, card):
     a = rng.random(DUAL_SHAPE, dtype=np.float32) * 100 + 1
     b = rng.random(DUAL_SHAPE, dtype=np.float32) * 100 + 1
     K.LAUNCHES = 0
-    out_k = D.decon_dualview(a, b, pa, pb, n_iters=N_ITERS, device=dev, mem_mode=1)
+    with env(MIL_CONV_SEP="1"):
+        out_k = D.decon_dualview(a, b, pa, pb, n_iters=N_ITERS, device=dev, mem_mode=1)
     if K.LAUNCHES != 4 * N_ITERS:
         raise AssertionError(f"expected {4 * N_ITERS} K1 launches, got {K.LAUNCHES}")
-    print(f"  separable route: {K.LAUNCHES} K1 launches")
+    print(f"  separable route: {K.LAUNCHES} K1 launches; MIL_CONV_SEP=auto takes the "
+          f"{auto_route([pa, pb], DUAL_SHAPE, dev)} route")
     before = F.LAUNCHES
     with env(MIL_CONV_SEP="0"):
         out_f = D.decon_dualview(a, b, pa, pb, n_iters=N_ITERS, device=dev, mem_mode=1)
@@ -757,7 +791,9 @@ def phase7_dual_matched(dev, psfs, card):
     check_close("dual matched separable vs FFT route", out_k, out_f, 2e-4, 2e-4)
     del out_k, out_f
     a_d, b_d = (torch.from_numpy(x).to(dev) for x in (a, b))
-    plans = [p for psf in (pa, pb) for p in D._sep_plans(psf, flip(psf), DUAL_SHAPE)[1]]
+    with env(MIL_CONV_SEP="1"):
+        plans = [p for psf in (pa, pb) for p in D._sep_plans(psf, flip(psf), DUAL_SHAPE)[1]]
+    print(f"  tap costs {[D.tap_cost(p) for p in plans]}")
     otfs = [D.gen_otf(p, DUAL_SHAPE, device=dev) for p in (pa, pb, flip(pa), flip(pb))]
     ms = {"K1 route": cuda_ms(lambda: D._rl_dual_sep(a_d, b_d, *plans, N_ITERS,
                                                      False), 2) / N_ITERS}
@@ -1288,6 +1324,8 @@ def phase14_fusion(dev, card):
     a_raw, b_raw = fusion_views(dev)
     print(f"  views made in {time.time() - t:.3f} s")
     inv_true = inverse12(dof_to_matrix(REG_DOF, 6))
+    route_b = auto_route([pa, pb], FUSION_SHAPE, dev)
+    print(f"  MIL_CONV_SEP=auto takes the {route_b} route for the fusion PSFs")
     runs = {}
     for label, flags in (("a", FUSED_ON), ("b", FUSED_OFF)):
         torch.cuda.synchronize()
@@ -1314,9 +1352,12 @@ def phase14_fusion(dev, card):
         if label == "a" and (n["K2"] != 2 * N_ITERS or n["K1"] != 0 or n["K6"] < 1
                              or n["plain"] != 0):
             raise AssertionError(f"(a) took the wrong kernels: {n}")
-        if label == "b" and (n["K1"] != 4 * N_ITERS or n["K2"] or n["K6"]
+        want = {"separable": (4 * N_ITERS, 0), "K3": (0, 4 * N_ITERS),
+                "torch.fft": (0, 0)}[route_b]
+        if label == "b" and ((n["K1"], n["K3"]) != want or n["K2"] or n["K6"]
                              or n["plain"]):
-            raise AssertionError(f"(b) took the wrong kernels: {n}")
+            raise AssertionError(f"(b) took the wrong kernels for the {route_b} "
+                                 f"route: {n}")
         runs[label] = (rec, tmx, reg_b, a_iso, n)
         del decon
     (rec_a, tmx_a, reg_b, a_iso, n_a), (rec_b, tmx_b, _, _, _) = runs["a"], runs["b"]
@@ -1327,7 +1368,7 @@ def phase14_fusion(dev, card):
         raise AssertionError("the K6 and serial registrations disagree")
     outs = {}
     for label, flag in (("K2", "1"), ("K1 pair", "0")):
-        with env(MIL_CONV_SEP_FUSED=flag):
+        with env(MIL_CONV_SEP_FUSED=flag, MIL_CONV_SEP="1"):
             outs[label] = D.decon_dualview(a_iso, reg_b, pa, pb, n_iters=N_ITERS,
                                            device=dev, mem_mode=1)
     check_close("decon of one registered pair, K2 vs K1 pair", outs["K2"],
@@ -1343,6 +1384,8 @@ def phase14_fusion(dev, card):
                                                       False), 2) / N_ITERS,
           "K1 pair": cuda_ms(lambda: D._rl_dual_sep(a_d, reg_b, fa.fwd, fa.bp, fb.fwd,
                                                     fb.bp, N_ITERS, False), 2) / N_ITERS,
+          "K3": cuda_ms(lambda: D._rl_dual(a_d, reg_b, *otfs, N_ITERS, False,
+                                           "ct"), 2) / N_ITERS,
           "torch.fft": cuda_ms(lambda: D._rl_dual(a_d, reg_b, *otfs, N_ITERS, False,
                                                   "torch"), 2) / N_ITERS}
     print(f"  ms per dual-view iteration {FUSION_SHAPE}, fusion PSFs [{card}]: "
@@ -1515,13 +1558,82 @@ def phase16_roofline(dev, card):
     rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
     bad = [r["metric"] for r in rows if not (math.isfinite(r["value"]) and r["value"] > 0)]
     print(f"  conv_roofline: {len(rows)} metrics in {wall:.3f} s, launches {n}")
-    if rc != 0 or len(rows) != 22 or bad:
+    if rc != 0 or [r["metric"] for r in rows] != list(conv_roofline.METRICS) or bad:
         raise AssertionError(f"conv_roofline: rc {rc}, {len(rows)} metrics, bad {bad}")
     if n["K7"] == 0 or n["K1"] == 0:
         raise AssertionError(f"conv_roofline did not run on K1 and K7: {n}")
     torch.cuda.empty_cache()
     print(f"  Phase 16 took {time.time() - t16:.3f} s")
     return dict(timed, launches=n["K7"], max_abs_err=err)
+
+
+# K1's measurement switches, each A/B'd against the design (0): z taps
+# from device memory (no ring); the generic instantiation with plain loads
+# (the ring alone; it has no register-blocked stencils); with cp.async;
+# specialised, one output plane a step, naive stencils; the same with
+# register-blocked stencils; two planes a step, naive stencils
+K1_VARIANTS = (K.NO_RING, K.GENERIC | K.SYNC_LOADS, K.GENERIC,
+               K.ONE_PLANE | K.NAIVE, K.ONE_PLANE, K.NAIVE)
+
+
+def k1_kernel_plan(plan):
+    """The compiled kernel's launch plan for ``plan`` on this card's SM count,
+    beside which K.plan_of (the host's) must match."""
+    dy0, dy1, dx0, dx1 = K._roll_span(plan)
+    return K.kernel_plan(plan.shape, plan.rank, plan.nsteps, plan.ty.shape[1],
+                         plan.tx.shape[1], dy1 - dy0, dx1 - dx0)
+
+
+def auto_route(psfs, shape, dev):
+    """The route MIL_CONV_SEP=auto takes on a CUDA volume of ``shape`` for
+    these PSFs with their flips as back projectors: 'separable' where
+    every view plans it, else the FFT route's convolution."""
+    probe = torch.empty(0, device=dev)
+    if all(D._sep_plans(p, flip(p), shape, probe) is not None for p in psfs):
+        return "separable"
+    return {"ct": "K3", "torch": "torch.fft"}[D._fft_impl(shape, probe)]
+
+
+def k1_report(v, plan, aux, k_ms, card, label):
+    """K1 at ``v``'s shape in ratio mode: its launch plan and what the
+    instantiation compiled to, the peak device memory of one call beside
+    ``out``'s bytes, its time against the z-shaped K7 copy (read v and aux,
+    write out: the traffic K1 needs), the device time of its one launch
+    (torch.profiler) and the time of each measurement switch."""
+    pl = K.plan_of(plan)
+    if pl != k1_kernel_plan(plan):
+        raise AssertionError(f"K1 {label}: kernel plan {k1_kernel_plan(plan)}, host {pl}")
+    attrs = K.kernel_attrs(pl)
+    print(f"  K1 {label}: plan {pl}; {attrs['registers']} registers "
+          f"({attrs['spill_bytes']} bytes spilled) a thread, {attrs['blocks_per_sm']} "
+          f"resident blocks of {K.THREADS} threads per SM [{card}]")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = K.conv3_sep(v, plan, aux=aux, mode="ratio")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    out_bytes = out.numel() * 4
+    del out
+    print(f"  K1 {label}: one call's peak device memory {peak / 2 ** 20:.1f} MiB "
+          f"(out is {out_bytes / 2 ** 20:.1f} MiB; the two-launch version added "
+          f"{plan.rank} x {out_bytes / 2 ** 20:.1f} MiB of rank volumes)")
+    if peak > out_bytes + 2 ** 20:
+        raise AssertionError(f"K1 {label}: a call allocated {peak} bytes, out {out_bytes}")
+    c_ms = cuda_ms(lambda: P.pipe_copy(v, aux, plan.b, "z"), 20)
+    print(f"  K1 {label}: {k_ms:.4f} ms against the z-shaped K7 copy's {c_ms:.4f} ms "
+          f"({12 * v.numel() / c_ms / 1e6:.1f} GB/s): {100 * c_ms / k_ms:.1f}% of the "
+          f"copy ceiling [{card}]")
+    device_split(lambda: K.conv3_sep(v, plan, aux=aux, mode="ratio"), 10, f"K1 {label}",
+                 card)
+    times = {flags: cuda_ms(lambda: K.conv3_sep(v, plan, aux=aux, mode="ratio",
+                                                 flags=flags), 10)
+             for flags in (0,) + K1_VARIANTS}
+    print(f"  K1 {label} ms by measurement switch (0 the design; 8 no ring, 5 generic "
+          f"plain loads, 4 generic cp.async, 18 specialised one plane a step naive "
+          f"stencils, 16 + register-blocked stencils, 2 two planes naive) [{card}]: "
+          + ", ".join(f"{f}: {t:.4f}" for f, t in times.items()))
+    return c_ms
 
 
 def rl_iteration_ms(img_d, psf, fwd, bp, card, label):

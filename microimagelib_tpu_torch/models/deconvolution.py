@@ -5,8 +5,10 @@ Guo et al. 2020 Wiener-Butterworth acceleration, models/backprojector.py).
 Two routes run the same RL iteration (reference:src/api_subfunc.cu:
 3404-3416, dual view 3634-3660): the separable route — two launches of
 the compact-PSF conv kernel K1 per view and iteration (ops/conv_sep.py,
-csrc/conv_sep.cu), taken whenever the planner accepts every projector,
-or with ``MIL_CONV_SEP_FUSED=1`` one launch of K2 per view and iteration
+csrc/conv_sep.cu), taken where the planner accepts every projector and,
+on a CUDA volume, the plans are cheap enough that K1 beats the FFT route
+(:func:`sep_auto_takes`), or with ``MIL_CONV_SEP_FUSED=1`` one launch of
+K2 per view and iteration
 (the whole iteration fused, ops/conv_sep.py::rl_iter_fused,
 csrc/rl_fused.cu) — and the FFT route for PSFs the planner refuses (Wiener-Butterworth back
 projectors among them), or for every PSF when ``MIL_CONV_SEP=0``. The FFT
@@ -148,19 +150,46 @@ def _convolver(fft_impl, shape, otfs):
     return (lambda x, otf: _conv_spec(x, otf, shape)), list(otfs)
 
 
-def _sep_plans(psf, psf_bp, fft_shape):
+# MIL_CONV_SEP=auto on a CUDA volume: the largest tap cost, rank x (z + y
+# + x taps), of a plan for which the K1 route ran faster per RL iteration
+# than the FFT route _fft_impl takes, on an NVIDIA H100 (chip_smoke.py
+# Phases 2, 3, 7 and 14; PERF.md section 6): the 512^3 bench PSF (cost 27)
+# ran 2.74 ms on K1 against 6.59 ms on K3; the 25^3 dual-view and fusion
+# PSFs (55) and the tilted rank-4 class (172) ran faster on K3.
+SEP_MAX_TAP_COST = 27
+
+
+def tap_cost(plan):
+    """rank x (z + y + x taps): K1's work per voxel grows with it."""
+    return plan.rank * (plan.nsteps + plan.ty.shape[1] + plan.tx.shape[1])
+
+
+def sep_auto_takes(plans, on_cuda):
+    """Whether ``MIL_CONV_SEP=auto`` takes the separable route for these
+    K1 plans (every projector of the deconvolution): always on the CPU,
+    where the plain versions run and the parity tests pin the route; on a
+    CUDA volume only where every plan's :func:`tap_cost` is at most
+    :data:`SEP_MAX_TAP_COST`."""
+    return not on_cuda or all(tap_cost(p) <= SEP_MAX_TAP_COST for p in plans)
+
+
+def _sep_plans(psf, psf_bp, fft_shape, arr=None):
     """Plan the separable route for the projector pair: ('fused',
     RLFusedPlan) — the whole iteration in one K2 launch — or ('pair',
     (fwd, bp)) for a K1 ratio launch and a K1 update launch; None for the
     FFT route. ``MIL_CONV_SEP=0`` (or ``off``) forces the FFT route;
-    otherwise the separable route is taken whenever the planner accepts
-    both projectors. ``MIL_CONV_SEP_FUSED=1`` opts into the fused form
-    (default off, as in the JAX package); a pair that K2 does not take
-    (per-tap rolls) stays a pair. Tolerance cascade: exact to fp32 first,
-    then the measured-PSF tier (1e-4 relative projector error moves the RL
-    fixed point far less than fp32 FFT noise, and admits tilted/curved
-    PSFs at low rank); ``MIL_CONV_SEP_TOL`` pins one tolerance."""
-    if os.environ.get("MIL_CONV_SEP", "auto") in ("0", "off"):
+    ``1`` takes the separable route whenever the planner accepts both
+    projectors; ``auto`` (default) does so too, except that on a CUDA
+    ``arr`` a K1 pair must pass :func:`sep_auto_takes`.
+    ``MIL_CONV_SEP_FUSED=1`` opts into the fused form (default off, as in
+    the JAX package) and into the separable route; a pair that K2 does not
+    take (per-tap rolls) stays a pair. Tolerance cascade: exact to fp32
+    first, then the measured-PSF tier (1e-4 relative projector error moves
+    the RL fixed point far less than fp32 FFT noise, and admits
+    tilted/curved PSFs at low rank); ``MIL_CONV_SEP_TOL`` pins one
+    tolerance."""
+    mode = os.environ.get("MIL_CONV_SEP", "auto")
+    if mode in ("0", "off"):
         return None
     tol_env = os.environ.get("MIL_CONV_SEP_TOL")
     fused_env = env_on("MIL_CONV_SEP_FUSED")
@@ -171,6 +200,9 @@ def _sep_plans(psf, psf_bp, fft_shape):
                 return "fused", fused
         pair = plan_sep_pair(psf, psf_bp, fft_shape, tol=tol)
         if pair is not None:
+            if (mode == "auto" and not fused_env
+                    and not sep_auto_takes(pair, _on_cuda(arr))):
+                return None
             return "pair", pair
     return None
 
@@ -321,7 +353,7 @@ def rl_decon_single(img, otf, otf_bp, n_iters, const_initial=False,
         psf_np = np.asarray(psf, np.float32)
         bp_np = (np.asarray(psf_bp, np.float32) if psf_bp is not None
                  else psf_np[::-1, ::-1, ::-1])
-        route = _sep_plans(psf_np, bp_np, shape)
+        route = _sep_plans(psf_np, bp_np, shape, img)
         if route is not None:
             kind, plan = route
             if kind == "fused":
@@ -417,8 +449,8 @@ def rl_decon_dual(img_a, img_b, otf_a, otf_b, otf_bp_a, otf_bp_b, n_iters,
                else pa[::-1, ::-1, ::-1])
         bpb = (np.asarray(psf_bp_b, np.float32) if psf_bp_b is not None
                else pb[::-1, ::-1, ::-1])
-        route_a = _sep_plans(pa, bpa, shape)
-        route_b = _sep_plans(pb, bpb, shape) if route_a is not None else None
+        route_a = _sep_plans(pa, bpa, shape, img_a)
+        route_b = _sep_plans(pb, bpb, shape, img_a) if route_a is not None else None
         if route_b is not None:
             if route_a[0] == route_b[0] == "fused":
                 return _rl_dual_sep_fused(img_a, img_b, route_a[1],

@@ -12,28 +12,27 @@ volumes (``--size``, else ``MIL_BENCH_SIZE``, else 512) with bench.py's
      library dispatch (the separable route: two K1 launches per
      iteration, and the planning on the host), best of 3 after a warm-up;
   2. ms per call of K1 in ratio mode (forward plan) and update mode (back
-     projector), chained x10; and the device time of each of K1's two
-     launches, the z pass and the xy pass, from ``torch.profiler``,
-     divided by the launches the trace holds;
+     projector), chained x10; and the device time of K1's one launch
+     (``conv3_sep_kernel``) from ``torch.profiler``, divided by the
+     launches the trace holds;
   3. ms per call and GB/s of K7 (``kernels/pipe_copy.py``) chained x10 in
-     the geometry of each K1 launch (``_z``, ``_xy``): the device-memory
-     ceiling of that launch shape. The shift is the forward plan's z
-     reach b;
+     its two geometries (``_z``, ``_xy``). The z geometry is K1's
+     ceiling: one launch that reads v and aux and writes out, as K1 must.
+     The shift is the forward plan's z reach b;
   4. GB/s of a plain torch elementwise pass, ``x * 1.0000001``, over
      2 GiB (64 MiB below size 512);
 
 and from them the model: the least traffic of an RL iteration (2 calls x
-3 volume passes), the traffic as K1 is built (2 x (3 + 2R) passes: the z
-pass writes R rank volumes that the xy pass reads back), its fp32
-operations, and what share of each K7 ceiling the iteration and each K1
-pass reach.
+3 volume passes: K1 moves no more since it keeps its z sums on chip), its
+fp32 operations, and what share of the z-geometry K7 ceiling the
+iteration and one K1 launch reach.
 
 Output: the card's name and power limit (``nvidia-smi``), then one JSON
 line per metric, ``{"metric", "value", "unit", "card"}``. On the CPU
 (``--device cpu``, the only way onto it) every kernel runs its plain
-PyTorch version and the pass split times the plain z and xy passes:
-numbers that test the plumbing, not device metrics. The CPU path touches
-no ``torch.cuda`` API.
+PyTorch version and the launch time is that of the plain version's two
+stages: numbers that test the plumbing, not device metrics. The CPU path
+touches no ``torch.cuda`` API.
 """
 
 from __future__ import annotations
@@ -57,8 +56,16 @@ from microimagelib_tpu_torch.ops.conv_sep import plan_sep_pair
 N_ITERS = 10
 CHAIN = 10
 REPS = 3
-# K1's two launches as torch.profiler names them (csrc/conv_sep.cu)
-K1_KERNELS = {"z": "zpass_kernel", "xy": "xypass_kernel"}
+# K1's one launch as torch.profiler names it (csrc/conv_sep.cu; a template,
+# so the name is matched as a substring)
+K1_KERNEL = "conv3_sep_kernel"
+# the metrics, in the order the tool prints them
+METRICS = ("rl512_ms_per_iter", "plan_fwd_rank", "plan_z_taps", "plan_y_taps",
+           "plan_x_taps", "conv_ratio_ms_per_call", "conv_update_ms_per_call",
+           "conv_launch_ms", "pipe_copy_shift", "pipe_copy_ms_per_call_z",
+           "pipe_copy_bw_z", "pipe_copy_ms_per_call_xy", "pipe_copy_bw_xy",
+           "torch_elementwise_bw", "model_traffic_per_iter", "model_fp32_tflop_per_iter",
+           "achieved_bw_vs_model", "pct_of_pipe_copy_ceiling", "conv_pct_of_copy_ceiling")
 
 
 def bench_psf():
@@ -126,24 +133,18 @@ def kernel_device_ms(fn, names, reps=CHAIN):
     return out
 
 
-def pass_volumes(plan):
-    """Volume passes of each K1 launch as built: the z pass reads v and
-    writes R rank volumes; the xy pass reads them and aux and writes out."""
-    return {"z": 1 + plan.rank, "xy": plan.rank + 2}
-
-
 def model(pf, pb, shape):
     """The traffic (GB) and fp32 operations (TFLOP) of one RL iteration,
     a K1 call with the forward plan then one with the back projector's:
-    ``traffic`` the least the work needs (v and aux read, out written: 3
-    volume passes a call), ``as_built`` K1's (3 + 2R a call), ``tflop``
-    an FMA as 2 operations per tap and rank plus the epilogue's one."""
+    ``traffic`` the least the work needs and what the one-launch K1 moves
+    from device memory (v and aux read, out written: 3 volume passes a
+    call), ``tflop`` an FMA as 2 operations per tap and rank plus the
+    epilogue's one."""
     n = int(np.prod(shape))
     vol_gb = 4 * n / 1e9
     plans = (pf, pb)
     return {
         "traffic": len(plans) * 3 * vol_gb,
-        "as_built": sum(3 + 2 * p.rank for p in plans) * vol_gb,
         "tflop": sum(n * (2 * p.rank * (p.nsteps + p.ty.shape[1] + p.tx.shape[1]) + 1)
                      for p in plans) / 1e12,
     }
@@ -188,16 +189,14 @@ def run(size, dev, emit):
     for mode, plan in (("ratio", pf), ("update", pb)):
         emit(f"conv_{mode}_ms_per_call", best_ms(chain(mode, plan), cuda) / CHAIN, "ms")
     if cuda:
-        split = kernel_device_ms(lambda: conv3_sep(img, pf, aux=img, mode="ratio"),
-                                 K1_KERNELS.values())
-        pass_ms = {k: split[name] for k, name in K1_KERNELS.items()}
+        launch_ms = kernel_device_ms(lambda: conv3_sep(img, pf, aux=img, mode="ratio"),
+                                     (K1_KERNEL,))[K1_KERNEL]
     else:
         zs = zpass_torch(img, pf)
-        pass_ms = {"z": best_ms(lambda: zpass_torch(img, pf), cuda),
-                   "xy": best_ms(lambda: xypass_torch(zs, pf, img, "ratio"), cuda)}
+        launch_ms = (best_ms(lambda: zpass_torch(img, pf), cuda)
+                     + best_ms(lambda: xypass_torch(zs, pf, img, "ratio"), cuda))
         del zs
-    emit("conv_zpass_ms", pass_ms["z"], "ms")
-    emit("conv_xypass_ms", pass_ms["xy"], "ms")
+    emit("conv_launch_ms", launch_ms, "ms")
 
     # --- 3. K7: the ceiling of each K1 launch shape -------------------
     shift = pf.b
@@ -232,14 +231,13 @@ def run(size, dev, emit):
     # --- model --------------------------------------------------------
     m = model(pf, pb, shape)
     emit("model_traffic_per_iter", m["traffic"], "GB")
-    emit("model_traffic_per_iter_as_built", m["as_built"], "GB")
     emit("model_fp32_tflop_per_iter", m["tflop"], "TFLOP")
     achieved = m["traffic"] / (ms_iter / 1e3)
     emit("achieved_bw_vs_model", achieved, "GB/s")
-    emit("pct_of_pipe_copy_ceiling", 100.0 * achieved / copy_bw["xy"], "%")
-    for k, n_vol in pass_volumes(pf).items():
-        bw = n_vol * vol_gb / (pass_ms[k] / 1e3)
-        emit(f"{k}pass_pct_of_copy_ceiling", 100.0 * bw / copy_bw[k], "%")
+    emit("pct_of_pipe_copy_ceiling", 100.0 * achieved / copy_bw["z"], "%")
+    # one K1 launch moves 3 volumes, as the z-geometry copy does
+    emit("conv_pct_of_copy_ceiling",
+         100.0 * 3 * vol_gb / (launch_ms / 1e3) / copy_bw["z"], "%")
 
 
 def main(argv=None):

@@ -5,7 +5,9 @@ imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 
 Tolerances: K1 max|diff| <= 1e-5 x max|ref| — both sides are fp32 FMAs
-over the same taps; only the summation order may differ. K3 1e-4 x
+over the same taps; only the summation order may differ — and bit for bit
+from one launch to the next and under each of its measurement switches
+(every switch keeps the arithmetic order). K3 1e-4 x
 max|ref| against complex128 ``torch.fft`` and against its fp32 plain
 version, the JAX package's yardstick (tests/test_fft_pallas.py). K5 and
 K4: ss and st within rtol 1e-5, gs and gt within 2e-4 x max|ref| of their
@@ -25,7 +27,7 @@ from microimagelib_tpu_torch.kernels import corr as C
 from microimagelib_tpu_torch.kernels import fft_ct as F
 from microimagelib_tpu_torch.kernels import pipe_copy as K7
 from microimagelib_tpu_torch.kernels import rl_fused as KF
-from microimagelib_tpu_torch.ops.conv_sep import plan_rl_fused, plan_sep
+from microimagelib_tpu_torch.ops.conv_sep import SepPlan, plan_rl_fused, plan_sep
 from microimagelib_tpu_torch.ops.matrix import dof_to_matrix
 
 
@@ -52,17 +54,44 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", [
+def _max_taps_plan(shape=(40, 136, 140)):
+    """Rank 4 with 128 taps on every axis and wide per-tap rolls: more than
+    any ring fits, so K1 reads its z taps from device memory."""
+    rng = np.random.default_rng(5)
+    rolls = rng.integers(-9, 10, size=(128, 2)).astype(np.int32)
+    return SepPlan(shape=shape, a=70, b=57,
+                   tz=rng.random((4, 128), dtype=np.float32) / 128,
+                   ty=rng.random((4, 128), dtype=np.float32) / 128, oy=-60,
+                   tx=rng.random((4, 128), dtype=np.float32) / 128, ox=-64,
+                   rolls=rolls)
+
+
+# (name, psf, grid, plan kwargs); psf None takes _max_taps_plan
+K1_CASES = [
     ("gauss9", _gauss((9, 9, 9), (1.5, 1.5, 1.5)), (32, 64, 128), {}),
     ("even8", _gauss((8, 8, 8), (1.2, 1.2, 1.2)), (16, 48, 96), {}),
     ("tilted", _tilted(), (32, 64, 256), dict(align=True, tol=1e-4)),
     ("oversized", _gauss((5, 41, 9), (1.0, 4.0, 1.5)), (16, 32, 100), {}),
-], ids=lambda c: c[0])
+    ("nz37-nx100", _gauss((9, 9, 9), (1.5, 1.5, 1.5)), (37, 48, 100), {}),
+    ("fusionA-25z", _gauss((25, 25, 25), (3.5, 1.2, 1.2)), (40, 64, 96), {}),
+    ("fusionB-25x", _gauss((25, 25, 25), (1.2, 1.2, 3.5)), (37, 40, 100), {}),
+    ("max-taps", None, None, {}),
+]
+
+
+def _k1_plan(case):
+    _name, psf, shape, kw = case
+    plan = _max_taps_plan() if psf is None else plan_sep(psf, shape, **kw)
+    assert plan is not None
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K1_CASES, ids=lambda c: c[0])
 @pytest.mark.parametrize("mode", ["plain", "ratio", "update"])
 def test_conv3_sep_kernel_matches_plain(cuda, case, mode):
-    _name, psf, shape, kw = case
-    plan = plan_sep(psf, shape, **kw)
+    plan = _k1_plan(case)
+    shape = plan.shape
     rng = np.random.default_rng(0)
     v = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100).to(cuda)
     aux = torch.from_numpy(rng.random(shape, dtype=np.float32) + 0.5).to(cuda)
@@ -73,6 +102,67 @@ def test_conv3_sep_kernel_matches_plain(cuda, case, mode):
     ref = K.conv3_sep_torch(v, plan, aux=aux, mode=mode)
     err = (out - ref).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K1_CASES, ids=lambda c: c[0])
+def test_conv3_sep_launches_repeat_bit_for_bit(cuda, case):
+    """Two launches give the same bits (no atomics), and so does every
+    measurement switch: no ring, plain loads, naive stencils, the generic
+    instantiation, one output plane a step all keep the arithmetic
+    order."""
+    plan = _k1_plan(case)
+    rng = np.random.default_rng(1)
+    v = torch.from_numpy(rng.random(plan.shape, dtype=np.float32) * 100).to(cuda)
+    aux = torch.from_numpy(rng.random(plan.shape, dtype=np.float32) + 0.5).to(cuda)
+    out = K.conv3_sep(v, plan, aux=aux, mode="ratio").view(torch.int32)
+    for flags in (0, K.NO_RING, K.SYNC_LOADS, K.NAIVE, K.GENERIC, K.ONE_PLANE,
+                  K.GENERIC | K.NAIVE | K.SYNC_LOADS):
+        again = K.conv3_sep(v, plan, aux=aux, mode="ratio", flags=flags)
+        assert torch.equal(out, again.view(torch.int32)), flags
+
+
+# (grid, rank, z taps, y taps, x taps, y roll span, x roll span)
+K1_PLAN_SWEEP = [
+    ((512, 512, 512), 1, 9, 9, 9, 0, 0), ((256, 512, 512), 4, 17, 9, 17, 0, 14),
+    ((320, 512, 512), 1, 25, 15, 15, 0, 0), ((320, 512, 320), 1, 15, 15, 25, 0, 0),
+    ((32, 32, 128), 1, 5, 32, 9, 0, 0), ((37, 48, 100), 2, 7, 9, 11, 3, 2),
+    ((40, 136, 140), 4, 128, 128, 128, 18, 18), ((24, 40, 100), 3, 1, 1, 1, 0, 0),
+    ((130, 70, 36), 4, 128, 41, 8, 0, 0), ((8, 8, 8), 1, 8, 8, 8, 0, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [0, 4, 8, 16])
+def test_conv3_sep_kernel_plan_is_the_hosts(cuda, flags):
+    """The compiled kernel's tile, run, ring, prefetch, rank group, shared
+    bytes and path are the ones launch_plan computes, on this card's SM
+    count and on 132."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for case in K1_PLAN_SWEEP:
+        for n in {sms, K.H100_SMS}:
+            want = K.launch_plan(*case, sm_count=n, flags=flags)
+            assert want is not None, case
+            assert K.kernel_plan(*case, sm_count=n, flags=flags) == want, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K1_CASES[2::3], ids=lambda c: c[0])
+def test_conv3_sep_allocates_only_out(cuda, case):
+    """A K1 call adds only ``out`` to the device memory, at its peak too:
+    the z sums stay on chip (the two-launch version held rank volumes)."""
+    plan = _k1_plan(case)
+    rng = np.random.default_rng(2)
+    v = torch.from_numpy(rng.random(plan.shape, dtype=np.float32)).to(cuda)
+    K.conv3_sep(v, plan)   # the plan's tap tensors are made on first use
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    out = K.conv3_sep(v, plan, aux=v, mode="update")
+    torch.cuda.synchronize()
+    nbytes = out.numel() * 4
+    assert torch.cuda.memory_allocated(cuda) - base == nbytes
+    assert torch.cuda.max_memory_allocated(cuda) - base == nbytes
 
 
 @pytest.mark.cuda

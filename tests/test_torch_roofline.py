@@ -36,12 +36,11 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 METRICS = {
     "rl512_ms_per_iter", "plan_fwd_rank", "plan_z_taps", "plan_y_taps", "plan_x_taps",
-    "conv_ratio_ms_per_call", "conv_update_ms_per_call", "conv_zpass_ms",
-    "conv_xypass_ms", "pipe_copy_shift", "pipe_copy_ms_per_call_z", "pipe_copy_bw_z",
+    "conv_ratio_ms_per_call", "conv_update_ms_per_call", "conv_launch_ms",
+    "pipe_copy_shift", "pipe_copy_ms_per_call_z", "pipe_copy_bw_z",
     "pipe_copy_ms_per_call_xy", "pipe_copy_bw_xy", "torch_elementwise_bw",
-    "model_traffic_per_iter", "model_traffic_per_iter_as_built",
-    "model_fp32_tflop_per_iter", "achieved_bw_vs_model", "pct_of_pipe_copy_ceiling",
-    "zpass_pct_of_copy_ceiling", "xypass_pct_of_copy_ceiling"}
+    "model_traffic_per_iter", "model_fp32_tflop_per_iter", "achieved_bw_vs_model",
+    "pct_of_pipe_copy_ceiling", "conv_pct_of_copy_ceiling"}
 
 
 def flip(p):
@@ -193,11 +192,11 @@ def test_tool_cpu_run_prints_every_metric_without_jax():
     rows = [json.loads(ln) for ln in lines[1:-1]]
     vals = {r["metric"]: r["value"] for r in rows}
     assert set(vals) == METRICS and len(rows) == len(METRICS)
+    assert [r["metric"] for r in rows] == list(T.METRICS)
     assert all(r["card"] == "cpu" for r in rows)
     assert all(np.isfinite(v) for v in vals.values())
     for stage in ("rl512_ms_per_iter", "conv_ratio_ms_per_call", "conv_update_ms_per_call",
-                  "conv_zpass_ms", "conv_xypass_ms", "pipe_copy_ms_per_call_z",
-                  "pipe_copy_ms_per_call_xy"):
+                  "conv_launch_ms", "pipe_copy_ms_per_call_z", "pipe_copy_ms_per_call_xy"):
         assert vals[stage] > 0, stage
     assert (vals["plan_fwd_rank"], vals["plan_z_taps"], vals["pipe_copy_shift"]) == (1, 9, 4)
 
@@ -223,7 +222,7 @@ def test_model_lines_follow_their_formulas(case):
     n = int(np.prod(shape))
     vol_gb = 4 * n / 1e9
     m = T.model(pf, pb, shape)
+    # one launch a call: no rank volumes, whatever the rank
+    assert set(m) == {"traffic", "tflop"}
     assert m["traffic"] == pytest.approx(2 * 3 * vol_gb, rel=1e-12)
-    assert m["as_built"] == pytest.approx(2 * (3 + 2 * rank) * vol_gb, rel=1e-12)
     assert m["tflop"] == pytest.approx(2 * n * (2 * rank * taps + 1) / 1e12, rel=1e-12)
-    assert T.pass_volumes(pf) == {"z": 1 + rank, "xy": rank + 2}
