@@ -332,12 +332,12 @@ def main():
             ref = K.conv3_sep_torch(v, plan, aux=aux, mode=mode)
             check_close(f"{name} rank {plan.rank} {mode}", out.cpu(), ref.cpu(),
                         0.0, 1e-5)
-            for flags in K1_VARIANTS:
+            for flags in K1_FORCED:
                 if not torch.equal(out.view(torch.int32), K.conv3_sep(
                         v, plan, aux=aux, mode=mode, flags=flags).view(torch.int32)):
                     raise AssertionError(f"{name} {mode}: switches {flags} change the bits")
-        print(f"  {name}: plan {host}; two launches and the switches "
-              f"{K1_VARIANTS} give the same bits")
+        print(f"  {name}: plan {host}; two launches and the forced ring-less and "
+              f"generic paths give the same bits")
 
     # ---- Phase 2: the headline configuration ---------------------------
     print(f"Phase 2: decon_singleview 512^3, bench PSF, {N_ITERS} iterations")
@@ -345,8 +345,11 @@ def main():
     img = rng.random((512, 512, 512), dtype=np.float32) * 100 + 1
     with env(MIL_CONV_SEP="1"):
         fwd, bp = D._sep_plans(psf, flip(psf), img.shape)[1]
-    print(f"  MIL_CONV_SEP=auto takes the {auto_route([psf], img.shape, dev)} route "
-          f"here (tap cost {D.tap_cost(fwd)}, ceiling {D.SEP_MAX_TAP_COST})")
+    route2 = auto_route([psf], img.shape, dev)
+    print(f"  MIL_CONV_SEP=auto takes the {route2} route here (tap cost "
+          f"{D.tap_cost(fwd)}, ceilings {D.SEP_MAX_TAP_COST})")
+    if route2 != "separable":
+        raise AssertionError(f"the default 512^3 decon takes the {route2} route, not K1")
     img_d = on_card(img)
     imgc = img_d.clamp_min(D.SMALLVALUE)
     est = imgc * 1.0
@@ -386,6 +389,9 @@ def main():
     check_close("512^3 separable vs torch.fft route", out_k, out_f, 2e-4, 2e-4)
     del out_k, out_f, est
     iter_ms = rl_iteration_ms(img_d, psf, fwd, bp, card, "512^3")
+    check_auto_route(route2, img.shape, dev, iter_ms["kernel_route"], iter_ms["k3_route"],
+                     iter_ms["torch_fft_route"], "512^3")
+    route_ladder(img_d, iter_ms, card)
     del img_d, imgc
 
     # ---- Phase 3: the measured-PSF class -------------------------------
@@ -394,10 +400,11 @@ def main():
     img3 = rng.random((256, 512, 512), dtype=np.float32) * 100 + 1
     with env(MIL_CONV_SEP="1"):
         fwd3, bp3 = D._sep_plans(tpsf, flip(tpsf), img3.shape)[1]
+    route3 = auto_route([tpsf], img3.shape, dev)
     print(f"  plans: fwd rank {fwd3.rank}, {fwd3.nsteps} z taps, "
           f"{fwd3.ty.shape[1]} y, {fwd3.tx.shape[1]} x taps, rolls "
           f"{fwd3.rolls is not None}; bp rank {bp3.rank}; MIL_CONV_SEP=auto takes the "
-          f"{auto_route([tpsf], img3.shape, dev)} route (tap cost {D.tap_cost(fwd3)})")
+          f"{route3} route (tap cost {D.tap_cost(fwd3)})")
     if fwd3.rank < 2 or fwd3.rolls is None or bp3.rolls is None:
         raise AssertionError("the tilted PSF did not plan at rank > 1 with rolls")
     K.LAUNCHES = 0
@@ -420,7 +427,9 @@ def main():
     print(f"  K1 at (256,512,512) tilted rank {fwd3.rank} (ratio mode): kernel "
           f"{k3_ms:.3f} ms, plain {p3_ms:.3f} ms [{card}]")
     k1_report(est3, fwd3, est3, k3_ms, card, "tilted (256,512,512)")
-    rl_iteration_ms(img3_d, tpsf, fwd3, bp3, card, "tilted (256,512,512)")
+    ms3 = rl_iteration_ms(img3_d, tpsf, fwd3, bp3, card, "tilted (256,512,512)")
+    check_auto_route(route3, img3.shape, dev, ms3["kernel_route"], ms3["k3_route"],
+                     ms3["torch_fft_route"], "tilted (256,512,512)")
     del img3_d, est3
 
     # ---- Phase 4: the CLI ----------------------------------------------
@@ -782,8 +791,9 @@ def phase7_dual_matched(dev, psfs, card):
         out_k = D.decon_dualview(a, b, pa, pb, n_iters=N_ITERS, device=dev, mem_mode=1)
     if K.LAUNCHES != 4 * N_ITERS:
         raise AssertionError(f"expected {4 * N_ITERS} K1 launches, got {K.LAUNCHES}")
+    route7 = auto_route([pa, pb], DUAL_SHAPE, dev)
     print(f"  separable route: {K.LAUNCHES} K1 launches; MIL_CONV_SEP=auto takes the "
-          f"{auto_route([pa, pb], DUAL_SHAPE, dev)} route")
+          f"{route7} route")
     before = F.LAUNCHES
     with env(MIL_CONV_SEP="0"):
         out_f = D.decon_dualview(a, b, pa, pb, n_iters=N_ITERS, device=dev, mem_mode=1)
@@ -802,6 +812,8 @@ def phase7_dual_matched(dev, psfs, card):
                                               impl), 2) / N_ITERS
     print(f"  ms per dual-view iteration {DUAL_SHAPE}, matched 25^3 [{card}]: "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    check_auto_route(route7, DUAL_SHAPE, dev, ms["K1 route"], ms["K3 route"],
+                     ms["torch.fft route"], "dual matched")
     del a_d, b_d, otfs
     torch.cuda.empty_cache()
 
@@ -1390,6 +1402,8 @@ def phase14_fusion(dev, card):
                                                   "torch"), 2) / N_ITERS}
     print(f"  ms per dual-view iteration {FUSION_SHAPE}, fusion PSFs [{card}]: "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    check_auto_route(route_b, FUSION_SHAPE, dev, ms["K1 pair"], ms["K3"], ms["torch.fft"],
+                     "fusion PSFs")
     del otfs, reg_b
     torch.cuda.empty_cache()
     k6_shapes = reg_levels(dev, a_raw, b_raw, card)
@@ -1567,13 +1581,9 @@ def phase16_roofline(dev, card):
     return dict(timed, launches=n["K7"], max_abs_err=err)
 
 
-# K1's measurement switches, each A/B'd against the design (0): z taps
-# from device memory (no ring); the generic instantiation with plain loads
-# (the ring alone; it has no register-blocked stencils); with cp.async;
-# specialised, one output plane a step, naive stencils; the same with
-# register-blocked stencils; two planes a step, naive stencils
-K1_VARIANTS = (K.NO_RING, K.GENERIC | K.SYNC_LOADS, K.GENERIC,
-               K.ONE_PLANE | K.NAIVE, K.ONE_PLANE, K.NAIVE)
+# the paths K1's switches force, each held bit for bit to the plan's own:
+# z taps from device memory (no ring); the generic instantiation
+K1_FORCED = (K.NO_RING, K.GENERIC)
 
 
 def k1_kernel_plan(plan):
@@ -1594,12 +1604,58 @@ def auto_route(psfs, shape, dev):
     return {"ct": "K3", "torch": "torch.fft"}[D._fft_impl(shape, probe)]
 
 
+def check_auto_route(route, shape, dev, k1_ms, k3_ms, torch_ms, label):
+    """Fail unless ``route`` (auto_route's word for what MIL_CONV_SEP=auto
+    takes) is the faster, in this run, of the K1 route and the FFT route
+    that _fft_impl takes on ``shape``."""
+    fft = {"ct": "K3", "torch": "torch.fft"}[D._fft_impl(shape, torch.empty(0, device=dev))]
+    fft_ms = k3_ms if fft == "K3" else torch_ms
+    fastest = "separable" if k1_ms < fft_ms else fft
+    print(f"  {label}: auto takes the {route} route; measured K1 {k1_ms:.3f} ms against "
+          f"{fft} {fft_ms:.3f} ms an iteration")
+    if route != fastest:
+        raise AssertionError(f"{label}: auto takes the {route} route, the {fastest} route "
+                             f"ran faster")
+
+
+# Phase 2's route ladder at 512^3: rank-1 Gaussians (size, sigmas) whose
+# plans run K1's generic instantiation at tap costs 9 to 45 (the points
+# that set SEP_MAX_TAP_COST's generic ceilings), and the dual-view PSF of
+# view A (cost 55) on its specialised one
+ROUTE_LADDER = (((3, 3, 3), (0.6,) * 3), ((5, 5, 5), (0.8,) * 3),
+                ((7, 7, 7), (1.1,) * 3), ((11, 11, 11), (1.6,) * 3),
+                ((17, 9, 9), (2.5, 1.5, 1.5)), ((13, 13, 13), (2.0,) * 3),
+                ((15, 15, 15), (2.2,) * 3), ((25, 25, 25), (3.5, 1.2, 1.2)))
+
+
+def route_ladder(img_d, iter_ms, card):
+    """ms per RL iteration of the K1 route for each ROUTE_LADDER PSF on the
+    512^3 image, beside the K3 and torch.fft routes (PSF-independent, from
+    Phase 2's iter_ms), with the route sep_auto_takes picks against each.
+    A printed mismatch is a finding for SEP_MAX_TAP_COST, not a failure:
+    routes within a few percent of each other swap between runs."""
+    fft_ms = {"ct": iter_ms["k3_route"], "torch": iter_ms["torch_fft_route"]}
+    for size, sigma in ROUTE_LADDER:
+        psf = gauss3(size, sigma)
+        with env(MIL_CONV_SEP="1"):
+            pair = D._sep_plans(psf, flip(psf), tuple(img_d.shape))[1]
+        k1 = cuda_ms(lambda: D._rl_single_sep(img_d, *pair, 2, False), 2) / 2
+        spec = all(D.k1_specialised(p) for p in pair)
+        picks = {impl: D.sep_auto_takes(pair, impl) for impl in fft_ms}
+        right = {impl: picks[impl] == (k1 < fft_ms[impl]) for impl in fft_ms}
+        print(f"  route ladder {size} sigma {sigma}: tap cost {D.tap_cost(pair[0])}, "
+              f"{'specialised' if spec else 'generic'}; K1 route {k1:.3f} ms an iteration "
+              f"(K3 {fft_ms['ct']:.3f}, torch.fft {fft_ms['torch']:.3f}); auto takes K1 "
+              f"against K3 {picks['ct']}, against torch.fft {picks['torch']}; "
+              f"agrees with the times {right} [{card}]")
+
+
 def k1_report(v, plan, aux, k_ms, card, label):
     """K1 at ``v``'s shape in ratio mode: its launch plan and what the
     instantiation compiled to, the peak device memory of one call beside
     ``out``'s bytes, its time against the z-shaped K7 copy (read v and aux,
-    write out: the traffic K1 needs), the device time of its one launch
-    (torch.profiler) and the time of each measurement switch."""
+    write out: the traffic K1 needs) and the device time of its one launch
+    (torch.profiler)."""
     pl = K.plan_of(plan)
     if pl != k1_kernel_plan(plan):
         raise AssertionError(f"K1 {label}: kernel plan {k1_kernel_plan(plan)}, host {pl}")
@@ -1626,13 +1682,6 @@ def k1_report(v, plan, aux, k_ms, card, label):
           f"copy ceiling [{card}]")
     device_split(lambda: K.conv3_sep(v, plan, aux=aux, mode="ratio"), 10, f"K1 {label}",
                  card)
-    times = {flags: cuda_ms(lambda: K.conv3_sep(v, plan, aux=aux, mode="ratio",
-                                                 flags=flags), 10)
-             for flags in (0,) + K1_VARIANTS}
-    print(f"  K1 {label} ms by measurement switch (0 the design; 8 no ring, 5 generic "
-          f"plain loads, 4 generic cp.async, 18 specialised one plane a step naive "
-          f"stencils, 16 + register-blocked stencils, 2 two planes naive) [{card}]: "
-          + ", ".join(f"{f}: {t:.4f}" for f, t in times.items()))
     return c_ms
 
 

@@ -84,12 +84,9 @@ constexpr int kTiles[][2] = {{32, 32}, {16, 64}, {16, 32}, {8, 64},
                              {8, 32},  {8, 16},  {4, 16},  {4, 8}};
 constexpr int kNumTiles = 8;
 
-// measurement switches (0 = the design)
-constexpr int kFlagSyncLoads = 1;   // plain loads instead of cp.async
-constexpr int kFlagNaive = 2;       // stencils without register blocking
-constexpr int kFlagGeneric = 4;     // the generic instantiation
-constexpr int kFlagNoRing = 8;      // z taps from device memory, no ring
-constexpr int kFlagOnePlane = 16;   // one output plane a step
+// switches that force a path other plans take (0 = the plan's own)
+constexpr int kFlagGeneric = 1;   // the generic instantiation
+constexpr int kFlagNoRing = 2;    // z taps from device memory, no ring
 
 __host__ __device__ __forceinline__ int align4(int n) { return (n + 3) & ~3; }
 
@@ -177,7 +174,7 @@ bool make_plan(int nz, int ny, int nx, int rank, int nsteps, int ly, int lx, int
       for (int pf = use_ring ? 2 : 0; pf >= (use_ring ? 1 : 0); --pf) {
         for (int rg = rank; rg >= 1; rg = (rg == 1 ? 0 : 1)) {
           if (use_ring && rg != rank) break;
-          const int zq = use_ring && spec >= 0 && !(flags & kFlagOnePlane) ? kSpecs[spec][4] : 1;
+          const int zq = use_ring && spec >= 0 ? kSpecs[spec][4] : 1;
           const int ring = use_ring ? nsteps - 1 + zq * (pf + 1) : 0;
           const int smem = smem_bytes(g, ty, ring, rg, zq, rank, nsteps, ly, lx);
           if (smem > kSmemPerBlock) continue;
@@ -227,7 +224,7 @@ struct Params {
   float smallvalue;
   int ty, tx, run, ring, prefetch, rg, tiles_y, tiles_x;
   Geometry g;
-  int sync_loads, naive, vec;
+  int vec;        // nx % 4 == 0, aux and out 16-byte aligned: float4 rows
   int zvec;       // no roll span: the z stage reads the ring as float4
   int int_plane;  // ny * nx < 2^31: a thread's load offsets fit an int
 };
@@ -344,21 +341,12 @@ conv3_sep_kernel(const __grid_constant__ Params p) {
 #pragma unroll
       for (int k = 0; k < kMaxLoads; ++k) {
         const int i = tid + k * kThreads;
-        if (i < nload) {
-          if (p.sync_loads)
-            dst[i] = __ldg(src + goff[k]);
-          else
-            cp_async4(dst + i, src + goff[k]);
-        }
+        if (i < nload) cp_async4(dst + i, src + goff[k]);
       }
     } else {
       int r = tid / g.ix, c = tid - r * g.ix;
       for (int i = tid; i < nload; i += kThreads) {
-        const float* gp = src + (size_t)s_row[r] * p.nx + s_col[c];
-        if (p.sync_loads)
-          dst[r * g.ixp + c] = __ldg(gp);
-        else
-          cp_async4(dst + r * g.ixp + c, gp);
+        cp_async4(dst + r * g.ixp + c, src + (size_t)s_row[r] * p.nx + s_col[c]);
         r += ldr;
         c += ldc;
         if (c >= g.ix) {
@@ -453,7 +441,7 @@ conv3_sep_kernel(const __grid_constant__ Params p) {
               const int slot = slot0 + s;
               soff[s] = (slot >= p.ring ? slot - p.ring : slot) * pstride;
             }
-            if (p.zvec && !p.naive) {
+            if (p.zvec) {
               // no roll span: 4 neighbouring positions a thread, float4
               // reads, each plane's value feeding every output plane it
               // reaches (taps still in ascending s for each)
@@ -586,19 +574,16 @@ conv3_sep_kernel(const __grid_constant__ Params p) {
             const float* ky = s_ty + (g0 + r) * ly;
             float o[4] = {0.f, 0.f, 0.f, 0.f};
             if constexpr (LY > 0) {
-              if (!p.naive) {
-                float vc[LY + 3];
+              float vc[LY + 3];
 #pragma unroll
-                for (int j = 0; j < LY + 3; ++j) vc[j] = col[j * g.hxp];
+              for (int j = 0; j < LY + 3; ++j) vc[j] = col[j * g.hxp];
 #pragma unroll
-                for (int k = 0; k < LY; ++k) {
-                  const float w = ky[k];
+              for (int k = 0; k < LY; ++k) {
+                const float w = ky[k];
 #pragma unroll
-                  for (int t = 0; t < 4; ++t) o[t] = fmaf(w, vc[t + LY - 1 - k], o[t]);
-                }
+                for (int t = 0; t < 4; ++t) o[t] = fmaf(w, vc[t + LY - 1 - k], o[t]);
               }
-            }
-            if (LY == 0 || p.naive) {
+            } else {
 #pragma unroll
               for (int t = 0; t < 4; ++t)
                 for (int k = 0; k < ly; ++k)
@@ -621,26 +606,23 @@ conv3_sep_kernel(const __grid_constant__ Params p) {
             const float* kx = s_tx + (g0 + r) * lx;
             float o[4] = {0.f, 0.f, 0.f, 0.f};
             if constexpr (LX > 0) {
-              if (!p.naive) {
-                constexpr int kV = (LX + 3 + 3) / 4;
-                float vr[4 * kV];
+              constexpr int kV = (LX + 3 + 3) / 4;
+              float vr[4 * kV];
 #pragma unroll
-                for (int j = 0; j < kV; ++j) {
-                  const float4 f = reinterpret_cast<const float4*>(row)[j];
-                  vr[4 * j] = f.x;
-                  vr[4 * j + 1] = f.y;
-                  vr[4 * j + 2] = f.z;
-                  vr[4 * j + 3] = f.w;
-                }
-#pragma unroll
-                for (int k = 0; k < LX; ++k) {
-                  const float w = kx[k];
-#pragma unroll
-                  for (int t = 0; t < 4; ++t) o[t] = fmaf(w, vr[t + LX - 1 - k], o[t]);
-                }
+              for (int j = 0; j < kV; ++j) {
+                const float4 f = reinterpret_cast<const float4*>(row)[j];
+                vr[4 * j] = f.x;
+                vr[4 * j + 1] = f.y;
+                vr[4 * j + 2] = f.z;
+                vr[4 * j + 3] = f.w;
               }
-            }
-            if (LX == 0 || p.naive) {
+#pragma unroll
+              for (int k = 0; k < LX; ++k) {
+                const float w = kx[k];
+#pragma unroll
+                for (int t = 0; t < 4; ++t) o[t] = fmaf(w, vr[t + LX - 1 - k], o[t]);
+              }
+            } else {
 #pragma unroll
               for (int t = 0; t < 4; ++t)
                 for (int k = 0; k < lx; ++k) o[t] = fmaf(kx[k], row[t + lx - 1 - k], o[t]);
@@ -684,20 +666,16 @@ conv3_sep_kernel(const __grid_constant__ Params p) {
 using KernelFn = void (*)(const Params);
 
 template <int I>
-KernelFn spec_kernel(int zq) {
-  constexpr int R = kSpecs[I][0], NS = kSpecs[I][1], LY = kSpecs[I][2], LX = kSpecs[I][3];
-  if constexpr (kSpecs[I][4] > 1) {
-    if (zq > 1) return conv3_sep_kernel<R, NS, LY, LX, kSpecs[I][4]>;
-  }
-  return conv3_sep_kernel<R, NS, LY, LX, 1>;
+KernelFn spec_kernel() {
+  return conv3_sep_kernel<kSpecs[I][0], kSpecs[I][1], kSpecs[I][2], kSpecs[I][3], kSpecs[I][4]>;
 }
 
-KernelFn kernel_for(int path, int zq) {
+KernelFn kernel_for(int path) {
   switch (path) {
-    case 0: return spec_kernel<0>(zq);
-    case 1: return spec_kernel<1>(zq);
-    case 2: return spec_kernel<2>(zq);
-    case 3: return spec_kernel<3>(zq);
+    case 0: return spec_kernel<0>();
+    case 1: return spec_kernel<1>();
+    case 2: return spec_kernel<2>();
+    case 3: return spec_kernel<3>();
     default: return conv3_sep_kernel<0, 0, 0, 0, 1>;
   }
 }
@@ -726,7 +704,7 @@ const char* mil_cuda_error_string(int err) {
 
 // The launch plan for a (nz, ny, nx) grid and a plan of `rank`, `nsteps` z
 // taps, ly / lx y / x taps and roll spans ry = max dy - min dy, rx likewise,
-// on a card of `sms` SMs, under the measurement `flags`: out[0..10] = path
+// on a card of `sms` SMs, under the switches `flags`: out[0..10] = path
 // (kSpecs index, -1 generic), tile rows, tile columns, run, runs, ring depth,
 // prefetch, output planes a step, rank group, shared bytes, resident blocks
 // per SM by shared memory. Returns 0, or cudaErrorInvalidValue where K1 does not take it.
@@ -742,12 +720,12 @@ int mil_conv3_sep_plan(int nz, int ny, int nx, int rank, int nsteps, int ly, int
   return 0;
 }
 
-// What instantiation `path` (kSpecs index, -1 generic) with `zq` output
-// planes a step compiled to, with `smem` dynamic shared bytes: out[0]
-// registers, out[1] spilled bytes a thread, out[2] static shared bytes,
-// out[3] resident blocks per SM. Returns a cudaError_t, 0 on success.
-int mil_conv3_sep_attrs(int path, int zq, int smem, int* out) {
-  const KernelFn fn = kernel_for(path, zq);
+// What instantiation `path` (kSpecs index, -1 generic) compiled to, with
+// `smem` dynamic shared bytes: out[0] registers, out[1] spilled bytes a
+// thread, out[2] static shared bytes, out[3] resident blocks per SM.
+// Returns a cudaError_t, 0 on success.
+int mil_conv3_sep_attrs(int path, int smem, int* out) {
+  const KernelFn fn = kernel_for(path);
   cudaFuncAttributes a;
   int blocks = 0;
   cudaError_t err;
@@ -766,7 +744,8 @@ int mil_conv3_sep_attrs(int path, int zq, int smem, int* out) {
 
 // One K1 launch on `stream`. `rolls` may be NULL (no per-tap rolls);
 // dymin..dxmax bound its (dy, dx) (all 0 without rolls). `flags`: the
-// measurement switches, 0 for the design. Returns the cudaError_t of the
+// switches that force the generic or the ring-less path, 0 for the plan's
+// own. Returns the cudaError_t of the
 // launch, 0 on success.
 int mil_conv3_sep(const float* v, const float* aux, float* out, const float* tz,
                   const int* rolls, const float* ty, const float* tx, int nz, int ny,
@@ -812,13 +791,11 @@ int mil_conv3_sep(const float* v, const float* aux, float* out, const float* tz,
   prm.tiles_y = (ny + pl.ty - 1) / pl.ty;
   prm.tiles_x = (nx + pl.tx - 1) / pl.tx;
   prm.g = geometry(pl.ty, pl.tx, ly, lx, ry, rx, pl.ring > 0);
-  prm.sync_loads = (flags & kFlagSyncLoads) != 0;
-  prm.naive = (flags & kFlagNaive) != 0;
   prm.vec = nx % 4 == 0 && reinterpret_cast<size_t>(aux) % 16 == 0 &&
             reinterpret_cast<size_t>(out) % 16 == 0;
   prm.zvec = ry == 0 && rx == 0;
   prm.int_plane = (long long)ny * nx < (1LL << 31);
-  const KernelFn fn = kernel_for(pl.path, pl.zq);
+  const KernelFn fn = kernel_for(pl.path);
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
   if (err != cudaSuccess) return static_cast<int>(err);

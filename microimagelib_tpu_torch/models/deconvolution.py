@@ -45,6 +45,7 @@ from microimagelib_tpu_torch.ops.basics import (
     pad_stack_edge,
     snap_fft_size,
 )
+from microimagelib_tpu_torch.kernels.conv_sep import plan_of
 from microimagelib_tpu_torch.ops.conv_sep import (
     conv3_sep,
     plan_rl_fused,
@@ -150,13 +151,17 @@ def _convolver(fft_impl, shape, otfs):
     return (lambda x, otf: _conv_spec(x, otf, shape)), list(otfs)
 
 
-# MIL_CONV_SEP=auto on a CUDA volume: the largest tap cost, rank x (z + y
-# + x taps), of a plan for which the K1 route ran faster per RL iteration
-# than the FFT route _fft_impl takes, on an NVIDIA H100 (chip_smoke.py
-# Phases 2, 3, 7 and 14; PERF.md section 6): the 512^3 bench PSF (cost 27)
-# ran 2.74 ms on K1 against 6.59 ms on K3; the 25^3 dual-view and fusion
-# PSFs (55) and the tilted rank-4 class (172) ran faster on K3.
-SEP_MAX_TAP_COST = 27
+# MIL_CONV_SEP=auto on a CUDA volume, per FFT route that _fft_impl takes:
+# the largest tap cost, rank x (z + y + x taps), of a plan for which the K1
+# route ran faster per RL iteration than that FFT route, on an NVIDIA H100
+# (chip_smoke.py Phases 2, 3, 7 and 14 and Phase 2's route ladder at 512^3;
+# PERF.md section 6), as (plans that run one of K1's specialised
+# instantiations, plans that run its generic one). Specialised: the bench
+# 9^3 PSF (cost 27) beat K3 and torch.fft; the 25^3 dual-view and fusion
+# PSFs (55) lost to K3 and matched or beat torch.fft; the tilted rank-4
+# class (172) lost to both. Generic: cost 9 beat K3 and 15 lost to it;
+# cost 21 beat torch.fft and 33 and above lost to it.
+SEP_MAX_TAP_COST = {"ct": (27, 9), "torch": (55, 21)}
 
 
 def tap_cost(plan):
@@ -164,13 +169,20 @@ def tap_cost(plan):
     return plan.rank * (plan.nsteps + plan.ty.shape[1] + plan.tx.shape[1])
 
 
-def sep_auto_takes(plans, on_cuda):
-    """Whether ``MIL_CONV_SEP=auto`` takes the separable route for these
-    K1 plans (every projector of the deconvolution): always on the CPU,
-    where the plain versions run and the parity tests pin the route; on a
-    CUDA volume only where every plan's :func:`tap_cost` is at most
-    :data:`SEP_MAX_TAP_COST`."""
-    return not on_cuda or all(tap_cost(p) <= SEP_MAX_TAP_COST for p in plans)
+def k1_specialised(plan):
+    """Whether K1 runs ``plan`` on one of its specialised instantiations."""
+    pl = plan_of(plan)
+    return pl is not None and pl["path"] >= 0
+
+
+def sep_auto_takes(plans, fft_impl):
+    """Whether ``MIL_CONV_SEP=auto`` on a CUDA volume takes the separable
+    route for these K1 plans (every projector of the deconvolution) over
+    the FFT route ``fft_impl`` ('ct' or 'torch', as :func:`_fft_impl`
+    decides): where every plan's :func:`tap_cost` is at most that route's
+    :data:`SEP_MAX_TAP_COST` for the plan's instantiation."""
+    spec, generic = SEP_MAX_TAP_COST[fft_impl]
+    return all(tap_cost(p) <= (spec if k1_specialised(p) else generic) for p in plans)
 
 
 def _sep_plans(psf, psf_bp, fft_shape, arr=None):
@@ -180,7 +192,8 @@ def _sep_plans(psf, psf_bp, fft_shape, arr=None):
     FFT route. ``MIL_CONV_SEP=0`` (or ``off``) forces the FFT route;
     ``1`` takes the separable route whenever the planner accepts both
     projectors; ``auto`` (default) does so too, except that on a CUDA
-    ``arr`` a K1 pair must pass :func:`sep_auto_takes`.
+    ``arr`` a K1 pair must pass :func:`sep_auto_takes` against the FFT
+    route :func:`_fft_impl` takes for ``fft_shape``.
     ``MIL_CONV_SEP_FUSED=1`` opts into the fused form (default off, as in
     the JAX package) and into the separable route; a pair that K2 does not
     take (per-tap rolls) stays a pair. Tolerance cascade: exact to fp32
@@ -200,8 +213,8 @@ def _sep_plans(psf, psf_bp, fft_shape, arr=None):
                 return "fused", fused
         pair = plan_sep_pair(psf, psf_bp, fft_shape, tol=tol)
         if pair is not None:
-            if (mode == "auto" and not fused_env
-                    and not sep_auto_takes(pair, _on_cuda(arr))):
+            if (mode == "auto" and not fused_env and _on_cuda(arr)
+                    and not sep_auto_takes(pair, _fft_impl(fft_shape, arr))):
                 return None
             return "pair", pair
     return None

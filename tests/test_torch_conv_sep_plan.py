@@ -104,25 +104,41 @@ def test_plan_of_reads_the_roll_span():
                                            fwd.tx.shape[1], dy1 - dy0, dx1 - dx0)
 
 
-@pytest.mark.parametrize("case", [
-    ("bench 512^3", bench_psf(), (512, 512, 512), {}, True),
-    ("tilted rank 4", tilted(), (256, 512, 512), dict(align=True, tol=1e-4), False),
-    ("fusion A", gauss3((25, 25, 25), (3.5, 1.2, 1.2)), (320, 512, 320), {}, False),
-    ("fusion B", gauss3((25, 25, 25), (1.2, 1.2, 3.5)), (320, 512, 320), {}, False),
-], ids=lambda c: c[0])
+# (name, psf, grid, plan kwargs, specialised, K1 taken against (K3, torch.fft))
+ROUTE_CASES = [
+    ("bench 512^3", bench_psf(), (512, 512, 512), {}, True, (True, True)),
+    ("tilted rank 4", tilted(), (256, 512, 512), dict(align=True, tol=1e-4), True,
+     (False, False)),
+    ("fusion A", gauss3((25, 25, 25), (3.5, 1.2, 1.2)), (320, 512, 320), {}, True,
+     (False, True)),
+    ("fusion B", gauss3((25, 25, 25), (1.2, 1.2, 3.5)), (320, 512, 320), {}, True,
+     (False, True)),
+    ("generic 3^3", gauss3((3, 3, 3), (0.6,) * 3), (512, 512, 512), {}, False,
+     (True, True)),
+    ("generic 5^3", gauss3((5, 5, 5), (0.8,) * 3), (512, 512, 512), {}, False,
+     (False, True)),
+    ("generic 13^3", gauss3((13, 13, 13), (2.0,) * 3), (512, 512, 512), {}, False,
+     (False, False)),
+]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: c[0])
 def test_auto_route_rule(monkeypatch, case):
-    """MIL_CONV_SEP=auto keeps the separable route on the CPU for every
-    plan (the parity tests' route); on a CUDA volume only where every
-    plan's tap cost is within SEP_MAX_TAP_COST."""
-    _name, psf, shape, kw, on_card = case
+    """MIL_CONV_SEP=auto on a CUDA volume takes K1 where every plan's tap
+    cost is within the ceiling of the FFT route it would otherwise take and
+    of the plan's K1 instantiation: the measured configurations take the
+    route that ran faster on the card."""
+    _name, psf, shape, kw, spec, takes = case
     plan = plan_sep(psf, shape, **kw)
-    assert D.sep_auto_takes([plan], on_cuda=False)
-    assert D.sep_auto_takes([plan], on_cuda=True) == on_card
-    assert (D.tap_cost(plan) <= D.SEP_MAX_TAP_COST) == on_card
-    monkeypatch.setattr(D, "SEP_MAX_TAP_COST", D.tap_cost(plan))
-    assert D.sep_auto_takes([plan, plan], on_cuda=True)
-    monkeypatch.setattr(D, "SEP_MAX_TAP_COST", D.tap_cost(plan) - 1)
-    assert not D.sep_auto_takes([plan], on_cuda=True)
+    cost = D.tap_cost(plan)
+    assert D.k1_specialised(plan) == spec
+    for impl, want in zip(("ct", "torch"), takes):
+        assert D.sep_auto_takes([plan], impl) == want, impl
+        assert (cost <= D.SEP_MAX_TAP_COST[impl][0 if spec else 1]) == want
+        monkeypatch.setitem(D.SEP_MAX_TAP_COST, impl, (cost, cost))
+        assert D.sep_auto_takes([plan, plan], impl)
+        monkeypatch.setitem(D.SEP_MAX_TAP_COST, impl, (cost - 1, cost - 1))
+        assert not D.sep_auto_takes([plan], impl)
 
 
 def test_sep_plans_applies_the_rule_only_on_cuda_and_under_auto(monkeypatch):
@@ -137,6 +153,13 @@ def test_sep_plans_applies_the_rule_only_on_cuda_and_under_auto(monkeypatch):
     monkeypatch.setenv("MIL_CONV_SEP", "off")
     assert D._sep_plans(psf, bp, shape) is None                 # forced FFT
     monkeypatch.setenv("MIL_CONV_SEP", "auto")
-    monkeypatch.setenv("MIL_CONV_SEP_FUSED", "1")               # opting into K2 opts in
     g = gauss3((25, 25, 25), (3.5, 1.2, 1.2))
-    assert D._sep_plans(g, np.ascontiguousarray(g[::-1, ::-1, ::-1]), shape)[0] == "fused"
+    gb = np.ascontiguousarray(g[::-1, ::-1, ::-1])
+    # the fusion PSF against the FFT route the grid takes: K3 on the
+    # fusion grid, torch.fft with an axis K3 has no specialised length for
+    assert D._fft_impl((320, 512, 320), np.empty(0)) == "ct"
+    assert D._sep_plans(g, gb, (320, 512, 320)) is None
+    assert D._fft_impl((320, 512, 384), np.empty(0)) == "torch"
+    assert D._sep_plans(g, gb, (320, 512, 384))[0] == "pair"
+    monkeypatch.setenv("MIL_CONV_SEP_FUSED", "1")               # opting into K2 opts in
+    assert D._sep_plans(g, gb, shape)[0] == "fused"
