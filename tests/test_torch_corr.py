@@ -24,6 +24,7 @@ from microimagelib_tpu.ops.pallas_corr import grad_fallback_xla
 from microimagelib_tpu_torch.kernels import corr as K
 from microimagelib_tpu_torch.ops import corr as C
 from microimagelib_tpu_torch.ops.affine import corr3d_grad_torch, corr3d_partials
+from test_torch_kernels import _fma32, kernel_numpy
 
 torch.set_num_threads(1)
 
@@ -99,88 +100,44 @@ def test_plain_versions_match_jax_kernels(shape):
 
 
 # --------------------------------------------------------------------------
-# numpy transliteration of csrc/corr.cu
+# the numpy transliteration of csrc/corr.cu and the launch plan
 # --------------------------------------------------------------------------
-
-def _lerp(a, b, f):
-    return a + (b - a) * f
-
-
-def kernel_numpy(src, tgt, m, grad):
-    """csrc/corr.cu's per-voxel arithmetic in float32 numpy, each operation
-    rounded on its own as the kernel's __f*_rn intrinsics are: coordinates
-    m00*x + ((m01*y + m02*z) + m03), the strict box, per-corner clamps, the
-    lerps, the derivative lerps and the per-row x / 1 sums scaled by y and
-    z; sums over blocks of rows_per_block rows in float64."""
-    f32 = np.float32
-    sz, sy, sx = src.shape
-    m = np.asarray(m, f32)
-    xf = np.arange(sx, dtype=f32)[None, None, :]
-    yf = np.arange(sy, dtype=f32)[None, :, None]
-    zf = np.arange(sz, dtype=f32)[:, None, None]
-    c = [m[4 * a] * xf + ((m[4 * a + 1] * yf + m[4 * a + 2] * zf) + m[4 * a + 3])
-         for a in range(3)]
-    cx, cy, cz = c
-    valid = ((cx > f32(-0.5)) & (cy > f32(-0.5)) & (cz > f32(-0.5))
-             & (cx < f32(sx - 0.5)) & (cy < f32(sy - 0.5)) & (cz < f32(sz - 0.5)))
-    fl = [np.floor(v) for v in c]
-    fx, fy, fz = (v - f for v, f in zip(c, fl))
-    idx = []
-    for f, n in zip(fl, (sx, sy, sz)):
-        r = np.where(valid, f, 0).astype(np.int64)
-        idx.append((np.maximum(r, 0), np.minimum(r + 1, n - 1)))
-    (x0, x1), (y0, y1), (z0, z1) = idx
-    flat = src.reshape(-1)
-
-    def at(zz, yy, xx):
-        return flat[(zz * sy + yy) * sx + xx]
-
-    v000, v001 = at(z0, y0, x0), at(z0, y0, x1)
-    v010, v011 = at(z0, y1, x0), at(z0, y1, x1)
-    v100, v101 = at(z1, y0, x0), at(z1, y0, x1)
-    v110, v111 = at(z1, y1, x0), at(z1, y1, x1)
-    c00, c01 = _lerp(v000, v001, fx), _lerp(v010, v011, fx)
-    c10, c11 = _lerp(v100, v101, fx), _lerp(v110, v111, fx)
-    c0, c1 = _lerp(c00, c01, fy), _lerp(c10, c11, fy)
-    s = np.where(valid, _lerp(c0, c1, fz), f32(0))
-    t = tgt
-    out = [np.sum((s * s).astype(np.float64)), np.sum((s * t).astype(np.float64))]
-    if not grad:
-        return np.array(out)
-    ds = [_lerp(_lerp(v001 - v000, v011 - v010, fy),
-                _lerp(v101 - v100, v111 - v110, fy), fz),
-          _lerp(c01 - c00, c11 - c10, fz),
-          c1 - c0]
-    rows_y = yf[..., 0].astype(np.float64)
-    rows_z = zf[..., 0].astype(np.float64)
-    gs, gt = np.zeros(12), np.zeros(12)
-    for a in range(3):
-        for g, w in ((gs, s), (gt, t)):
-            u = np.where(valid, w * ds[a], f32(0)).astype(np.float64)
-            a1 = np.sum(u * xf, axis=2)   # per row: sum u*x
-            a0 = np.sum(u, axis=2)        # per row: sum u
-            g[4 * a + 0] = a1.sum()
-            g[4 * a + 1] = (rows_y * a0).sum()
-            g[4 * a + 2] = (rows_z * a0).sum()
-            g[4 * a + 3] = a0.sum()
-    return np.concatenate([out, gs, gt])
-
 
 @pytest.mark.parametrize("shape", [(8, 16, 32), (9, 7, 300)])
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_kernel_transliteration_matches_plain(shape, name):
-    """The CUDA kernel's index, clamp, lerp and derivative arithmetic
-    (transliterated) against the plain versions, at an x not a multiple of
-    the 128-thread stride and odd row counts."""
+    """The CUDA kernel's index, clamp, lerp and derivative arithmetic and
+    its summation order (transliterated) against the plain versions, at an
+    x not a multiple of the warp, odd row counts, and on the H100's plan
+    (one step a warp here) and a one-SM card's (several steps a warp,
+    rows advanced across z). K4's ss and st are K5's bits wherever their
+    plans agree."""
     src, tgt = _volumes(shape)
     m = MATRICES[name]
     ts, tt = torch.from_numpy(src), torch.from_numpy(tgt)
     ref = K.corr3d_torch(ts, tt, m, grad=True).numpy()
-    got = kernel_numpy(src, tgt, m, grad=True)
-    _close_sums(got[0], got[1], ref[0], ref[1])
-    _close_grads(got[2:14], ref[2:14])
-    _close_grads(got[14:], ref[14:])
-    np.testing.assert_array_equal(kernel_numpy(src, tgt, m, grad=False), got[:2])
+    for sms in (K.H100_SMS, 1):
+        got = kernel_numpy(src, tgt, m, True, sms)
+        _close_sums(got[0], got[1], ref[0], ref[1])
+        _close_grads(got[2:14], ref[2:14])
+        _close_grads(got[14:], ref[14:])
+        sums = kernel_numpy(src, tgt, m, False, sms)
+        _close_sums(sums[0], sums[1], ref[0], ref[1])
+        if K.launch_plan(shape, False, sms) == K.launch_plan(shape, True, sms):
+            np.testing.assert_array_equal(sums, got[:2])
+
+
+def test_fma32_rounds_once():
+    """The transliteration's __fmaf_rn: (1 + 2^-12)^2 = 1 + 2^-11 + 2^-24
+    lies halfway between two float32 values; plus +-2^-60, lost in the
+    float64 sum, the one rounding goes up or down, where rounding twice
+    would go to even both times."""
+    a = np.float32(1 + 2 ** -12)
+    lo, hi = np.float32(1 + 2 ** -11), np.float32(1 + 2 ** -11 + 2 ** -23)
+    assert _fma32(a, a, np.float32(0)) == lo                     # a tie: to even
+    assert _fma32(a, a, np.float32(2 ** -60)) == hi
+    assert _fma32(a, a, np.float32(-2 ** -60)) == lo
+    assert _fma32(np.float32(3), np.float32(0.5), np.float32(0.25)) == np.float32(1.75)
 
 
 def test_clamped_corners_give_zero_derivative():
@@ -197,14 +154,82 @@ def test_clamped_corners_give_zero_derivative():
     np.testing.assert_allclose(ref[:2], got[:2], rtol=1e-6)
 
 
-def test_blocks_cover_every_row():
-    for shape in [(256, 512, 512), (64, 128, 512), (16, 32, 128), (9, 7, 300),
-                  (1, 1, 5000)]:
-        sz, sy, sx = shape
-        rows = K.rows_per_block(sx)
-        blocks = -(-(sz * sy) // rows)
-        assert rows >= 1 and (blocks - 1) * rows < sz * sy <= blocks * rows
-        assert rows * sx <= K.VOXELS_PER_BLOCK or rows == 1
+# chip_smoke.py's REG_LEVELS (Phase 10's pyramid) and fusion_levels()
+# (Phase 14's), the odd shapes, and grids on both sides of 2^31 voxels
+PLAN_SHAPES = ([(16, 32, 128), (32, 64, 256), (64, 128, 512), (128, 256, 512),
+                (256, 512, 512)]
+               + [(10, 16, 320), (20, 32, 320), (40, 64, 320), (80, 128, 320),
+                  (160, 256, 320), (320, 512, 320)]
+               + [(9, 7, 300), (1, 1, 5000), (1023, 1024, 2048), (1024, 1024, 2048)])
+
+
+def test_plan_shapes_are_the_fusion_pyramid():
+    from microimagelib_tpu_torch.models import registration as R
+
+    full = (320, 512, 320)
+    levels = [tuple(s // k for s, k in zip(full, f))
+              for f in R.pyramid_levels(R._auto_pool_factors(full))] + [full]
+    assert levels == PLAN_SHAPES[5:11]
+
+
+def _walk(plan, shape, sm_count):
+    """The task of every (block, warp, step) as csrc/corr.cu walks them:
+    decoded once (first_task), then advanced by WARPS tasks a step without
+    division (next_task); checked against the direct decode. Returns the
+    task ids the walk visits."""
+    _sz, sy, _sx = shape
+    wsegs, tasks, steps = plan["wsegs"], plan["tasks"], plan["steps"]
+    task = (np.arange(plan["blocks"])[:, None] * steps) * K.WARPS + np.arange(K.WARPS)
+    row, seg = np.divmod(task, wsegs)
+    z, y = np.divmod(row, sy)
+    dseg, drow = K.WARPS % wsegs, K.WARPS // wsegs
+    dy, dz = drow % sy, drow // sy
+    seen = []
+    for _k in range(steps):
+        live = task < tasks
+        row_d, seg_d = np.divmod(task[live], wsegs)
+        assert np.array_equal(seg[live], seg_d)
+        assert np.array_equal(z[live] * sy + y[live], row_d)
+        seen.append(task[live])
+        seg = seg + dseg
+        carry = seg >= wsegs
+        seg = np.where(carry, seg - wsegs, seg)
+        y = y + dy + carry
+        z = z + dz
+        wrap = y >= sy
+        y, z = np.where(wrap, y - sy, y), np.where(wrap, z + 1, z)
+        task = task + K.WARPS
+    return np.concatenate(seen)
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["K5", "K4"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_launch_plan_covers_fills_and_indexes(shape, grad):
+    """launch_plan on an H100 (132 SMs): every voxel is in exactly one
+    task of one warp of one block (the walk the kernel does, checked
+    against a direct decode); the grid fills MIN_BLOCKS_PER_SM blocks an
+    SM wherever one voxel a thread allows it, and stays within one wave of
+    resident blocks; 64-bit offsets exactly where the grid has 2^31 voxels
+    or more."""
+    sz, sy, sx = shape
+    sms = K.H100_SMS
+    p = K.launch_plan(shape, grad, sms)
+    span = 32 * p["vx"]
+    assert p["vx"] in K.VX_CHOICES
+    assert (p["wsegs"] - 1) * span < sx <= p["wsegs"] * span   # each x in one task
+    assert p["tasks"] == sz * sy * p["wsegs"]
+    per_block = K.WARPS * p["steps"]
+    assert (p["blocks"] - 1) * per_block < p["tasks"] <= p["blocks"] * per_block
+    if p["tasks"] <= 1 << 22:
+        hits = np.bincount(_walk(p, shape, sms), minlength=p["tasks"])
+        assert hits.shape == (p["tasks"],) and (hits == 1).all()
+    one_voxel_a_thread = -(-(sz * sy * -(-sx // 32)) // K.WARPS)
+    want = K.MIN_BLOCKS_PER_SM * sms
+    assert p["blocks"] >= min(want, one_voxel_a_thread)
+    assert p["blocks"] <= K.RESIDENT[grad] * sms
+    assert p["wide"] == int(sz * sy * sx >= 2 ** 31)
+    if shape == (16, 32, 128):       # was 16 blocks of 32 voxels a thread
+        assert p["blocks"] == 512 and p["vx"] == 1
 
 
 # --------------------------------------------------------------------------

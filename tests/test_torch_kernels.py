@@ -11,8 +11,10 @@ switches force (every path keeps the arithmetic order). K3 1e-4 x
 max|ref| against complex128 ``torch.fft`` and against its fp32 plain
 version, the JAX package's yardstick (tests/test_fft_pallas.py). K5 and
 K4: ss and st within rtol 1e-5, gs and gt within 2e-4 x max|ref| of their
-plain versions (tests/test_registration_grad.py's bounds), and equal bit
-for bit from one launch to the next. K2 within 2e-5 x max of its plain
+plain versions (tests/test_registration_grad.py's bounds), equal bit for
+bit from one launch to the next and to ``kernel_numpy``, their numpy
+transliteration (the same float32 operations in the same order, the same
+float64 reductions). K2 within 2e-5 x max of its plain
 version and bit for bit a K1 ratio launch followed by a K1 update launch.
 K6's row i bit for bit K5 on matrix i, rtol 1e-5 against its plain
 version. K7 bit for bit its plain version in both launch geometries (one
@@ -220,6 +222,142 @@ def test_conv3_ct_refuses_a_misaligned_volume(cuda):
     torch.cuda.synchronize()
 
 
+# --------------------------------------------------------------------------
+# numpy transliteration of csrc/corr.cu (K5, K4), bit for bit
+# --------------------------------------------------------------------------
+
+def _fma32(a, b, c):
+    """float32 a*b + c rounded once (__fmaf_rn). The product is exact in
+    float64; rounding the float64 sum to float32 rounds twice only where
+    that sum lies exactly halfway between two float32 values, and there its
+    own rounding error (TwoSum) says which way the exact value lies."""
+    f64 = np.float64
+    p = np.asarray(a, f64) * np.asarray(b, f64)
+    c = np.asarray(c, f64)
+    hi = p + c
+    bv = hi - p
+    err = (p - (hi - bv)) + (c - bv)
+    r = hi.astype(np.float32)
+    other = np.nextafter(r, np.where(hi > r, np.float32(np.inf), np.float32(-np.inf)))
+    tie = (r.astype(f64) + other.astype(f64)) / 2 == hi
+    return np.where(tie & (err != 0) & ((err > 0) == (other > r)), other, r)
+
+
+def _lerp(a, b, f):
+    return a + (b - a) * f
+
+
+def corr_fields(src, tgt, m):
+    """Per voxel, as csrc/corr.cu computes it in float32, each operation
+    rounded on its own: the box mask, s (0 outside), and ds/dc_a for
+    a = x, y, z. Coordinates m00*x + ((m01*y + m02*z) + m03), floors,
+    per-corner clamps, the lerps and the derivative lerps."""
+    f32 = np.float32
+    sz, sy, sx = src.shape
+    m = np.asarray(m, f32)
+    xf = np.arange(sx, dtype=f32)[None, None, :]
+    yf = np.arange(sy, dtype=f32)[None, :, None]
+    zf = np.arange(sz, dtype=f32)[:, None, None]
+    c = [m[4 * a] * xf + ((m[4 * a + 1] * yf + m[4 * a + 2] * zf) + m[4 * a + 3])
+         for a in range(3)]
+    cx, cy, cz = c
+    valid = ((cx > f32(-0.5)) & (cy > f32(-0.5)) & (cz > f32(-0.5))
+             & (cx < f32(sx - 0.5)) & (cy < f32(sy - 0.5)) & (cz < f32(sz - 0.5)))
+    fl = [np.floor(v) for v in c]
+    fx, fy, fz = (v - f for v, f in zip(c, fl))
+    idx = []
+    for f, n in zip(fl, (sx, sy, sz)):
+        r = np.where(valid, f, 0).astype(np.int64)
+        idx.append((np.maximum(r, 0), np.minimum(r + 1, n - 1)))
+    (x0, x1), (y0, y1), (z0, z1) = idx
+    flat = src.reshape(-1)
+
+    def at(zz, yy, xx):
+        return flat[(zz * sy + yy) * sx + xx]
+
+    v000, v001 = at(z0, y0, x0), at(z0, y0, x1)
+    v010, v011 = at(z0, y1, x0), at(z0, y1, x1)
+    v100, v101 = at(z1, y0, x0), at(z1, y0, x1)
+    v110, v111 = at(z1, y1, x0), at(z1, y1, x1)
+    c00, c01 = _lerp(v000, v001, fx), _lerp(v010, v011, fx)
+    c10, c11 = _lerp(v100, v101, fx), _lerp(v110, v111, fx)
+    c0, c1 = _lerp(c00, c01, fy), _lerp(c10, c11, fy)
+    s = np.where(valid, _lerp(c0, c1, fz), f32(0))
+    ds = [_lerp(_lerp(v001 - v000, v011 - v010, fy),
+                _lerp(v101 - v100, v111 - v110, fy), fz),
+          _lerp(c01 - c00, c11 - c10, fz),
+          c1 - c0]
+    return valid, s, ds
+
+
+def _block_sum(v):
+    """csrc/corr.cu's block_sum over the last two axes (warps, lanes):
+    the shuffle-down tree in each warp, then the warps in order."""
+    v = np.array(v, np.float64)
+    for off in (16, 8, 4, 2, 1):
+        v[..., :32 - off] = v[..., :32 - off] + v[..., off:]
+    s = np.zeros(v.shape[:-2])
+    for w in range(v.shape[-2]):
+        s = s + v[..., w, 0]
+    return s
+
+
+def kernel_numpy(src, tgt, m, grad, sm_count=C.H100_SMS):
+    """K5 (``grad=False``: [ss, st]) or K4 ([ss, st, gs, gt]) as
+    csrc/corr.cu computes them on a card of ``sm_count`` SMs: the voxel
+    fields of :func:`corr_fields`; each thread's float32 sums over the
+    voxels its launch plan gives it, in its order (__fmaf_rn; K4's sums
+    over x and 1 within a step, then scaled by y and z); the block's
+    float64 reduction; the last block's sum of the block rows."""
+    f32 = np.float32
+    sz, sy, sx = src.shape
+    p = C.launch_plan(src.shape, grad, sm_count)
+    vx, wsegs, tasks, steps, blocks = (p[k] for k in ("vx", "wsegs", "tasks", "steps",
+                                                     "blocks"))
+    valid, s, ds = corr_fields(src, tgt, m)
+    nv = 26 if grad else 2
+    b = np.arange(blocks)[:, None, None]
+    lane = np.arange(32)[None, None, :]
+    acc = np.zeros((nv, blocks, C.WARPS, 32), f32)
+    for k in range(steps):
+        task = (b * steps + k) * C.WARPS + np.arange(C.WARPS)[None, :, None]
+        live = task < tasks
+        row, seg = np.divmod(task, wsegs)
+        z, y = np.divmod(row, sy)
+        a1 = np.zeros((2, 3) + acc.shape[1:], f32)   # [s | t][axis]: sum u*x
+        a0 = np.zeros_like(a1)                       # sum u
+        for j in range(vx):
+            x = seg * 32 * vx + lane + 32 * j
+            ok = live & (x < sx)
+            zc, yc, xc = (np.where(ok, q, 0) for q in (z, y, x))
+            ok &= valid[zc, yc, xc]
+            sv, tv = s[zc, yc, xc], tgt[zc, yc, xc]
+            acc[0] = np.where(ok, _fma32(sv, sv, acc[0]), acc[0])
+            acc[1] = np.where(ok, _fma32(sv, tv, acc[1]), acc[1])
+            if grad:
+                for a in range(3):
+                    d = ds[a][zc, yc, xc]
+                    for q, w in enumerate((sv, tv)):
+                        u = w * d
+                        a1[q, a] = np.where(ok, _fma32(u, x.astype(f32), a1[q, a]), a1[q, a])
+                        a0[q, a] = np.where(ok, a0[q, a] + u, a0[q, a])
+        if grad:
+            yf, zf = y.astype(f32), z.astype(f32)
+            for q, base in ((0, 2), (1, 14)):
+                for a in range(3):
+                    i = base + 4 * a
+                    upd = (acc[i] + a1[q, a], _fma32(yf, a0[q, a], acc[i + 1]),
+                           _fma32(zf, a0[q, a], acc[i + 2]), acc[i + 3] + a0[q, a])
+                    for n, v in enumerate(upd):
+                        acc[i + n] = np.where(live, v, acc[i + n])
+    rows = _block_sum(acc)                  # (nv, blocks)
+    cols = np.zeros((nv, C.THREADS))        # thread t: rows t, t + THREADS, ...
+    for r0 in range(0, blocks, C.THREADS):
+        chunk = rows[:, r0:r0 + C.THREADS]
+        cols[:, :chunk.shape[1]] = cols[:, :chunk.shape[1]] + chunk
+    return _block_sum(cols.reshape(nv, C.WARPS, 32))
+
+
 _CORR_MATRICES = [
     np.array([1, 0, 0, 0.6, 0, 1, 0, -0.8, 0, 0, 1, 0.3], np.float32),
     np.array([0.99, 0.05, 0, 0.2, -0.05, 0.99, 0, 0.1, 0, 0.02, 1.01, -0.4],
@@ -229,9 +367,17 @@ _CORR_MATRICES = [
 ]
 
 
+# chip_smoke.py's REG_LEVELS (Phase 10's pyramid) and fusion_levels()
+# (Phase 14's), and shapes off the warp multiples
+CORR_LEVELS = [(16, 32, 128), (32, 64, 256), (64, 128, 512), (128, 256, 512),
+               (256, 512, 512)]
+FUSION_LEVELS = [(10, 16, 320), (20, 32, 320), (40, 64, 320), (80, 128, 320),
+                 (160, 256, 320), (320, 512, 320)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 16, 32), (16, 32, 128), (9, 7, 300),
-                                   (32, 64, 512), (8, 32, 1024)])
+@pytest.mark.parametrize("shape", [(8, 16, 32), (9, 7, 300), (8, 32, 1024), (32, 64, 512)]
+                         + CORR_LEVELS)
 @pytest.mark.parametrize("grad", [False, True], ids=["K5", "K4"])
 def test_corr3d_kernels_match_plain(cuda, shape, grad):
     rng = np.random.default_rng(0)
@@ -252,6 +398,88 @@ def test_corr3d_kernels_match_plain(cuda, shape, grad):
                 scale = max(np.abs(ref[lo:hi]).max(), 1e-6)
                 np.testing.assert_allclose(out[lo:hi], ref[lo:hi],
                                            atol=2e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 16, 32), (9, 7, 300), (16, 32, 128), (20, 32, 320),
+                                   (32, 64, 256)])
+@pytest.mark.parametrize("grad", [False, True], ids=["K5", "K4"])
+def test_corr3d_kernel_equals_transliteration(cuda, shape, grad):
+    """K5 and K4 give the bits of kernel_numpy on this card's plan: the
+    per-voxel arithmetic, each thread's voxel order and the two float64
+    reductions are the ones the transliteration spells out."""
+    rng = np.random.default_rng(3)
+    src = rng.random(shape, dtype=np.float32)
+    tgt = rng.random(shape, dtype=np.float32)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m in _CORR_MATRICES:
+        out = C.corr3d(torch.from_numpy(src).to(cuda), torch.from_numpy(tgt).to(cuda), m,
+                       grad=grad).cpu().numpy()
+        np.testing.assert_array_equal(out, kernel_numpy(src, tgt, m, grad, sms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", [False, True], ids=["K5", "K4"])
+def test_corr3d_one_launch_per_call(cuda, grad):
+    """One kernel launch per call (the profiler sees one kernel, no second
+    row-sum kernel) and no allocation but ``out`` once the workspace
+    exists."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(4)
+    src = torch.from_numpy(rng.random((64, 128, 512), dtype=np.float32)).to(cuda)
+    tgt = torch.from_numpy(rng.random((64, 128, 512), dtype=np.float32)).to(cuda)
+    m = _CORR_MATRICES[2]
+    C.corr3d(src, tgt, m, grad=grad)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = C.K4_LAUNCHES if grad else C.K5_LAUNCHES
+    outs = []
+    for _attempt in range(3):       # a trace can come back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outs += [C.corr3d(src, tgt, m, grad=grad) for _ in range(3)]
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_time_total > 0]
+        if kernels:
+            break
+    assert (C.K4_LAUNCHES if grad else C.K5_LAUNCHES) == before + len(outs)
+    # one kernel, at most once a call (a trace can miss a launch, never add one)
+    assert len(kernels) == 1 and "corr_kernel" in kernels[0][0], kernels
+    assert 1 <= kernels[0][1] <= 3, kernels
+    # out rounds up to the caching allocator's 512-byte block
+    assert torch.cuda.max_memory_allocated(cuda) - base == len(outs) * 512
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+@pytest.mark.cuda
+def test_corr3d_kernel_plan_is_the_hosts(cuda):
+    """The compiled plan is the one launch_plan mirrors, on this card's SM
+    count and on 132, for both pyramids' levels, shapes off the warp
+    multiples and grids on both sides of 2^31 voxels."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for shape in CORR_LEVELS + FUSION_LEVELS + [(9, 7, 300), (1, 1, 5000), (8, 32, 1024),
+                                                 (1023, 1024, 2048), (1024, 1024, 2048)]:
+        for grad in (False, True):
+            for n in {sms, C.H100_SMS}:
+                assert C.kernel_plan(shape, grad, n) == C.launch_plan(shape, grad, n), \
+                    (shape, grad, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["K5", "K4", "K6"])
+def test_corr3d_kernels_fit_their_launch_bounds(cuda, kind):
+    """Every instantiation keeps the registers its launch bounds allow
+    (80 for K5 and K6, 128 for K4) with no spill: the plans count on a
+    wave of RESIDENT blocks an SM (K6 takes K5's plan)."""
+    blocks = C.RESIDENT[kind == "K4"]
+    for vx in C.VX_CHOICES:
+        for wide in (0, 1):
+            a = C.kernel_attrs(kind, vx, wide)
+            assert a["spill_bytes"] == 0, (vx, wide, a)
+            assert a["blocks_per_sm"] >= blocks, (vx, wide, a)
+            assert a["registers"] <= 65536 // (C.THREADS * blocks), (vx, wide, a)
 
 
 @pytest.mark.cuda
@@ -312,7 +540,7 @@ def test_rl_fused_kernel_nonfinite_planes_match_k1_pair(cuda, where):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(16, 32, 128), (9, 7, 300), (32, 64, 512),
-                                   (10, 16, 320)])
+                                   (10, 16, 320), (64, 128, 512), (160, 256, 320)])
 def test_nprobe_kernel_equals_k5_per_probe(cuda, shape):
     """K6's row i is K5 on matrix i bit for bit, for 8 probes along a line
     plus a wild 35-degree probe (two launches), and repeats bit for bit."""
