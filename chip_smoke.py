@@ -68,8 +68,13 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      version (max|diff| <= 2e-5 x max|ref|) and with a K1 ratio launch
      followed by a K1 update launch (bit for bit) for the 9^3 bench PSF,
      the fusion PSFs (z reach 12 for view A, x reach 12 for view B) and a
-     rank-2 pair at (64, 128, 128), (37, 96, 160) and (320, 512, 320); two
-     launches give identical bits; times K2 against the K1 pair;
+     rank-2 pair at (64, 128, 128), (37, 96, 160), (83, 96, 160) (view A
+     in 8-plane groups, the ratio in its ring) and (320, 512, 320); two
+     launches give identical bits; the compiled plan is the host's; prints
+     each launch's plan (groups, ratio store, grid), registers and spills;
+     at the fusion grid times K2 against the K1 pair, prints the peak
+     device memory of one call of each and checks that the ratio store is
+     smaller than a volume;
  13. compares the N-probe NCC kernel (K6) with K5 (each probe bit for bit)
      and with its plain version (rtol 1e-5) for 8 probes along a line plus
      a 35-degree probe at every level shape of Phase 14's registration
@@ -96,8 +101,9 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
  15. the spimFusion CLI on the same views as 16-bit TIFFs, -bit 16 -otmx,
      with K2 and K6 on;
  16. compares the copy in K1's launch shapes (K7) with its plain version,
-     bit for bit, in both geometries at 512^3 (shift 4) and at four
-     smaller shapes, two of them off the tile multiples; two launches
+     bit for bit, in both geometries at 512^3 (shift 4) and at five
+     smaller shapes, two of them off the chunk multiples and one with an
+     nx that is not a multiple of 4; two launches
      give identical bits; holds it against ``torch.add(aux, v,
      alpha=1e-6)`` (within 1 ulp: that call need not round as one FMA)
      and times the three; then runs
@@ -165,7 +171,9 @@ FUSION_PIXEL = (0.1625, 0.1625, 1.0)
 # rounded up to 3 for their spread from run to run
 FUSION_TRUTH_VOXELS = 3.0
 LADDER = (-2.618, -1.0, -0.382, 0.382, 1.0, 1.618, 2.618, 4.236)
-K2_SMALL = ((64, 128, 128), (37, 96, 160))   # the second: nz not a multiple of 8
+# K2's small grids: the second with nz not a multiple of 8; the third with
+# 8-plane groups, so that the ratio lives in the ring at nz off the group
+K2_SMALL = ((64, 128, 128), (37, 96, 160), (83, 96, 160))
 # Phase 10's pyramid level shapes (x = 128, 256, 512), which Phase 13 checks
 # K6 at beside the fusion's own levels
 REG_LEVELS = ((16, 32, 128), (32, 64, 256), (64, 128, 512), (128, 256, 512),
@@ -177,10 +185,11 @@ FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # derivative lerps 19 and the gradient sums 24 on top (K4)
 CORR_OPS = {False: 43, True: 86}
 # K7's (shape, shift) cases: the roofline's 512^3 with the bench plan's z
-# reach; two shapes off the 8-plane chunk and the (16, 64) tile, the last
-# with nz - 1; one chunk and tile; the TPU's shift at the CPU test's shape
+# reach; two shapes off the 8-plane run and the 1024-vector chunk, the last
+# with nz - 1; one chunk; the TPU's shift at the CPU test's shape; an nx
+# that is not a multiple of 4 (4-byte accesses)
 PIPE_COPY_CASES = (((512, 512, 512), 4), ((24, 40, 100), 0), ((37, 96, 160), 36),
-                   ((8, 16, 64), 0), ((32, 128, 128), 8))
+                   ((8, 16, 64), 0), ((32, 128, 128), 8), ((9, 7, 301), 3))
 
 
 def gauss3(p, s):
@@ -1207,30 +1216,36 @@ def k2_bound(plan):
 
 
 def phase12_k2(dev, card):
-    """K2 against its plain version and the K1 pair; ms per launch at the
-    fusion grid. Returns K2's JSON numbers for view A's plan there."""
+    """K2 against its plain version and the K1 pair; its plan, peak memory
+    and ms per launch at the fusion grid beside the K1 pair's. Returns K2's
+    JSON numbers for view A's plan there."""
     print("Phase 12: rl_iter_fused kernel (K2) vs rl_iter_fused_torch and the K1 pair")
     pa, pb = fusion_psfs()
     r2 = gauss3((7, 9, 11), (1.0, 1.5, 2.0)) + 0.3 * gauss3((7, 9, 11), (2.0, 1.0, 0.8))
-    cases = [("bench 9^3", bench_psf(), K2_SMALL[0]),
-             ("fusion A (z reach 12)", pa, K2_SMALL[0]),
-             ("fusion B (x reach 12)", pb, K2_SMALL[0]),
-             ("rank-2 pair", r2, K2_SMALL[0]),
-             ("fusion A", pa, K2_SMALL[1]),
-             ("bench 9^3", bench_psf(), FUSION_SHAPE),
-             ("fusion A (z reach 12)", pa, FUSION_SHAPE),
-             ("fusion B (x reach 12)", pb, FUSION_SHAPE)]
+    # (name, psf, grid, group: 0 the plan's own)
+    cases = [("bench 9^3", bench_psf(), K2_SMALL[0], 0),
+             ("fusion A (z reach 12)", pa, K2_SMALL[0], 0),
+             ("fusion B (x reach 12)", pb, K2_SMALL[0], 0),
+             ("rank-2 pair", r2, K2_SMALL[0], 0),
+             ("fusion A", pa, K2_SMALL[1], 0),
+             ("fusion A, 8-plane groups", pa, K2_SMALL[2], 8),
+             ("bench 9^3", bench_psf(), FUSION_SHAPE, 0),
+             ("fusion A (z reach 12)", pa, FUSION_SHAPE, 0),
+             ("fusion B (x reach 12)", pb, FUSION_SHAPE, 0)]
     res = {}
-    for name, psf, shape in cases:
+    for name, psf, shape, group in cases:
         plan = plan_rl_fused(psf, flip(psf), shape)
         if plan is None:
             raise AssertionError(f"{name} {shape}: plan_rl_fused refused")
+        host, compiled = KF.launch_plan(plan, group=group), KF.kernel_plan(plan, group=group)
+        if host != compiled:
+            raise AssertionError(f"{name} {shape}: kernel plan {compiled}, host {host}")
         prng = np.random.default_rng(SEED + 12)
         est = torch.from_numpy(prng.random(shape, dtype=np.float32) * 100 + 1).to(dev)
         img = torch.from_numpy(prng.random(shape, dtype=np.float32) * 100 + 1).to(dev)
         before = KF.LAUNCHES
-        out = KF.rl_iter_fused(est, img, plan)
-        again = KF.rl_iter_fused(est, img, plan)
+        out = KF.rl_iter_fused(est, img, plan, group=group)
+        again = KF.rl_iter_fused(est, img, plan, group=group)
         torch.cuda.synchronize()
         if KF.LAUNCHES != before + 2:
             raise AssertionError(f"{name}: K2 launch count did not rise")
@@ -1244,11 +1259,12 @@ def phase12_k2(dev, card):
                            plan.bp, aux=est, mode="update")
         same = bool(torch.equal(out, pair))
         del out, again, pair
+        attrs = KF.kernel_attrs(host)
         print(f"  {name} {shape}: ranks {plan.fwd.rank}/{plan.bp.rank}, z taps "
               f"{plan.fwd.nsteps}/{plan.bp.nsteps}, x taps {plan.fwd.tx.shape[1]}/"
               f"{plan.bp.tx.shape[1]}; vs plain {err:.6g} = {err / m:.3g} x max; "
-              f"equals the K1 pair bit for bit: {same}; launch (grid, blocks/SM, "
-              f"planes per task fwd/bp, smem bytes) {KF.LAST_CONFIG}")
+              f"equals the K1 pair bit for bit: {same}; launch {KF.LAST_CONFIG}; "
+              f"{attrs['registers']} registers ({attrs['spill_bytes']} bytes spilled)")
         if err > 2e-5 * m or not same:
             raise AssertionError(f"{name} {shape}: K2 disagrees")
         if shape == FUSION_SHAPE:
@@ -1262,13 +1278,33 @@ def phase12_k2(dev, card):
                 K.conv3_sep(est, plan.fwd, aux=img, mode="ratio"), plan.bp,
                 aux=est, mode="update"), 10)
             plain_ms = cuda_ms(lambda: KF.rl_iter_fused_torch(est, img, plan), 2)
+            peak = {}
+            for what, fn in (("K2", lambda: KF.rl_iter_fused(est, img, plan)),
+                             ("K1 pair", lambda: K.conv3_sep(
+                                 K.conv3_sep(est, plan.fwd, aux=img, mode="ratio"),
+                                 plan.bp, aux=est, mode="update"))):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                peak[what] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
             b = k2_bound(plan)
+            cfg = KF.LAST_CONFIG
             print(f"  K2 at {shape}, {name}: {k_ms:.4f} ms per launch ({alone_ms:.4f} "
-                  f"ms for a launch alone), K1 ratio + "
-                  f"update {pair_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"ms for a launch alone), K1 ratio + update {pair_ms:.4f} ms "
+                  f"({k_ms / pair_ms:.3f} x), plain {plain_ms:.3f} ms, bound "
                   f"{b[0]:.4f} ms ({b[1]}), {3 * 4 * est.numel() / k_ms / 1e6:.1f} GB/s "
                   f"of est + img + out; the launch call returns in {host_ms:.4f} ms "
                   f"on the host [{card}]")
+            print(f"  K2 at {shape}, {name}: {cfg['group']}-plane groups, ratio store "
+                  f"{cfg['head']} head planes + {cfg['ring']} ring planes = "
+                  f"{cfg['store_bytes'] / 2 ** 20:.1f} MiB (ring {cfg['ring_bytes'] / 2 ** 20:.1f}"
+                  f" MiB); peak device memory of one call {peak['K2']:.1f} MiB, of the "
+                  f"K1 pair {peak['K1 pair']:.1f} MiB (out is "
+                  f"{est.numel() * 4 / 2 ** 20:.1f} MiB) [{card}]")
+            if cfg["store_bytes"] >= est.numel() * 4:
+                raise AssertionError(f"{name}: the ratio store is a whole volume")
             if name.startswith("fusion A"):
                 res = {"max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
                        "bound": b}
@@ -1597,8 +1633,8 @@ def phase15_fusion_cli(views, card):
 def k7_times(v, aux, shift, card):
     """K7 at ``v``'s shape against ``torch.add(aux, v, alpha=1e-6)`` (the
     PyTorch call for the same function at shift 0, within 1 ulp: it need
-    not round as one FMA), then ms per call of both geometries, the plain
-    version and that call."""
+    not round as one FMA), then ms per call of both geometries and that
+    call (the least of three rounds in turns) and of the plain version."""
     n_vox = v.numel()
     lib = torch.add(aux, v, alpha=1e-6)
     d = (P.pipe_copy(v, aux, 0) - lib).abs()
@@ -1609,9 +1645,13 @@ def k7_times(v, aux, shift, card):
     if ulps > 1:
         raise AssertionError("K7 and torch.add differ by more than 1 ulp")
     del lib, d
-    ms = {g: cuda_ms(lambda: P.pipe_copy(v, aux, shift, g), 20) for g in P.GEOMETRIES}
+    # three rounds of the two geometries and torch.add in turns, the least
+    # of each: the card's clock drifts a few percent within a call
+    rounds = [{**{g: cuda_ms(lambda: P.pipe_copy(v, aux, shift, g), 20) for g in P.GEOMETRIES},
+               "add": cuda_ms(lambda: torch.add(aux, v, alpha=1e-6), 20)} for _ in range(3)]
+    ms = {k: min(r[k] for r in rounds) for k in rounds[0]}
+    lib_ms = ms["add"]
     plain_ms = cuda_ms(lambda: P.pipe_copy_torch(v, aux, shift), 2)
-    lib_ms = cuda_ms(lambda: torch.add(aux, v, alpha=1e-6), 20)
     b = bound(3 * 4 * n_vox, n_vox)
     print(f"  K7 at {tuple(v.shape)} shift {shift}: z geometry {ms['z']:.4f} ms "
           f"({12 * n_vox / ms['z'] / 1e6:.1f} GB/s), xy geometry {ms['xy']:.4f} ms "

@@ -5,378 +5,488 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 // microimagelib_tpu/ops/conv_sep.py::_rl_kernel (launched by
-// _rl_iter_fused). That kernel walks a sequential grid of g + 4 slabs,
-// runs the xy convolution as each slab arrives and keeps a three-slab
-// tail/prev/cur ring per stage in VMEM, so the ratio never leaves the
-// chip. Nothing of that carries over: CUDA blocks run in no order, and the
-// back projector needs the ratio on a z and xy halo that other blocks own.
+// _rl_iter_fused). That kernel walks a sequential grid of z slabs and keeps
+// a three-slab ring of the ratio per stage in VMEM, so the ratio never
+// leaves the chip. CUDA blocks run in no order, and the back projector needs
+// the ratio on a z and xy halo that other blocks compute, so here the ratio
+// lives in a ring of z planes in device memory.
 //
-// What bounds it on this card: memory traffic and, for long z supports,
-// cached loads. The least traffic is est and img read once and out written
-// once (3 volume passes; K1 as a ratio/update pair moves ~6 plus its rank
-// volumes). The stencils do ~2 x taps fp32 FMAs per voxel and stage, far
-// below the 67 TFLOP/s fp32 rate.
+// What bounds it on this card: the stencils' latency and shared-memory
+// traffic, as for K1 (a K1 launch reaches ~40% of the copy ceiling); the
+// least traffic is est and img read once and out written once (3 volume
+// passes against the K1 pair's 6).
 //
-// What this design does about it, in its first, simple form:
-//   * one cooperative launch (cudaLaunchCooperativeKernel) of persistent
-//     blocks, as many as the occupancy calculator lets reside at once;
-//     stage 1 writes ratio = img / fwd(est) to a scratch volume the wrapper
-//     allocates, grid.sync(), stage 2 writes max(est * bp(ratio), smallvalue).
-//     The ratio makes one round trip through device memory; K1's rank
-//     volumes make none, because each stage fuses the z pass into the xy
-//     tile:
-//   * a task is one (16 x 64) xy tile of up to Q = 8 consecutive z planes.
-//     Per rank, the block first runs the z convolution of the tile plus its
-//     y/x halo for the Q planes into shared memory: each thread walks one
-//     halo column through the Q + nsteps - 1 planes the Q outputs need and
-//     feeds every loaded value to each output it reaches, so a column is
-//     loaded (Q + nsteps - 1) / Q times per output plane instead of nsteps
-//     times. Loads go out four planes at a time, and the z taps sit in
-//     shared memory between zero pads, so the (plane, output) FMAs need no
-//     range test (an earlier form with per-FMA range tests was bound by its
-//     ~3x more instructions); only a column whose outputs come out inf or
-//     NaN is summed again with the tests, so that 0 * inf cannot reach an
-//     output the value's taps do not. Then, per plane, the y stencil into a
-//     staging row block and the x stencil into registers, summing the ranks
-//     there. Q shrinks when the halo is wide, so a block stays within
-//     ~110 KB of shared memory (two blocks per SM) or, for the widest taps,
-//     within 227 KB (one).
-//   * rounding: every z tap, y tap and x tap is an fmaf in K1's order
-//     (csrc/conv_sep.cu), the ranks add in K1's order and the epilogues are
-//     K1's, so K2 gives the bits of a K1 ratio launch followed by a K1
-//     update launch. No atomics: two launches give identical bits.
-//   * the ratio written in stage 1 is read in stage 2 through L2 only
-//     (__ldcg): the non-coherent L1 path is kept for data no block writes.
-// Keeping only a ring of ratio slabs in L2 (one sync per slab group), TMA
-// loads and register-blocked stencils are later work.
+// What the design does about it:
+//   * Each stage is K1's block stage (csrc/sep_stage.cuh: its tile and ring
+//     plan, its specialised instantiations, cp.async ring, register-blocked
+//     stencils), so K2 gives a K1 ratio launch followed by a K1 update
+//     launch bit for bit. Both stages take the same instantiation: the
+//     plans' specialised one where they share it, else the generic one.
+//   * A task is (stage, group of G z planes, tile). Stage 1 of group k
+//     writes ratio = img / fwd(est) into the ratio store; stage 2 of group g
+//     reads the ratio of planes gG - a2 .. gG + G - 1 + b2 (the back
+//     projector's z reach, wrapped) and writes out = max(est * bp, sv).
+//   * The store keeps planes [0, head) in place (the last groups' wrapped
+//     reads and the first groups' outputs) and every later plane in a ring
+//     of `ring` slots: ring = G (2 + ceil(b2 / G)) + a2 planes, so a
+//     slot is rewritten only after every stage-2 task that reads it is done.
+//     Stage 2 of groups 0 .. g0 - 1 (g0 = ceil(a2 / G)), which read the
+//     last planes, runs last. Where head + ring would reach nz the store is
+//     the whole volume.
+//   * G is the largest group whose store is at most half a volume (and at
+//     least the stages' z window). Each (tile, group) task refills K1's
+//     plane ring with a z window of planes before its first output, so
+//     fewer, longer groups run faster; a ring small enough to stay in the
+//     50 MB L2 (G = 8 at the fusion grid) made K2 twice as slow as the K1
+//     pair on an H100.
+//   * One persistent launch (one wave of resident blocks) takes the tasks
+//     in a fixed order by a global ticket: stage 1 of group k, then stage 2
+//     of the group whose reads end a group earlier. Each finished task
+//     sets its (group, tile) flag with a release add after a barrier; lanes
+//     of warp 0 spin on acquire loads of the flags a task depends on: a
+//     stage-2 task on the stage-1 tiles under its y/x halo in the groups it
+//     reads, a stage-1 task on the stage-2 tiles whose halo reads the ring
+//     slot's old plane under its tile. Every wait is on tasks of earlier
+//     tickets, so the launch needs no residency guarantee; and since a
+//     task's neighbours sit at the same place of a segment of tickets
+//     handed out a group or more before, the flags it needs are almost
+//     always set when it looks (per-group counts left blocks idle at every
+//     group's tail). Stage 1 of later groups overlaps stage 2 of earlier
+//     ones.
+//   * The last block to leave resets the counters, so a workspace serves
+//     every launch on its stream without a memset.
+//   * The ratio is read through L2 (cp.async.ca after the acquire, or
+//     __ldcg on K1's ring-less path), never through the read-only path.
 //
 // The kernel launches on the caller's stream, does not synchronise and
-// allocates nothing: the wrapper (kernels/rl_fused.py) allocates out and
-// the ratio scratch. If the cooperative grid cannot be resident, the launch
-// reports an error; there is no fallback.
+// allocates nothing: the wrapper (kernels/rl_fused.py) allocates out, the
+// ratio store and the counter workspace. The plan (make_k2_plan) is
+// mirrored in kernels/rl_fused.py::launch_plan.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-
-namespace cg = cooperative_groups;
+#include "sep_stage.cuh"
 
 namespace {
 
-constexpr int kMaxRank = 4;
-constexpr int kMaxZTaps = 128;
-constexpr int kMaxXYTaps = 128;
-constexpr int kTX = 64;                      // tile width (= threads along x)
-constexpr int kTY = 16;                      // tile height
-constexpr int kThreadsY = 4;
-constexpr int kThreads = kTX * kThreadsY;    // 256
-constexpr int kRowsPerThread = kTY / kThreadsY;
-constexpr int kMaxQ = 8;                     // z planes per task
-constexpr int kLoadBatch = 4;                // z-pass loads in flight together
-// zero taps around each rank's z taps, so that every (plane, output) pair
-// of a load batch reads a tap without a range test
-constexpr int kPadLo = kMaxQ - 1;
-constexpr int kPadHi = kMaxQ + kLoadBatch - 2;
-constexpr size_t kTwoPerSmBytes = 110 * 1024;
-constexpr size_t kMaxSmemBytes = 227 * 1024;
+constexpr int kLag = 1;   // groups stage 2 trails stage 1 by, beyond its reach
 
-struct Stage {
-  const float* tz;   // (rank, nsteps)
-  const float* ty;   // (rank, ly)
-  const float* tx;   // (rank, lx)
-  int rank, a, nsteps, ly, oy, lx, ox;
-  int q;             // z planes per task
+struct K2Plan {
+  Plan st[2];
+  int path;              // kSpecs index both stages take, -1 generic
+  int group, ngroups;    // G, NG = ceil(nz / G)
+  int deferred;          // g0: stage-2 groups that run after every stage 1
+  int lag;               // L = ceil(b2 / G) + kLag: stage 2 of g follows stage 1 of g + L
+  int head, ring;        // planes of the store in place, ring slots
+  int smem;
 };
 
-struct Params {
-  const float* est;
-  const float* img;
-  float* out;
-  float* ratio;
-  Stage st[2];       // fwd, bp
-  int nz, ny, nx;
-  float smallvalue;
-};
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  const int r = i % n;
-  return r < 0 ? r + n : r;
+// The ratio store of groups of g planes: head + ring.
+void store_layout(int nz, int a2, int b2, int g, K2Plan* k) {
+  const int la = ceil_div(b2, g);
+  k->group = g;
+  k->ngroups = ceil_div(nz, g);
+  const int g0 = ceil_div(a2, g);
+  k->deferred = g0 < k->ngroups ? g0 : k->ngroups;
+  k->lag = la + kLag;
+  k->ring = g * (1 + la + kLag) + a2;
+  const int head = k->deferred * g + b2;
+  k->head = head < nz ? head : nz;
+  if (k->head + k->ring >= nz) {   // the whole volume: no ring
+    k->head = nz;
+    k->ring = 0;
+  }
 }
 
-// The z convolution of one halo column for the up to kMaxQ outputs of a
-// task: zacc[qq] = sum over t of tzr[t] * col[plane zstart + qq + t]. The
-// kLoadBatch planes of a batch are loaded before any of them is used, so
-// that many loads are in flight per thread; the FMAs then run in plane
-// order, which keeps every output's taps in K1's order. Plane pl feeds
-// output qq with tap pl - qq. Untested (TESTED false), a tap out of range
-// reads a zero pad, and fmaf(0, v, acc) leaves acc as it is for a finite v;
-// TESTED skips those FMAs, for columns that hold an inf or NaN.
-template <int STAGE, bool TESTED>
-__device__ __forceinline__ void z_column(const float* col, int zstart, int nplanes, int nz,
-                                         size_t plane, const float* tzr, int nsteps,
-                                         float (&zacc)[kMaxQ]) {
-#pragma unroll
-  for (int qq = 0; qq < kMaxQ; ++qq) zacc[qq] = 0.f;
-  int zi = zstart;
-  for (int pl0 = 0; pl0 < nplanes; pl0 += kLoadBatch) {
-    float val[kLoadBatch];
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      val[u] = 0.f;
-      if (pl0 + u < nplanes) {
-        const float* src = col + (size_t)zi * plane;
-        val[u] = STAGE == 0 ? __ldg(src) : __ldcg(src);
-        zi = (zi + 1 == nz) ? 0 : zi + 1;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-#pragma unroll
-      for (int qq = 0; qq < kMaxQ; ++qq) {
-        const int t = pl0 + u - qq;
-        if (!TESTED || (t >= 0 && t < nsteps)) zacc[qq] = fmaf(tzr[t], val[u], zacc[qq]);
-      }
+// The K2 plan; group 0 takes the largest
+// group whose store holds at most half a volume (every group costs each
+// tile's task a z window of warm-up planes, so fewer, longer groups run
+// faster), or one group of nz planes where none of at least that window
+// (the longer stage's z taps - 1) does. False where a stage's K1 plan does
+// not fit.
+bool make_k2_plan(int nz, int ny, int nx, const int rank[2], const int nsteps[2],
+                  const int a[2], const int ly[2], const int lx[2], int sms, int group,
+                  int flags, K2Plan* k) {
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int s = 0; s < 2; ++s)
+      if (!make_plan(nz, ny, nx, rank[s], nsteps[s], ly[s], lx[s], 0, 0, sms, flags, &k->st[s]))
+        return false;
+    if (k->st[0].path == k->st[1].path) break;
+    flags |= kFlagGeneric;   // one instantiation runs both stages
+  }
+  k->path = k->st[0].path;
+  k->smem = k->st[0].smem > k->st[1].smem ? k->st[0].smem : k->st[1].smem;
+  const int a2 = a[1], b2 = nsteps[1] - 1 - a[1];
+  if (group > 0) {
+    store_layout(nz, a2, b2, group < nz ? group : nz, k);
+    return true;
+  }
+  const int window = (nsteps[0] > nsteps[1] ? nsteps[0] : nsteps[1]) - 1;
+  for (int g = nz; g >= 1 && g >= window; --g) {
+    store_layout(nz, a2, b2, g, k);
+    if (2LL * (k->head + k->ring) <= nz) return true;
+  }
+  store_layout(nz, a2, b2, nz, k);
+  return true;
+}
+
+struct K2Params {
+  Params st[2];
+  int* ctr;     // [0] ticket, [1] blocks done, then a flag a (group, tile) of stage 1, of stage 2
+  float* store;
+  size_t plane;
+  int nz, group, ngroups, deferred, lag, head, ring, a2, b2;
+  int tiles[2];
+  int total;
+};
+
+struct Task {
+  int stage, group, tile;
+};
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// natural stage-2 groups (g >= deferred) whose turn comes by stage 1 of group j
+__device__ __forceinline__ long long stage2_by(const K2Params& q, int j) {
+  const int n = q.ngroups - q.deferred;
+  if (j < 0) return 0;
+  if (j >= q.ngroups - 1) return n;
+  const int c = j - q.lag - q.deferred + 1;
+  return c < 0 ? 0 : (c > n ? n : c);
+}
+
+__device__ __forceinline__ long long stage1_ticket(const K2Params& q, int k) {
+  return (long long)k * q.tiles[0] + q.tiles[1] * stage2_by(q, k - 1);
+}
+
+// Ticket order: stage 1 of group k, then the natural stage-2 groups whose
+// turn it is; the deferred stage-2 groups last.
+__device__ Task decode(const K2Params& q, int t) {
+  const long long t1 = q.tiles[0], t2 = q.tiles[1];
+  const long long end1 = q.ngroups * t1 + t2 * (q.ngroups - q.deferred);
+  if (t >= end1) {
+    const long long off = t - end1;
+    return Task{1, static_cast<int>(off / t2), static_cast<int>(off % t2)};
+  }
+  int lo = 0, hi = q.ngroups - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (stage1_ticket(q, mid) <= t)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  long long off = t - stage1_ticket(q, lo);
+  if (off < t1) return Task{0, lo, static_cast<int>(off)};
+  off -= t1;
+  return Task{1, q.deferred + static_cast<int>(stage2_by(q, lo - 1) + off / t2),
+              static_cast<int>(off % t2)};
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void add_release(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// A wait that outlasts kMaxSpins polls (seconds; a task takes
+// microseconds) can only be a broken schedule: it traps, so the launch
+// fails with an error instead of hanging the card.
+constexpr long long kMaxSpins = 1LL << 25;
+
+// The tiles of `len` rows (or columns) of an axis of n, ntiles of them,
+// that rows lo .. hi (cyclic: wrapped modulo n) touch: first tile and count.
+__device__ __forceinline__ void tile_span(int lo, int hi, int n, int len, int ntiles,
+                                          int* first, int* count) {
+  if (hi - lo + 1 + len > n) {   // may reach round to its own start: all
+    *first = 0;
+    *count = ntiles;
+    return;
+  }
+  const int a = ((lo % n) + n) % n / len, b = ((hi % n) + n) % n / len;
+  *first = a;
+  *count = (b - a + ntiles) % ntiles + 1;
+}
+
+// Lanes of warp 0 spin until every flag of groups k0 + i (i < nk, cyclic
+// over ngroups) and tiles (r0 + j, c0 + l) (cyclic over the stage's tile
+// rows and columns) is set. flags: the stage's ngroups x tiles flags.
+__device__ void wait_flags(const int* flags, const Params& p, int k0, int nk, int ngroups,
+                           int r0, int nr, int c0, int nc, int lane) {
+  const int n = nk * nr * nc;
+  for (int i = lane; i < n; i += 32) {
+    const int k = (k0 + i / (nr * nc)) % ngroups;
+    const int r = (r0 + i / nc % nr) % p.tiles_y, c = (c0 + i % nc) % p.tiles_x;
+    const int* f = flags + ((size_t)k * p.tiles_y + r) * p.tiles_x + c;
+    for (long long spins = 0; load_acquire(f) == 0; ++spins) {
+      if (spins == kMaxSpins) __trap();
+      __nanosleep(64);
     }
   }
 }
 
-// The tested z_column, out of line (it runs only for non-finite columns,
-// and must not cost the common path registers), writing output qq < qn to
-// dst[qq * stride].
-template <int STAGE>
-__device__ __noinline__ void z_column_tested(const float* col, int zstart, int nplanes,
-                                             int nz, size_t plane, const float* tzr,
-                                             int nsteps, int qn, float* dst, int stride) {
-  float zacc[kMaxQ];
-  z_column<STAGE, true>(col, zstart, nplanes, nz, plane, tzr, nsteps, zacc);
-#pragma unroll
-  for (int qq = 0; qq < kMaxQ; ++qq)
-    if (qq < qn) dst[qq * stride] = zacc[qq];
+// Warp 0: wait for what task `t` reads (stage 2: the stage-1 tiles of its
+// groups under its y/x halo) or rewrites (stage 1: the stage-2 tiles whose
+// halo reads the ring slot's old plane under its tile).
+__device__ void wait_for(const K2Params& q, const Task& t, int lane) {
+  const Params& p1 = q.st[0];
+  const Params& p2 = q.st[1];
+  const int g = q.group, z0 = t.group * g, zn = min(g, q.nz - z0);
+  int r0, nr, c0, nc;
+  if (t.stage == 0) {
+    if (q.ring == 0) return;
+    // slots of planes z - ring, z in [z0, z0 + zn), where those are ring planes
+    const int lo = max(q.head, z0 - q.ring), hi = z0 + zn - 1 - q.ring;
+    if (hi < lo) return;
+    const int glo = max(q.deferred, floor_div(lo - q.b2 - g + 1, g));
+    const int ghi = min(q.ngroups - 1, floor_div(hi + q.a2, g));
+    if (ghi < glo) return;
+    // stage-2 tiles whose own rows meet [y0 + oy2, y1 + oy2 + ly2 - 1]
+    const int y0 = t.tile / p1.tiles_x * p1.ty, x0 = t.tile % p1.tiles_x * p1.tx;
+    const int y1 = min(y0 + p1.ty, p1.ny) - 1, x1 = min(x0 + p1.tx, p1.nx) - 1;
+    tile_span(y0 + p2.oy, y1 + p2.oy + p2.ly - 1, p2.ny, p2.ty, p2.tiles_y, &r0, &nr);
+    tile_span(x0 + p2.ox, x1 + p2.ox + p2.lx - 1, p2.nx, p2.tx, p2.tiles_x, &c0, &nc);
+    wait_flags(q.ctr + 2 + (size_t)q.ngroups * q.tiles[0], p2, glo, ghi - glo + 1, q.ngroups,
+               r0, nr, c0, nc, lane);
+  } else {
+    int k0, nk;
+    const int lo = z0 - q.a2, hi = z0 + zn - 1 + q.b2;
+    if (hi - lo + 1 + g > q.nz) {
+      k0 = 0;
+      nk = q.ngroups;
+    } else {
+      k0 = ((lo % q.nz + q.nz) % q.nz) / g;
+      nk = ((((hi % q.nz + q.nz) % q.nz) / g) - k0 + q.ngroups) % q.ngroups + 1;
+    }
+    // stage-1 tiles under rows [y0 - oy2 - ly2 + 1, y0 + ty2 - 1 - oy2]
+    const int y0 = t.tile / p2.tiles_x * p2.ty, x0 = t.tile % p2.tiles_x * p2.tx;
+    tile_span(y0 - p2.oy - p2.ly + 1, y0 + p2.ty - 1 - p2.oy, p1.ny, p1.ty, p1.tiles_y, &r0,
+              &nr);
+    tile_span(x0 - p2.ox - p2.lx + 1, x0 + p2.tx - 1 - p2.ox, p1.nx, p1.tx, p1.tiles_x, &c0,
+              &nc);
+    wait_flags(q.ctr + 2, p1, k0, nk, q.ngroups, r0, nr, c0, nc, lane);
+  }
 }
 
-// STAGE 0: ratio = img / fwd(est). STAGE 1: out = max(est * bp(ratio), sv).
-template <int STAGE>
-__device__ void run_stage(const Params& p, float* smem) {
-  const Stage& s = p.st[STAGE];
-  const float* in = STAGE == 0 ? p.est : p.ratio;
-  const float* aux = STAGE == 0 ? p.img : p.est;
-  float* dst = STAGE == 0 ? p.ratio : p.out;
-  const int nz = p.nz, ny = p.ny, nx = p.nx;
-  const int rank = s.rank, nsteps = s.nsteps, ly = s.ly, lx = s.lx, q = s.q;
-  const int hy = kTY + ly - 1, hx = kTX + lx - 1, halo = hy * hx;
+// MIN_BLOCKS: the resident blocks an SM the instantiation is compiled for
+// (the registers a thread may take): 1 where its plans fill an SM's shared
+// memory (the fusion PSFs' 25-tap stages) or take rank 4, else 2.
+template <int I>
+struct Inst {   // the specialised instantiation kSpecs[I]
+  static constexpr int R = kSpecs[I][0], NS = kSpecs[I][1], LY = kSpecs[I][2],
+                       LX = kSpecs[I][3], ZQ = kSpecs[I][4];
+  static constexpr int MIN_BLOCKS = R == 4 || NS == 25 || LX == 25 ? 1 : 2;
+};
+template <>
+struct Inst<-1> {   // the generic one
+  static constexpr int R = 0, NS = 0, LY = 0, LX = 0, ZQ = 1, MIN_BLOCKS = 2;
+};
 
-  float* s_zs = smem;                          // q x hy x hx: z-convolved halo
-  float* s_mid = s_zs + q * halo;              // kTY x hx: after the y stencil
-  const int tzrow = kPadLo + nsteps + kPadHi;
-  float* s_tz = s_mid + kTY * hx;              // rank x tzrow: padded z taps
-  float* s_ty = s_tz + rank * tzrow;
-  float* s_tx = s_ty + rank * ly;
-  int* s_row = reinterpret_cast<int*>(s_tx + rank * lx);   // hy source rows
-  int* s_col = s_row + hy;                                  // hx source columns
-
+template <int I>
+__global__ void __launch_bounds__(kThreads, Inst<I>::MIN_BLOCKS)
+rl_fused_kernel(const __grid_constant__ K2Params q) {
+  using S = Inst<I>;
+  extern __shared__ __align__(16) float smem[];
+  int* s_task = reinterpret_cast<int*>(smem);   // broadcast; each stage overwrites it
   const int tid = threadIdx.x;
-  const int tx = tid % kTX, ty = tid / kTX;
-  __syncthreads();   // the previous stage is done with shared memory
-  for (int i = tid; i < rank * tzrow; i += kThreads) {
-    const int r = i / tzrow, t = i - r * tzrow - kPadLo;
-    s_tz[i] = (t >= 0 && t < nsteps) ? s.tz[r * nsteps + t] : 0.f;
+  const RingStore ratio{q.store, q.plane, q.head, q.ring > 0 ? q.ring : 1};
+  int ticket = 0;
+  if (tid == 0) ticket = atomicAdd(q.ctr, 1);
+  for (;;) {
+    if (tid < 32) {
+      const int t = __shfl_sync(0xffffffffu, ticket, 0);
+      Task task{-1, 0, 0};
+      if (t < q.total) {
+        task = decode(q, t);
+        wait_for(q, task, tid);
+      }
+      __syncwarp();
+      if (tid == 0) {
+        s_task[0] = task.stage;
+        s_task[1] = task.group;
+        s_task[2] = task.tile;
+        if (task.stage >= 0) ticket = atomicAdd(q.ctr, 1);   // the next, fetched during this one
+      }
+    }
+    __syncthreads();
+    const int stage = s_task[0], group = s_task[1], tile = s_task[2];
+    __syncthreads();   // read before the stage overwrites the slot
+    if (stage < 0) break;
+    const int z0 = group * q.group, nzr = min(q.group, q.nz - z0);
+    // each stage names its parameters with a constant index, so that the
+    // stage reads them as constant-bank operands, as K1 does
+    if (stage == 0) {
+      const Params& p = q.st[0];
+      sep_stage<S::R, S::NS, S::LY, S::LX, S::ZQ>(p, VolumeIn{p.v, q.plane}, ratio,
+                                                  (tile % p.tiles_x) * p.tx,
+                                                  (tile / p.tiles_x) * p.ty, z0, nzr, smem);
+    } else {
+      const Params& p = q.st[1];
+      sep_stage<S::R, S::NS, S::LY, S::LX, S::ZQ>(p, ratio, VolumeOut{p.out, q.plane},
+                                                  (tile % p.tiles_x) * p.tx,
+                                                  (tile / p.tiles_x) * p.ty, z0, nzr, smem);
+    }
+    __syncthreads();   // every output of the task is written; smem is free
+    if (tid == 0)
+      add_release(q.ctr + 2 + (size_t)stage * q.ngroups * q.tiles[0] +
+                      (size_t)group * q.tiles[stage] + tile,
+                  1);
   }
-  for (int i = tid; i < rank * ly; i += kThreads) s_ty[i] = s.ty[i];
-  for (int i = tid; i < rank * lx; i += kThreads) s_tx[i] = s.tx[i];
-
-  const size_t plane = (size_t)ny * nx;
-  const int ntx = (nx + kTX - 1) / kTX, nty = (ny + kTY - 1) / kTY;
-  const long long ntasks = (long long)ntx * nty * ((nz + q - 1) / q);
-
-  for (long long task = blockIdx.x; task < ntasks; task += gridDim.x) {
-    const int bx = (int)(task % ntx);
-    const int by = (int)((task / ntx) % nty);
-    const int z0 = (int)(task / ((long long)ntx * nty)) * q;
-    const int qn = min(q, nz - z0);
-    const int x0 = bx * kTX, y0 = by * kTY;
-    __syncthreads();   // the previous task is done with the tiles and indices
-    // halo (0, 0) is the source of output (y0, x0) under the largest offset
-    for (int i = tid; i < hy; i += kThreads) s_row[i] = wrap(y0 - (s.oy + ly - 1) + i, ny);
-    for (int i = tid; i < hx; i += kThreads) s_col[i] = wrap(x0 - (s.ox + lx - 1) + i, nx);
-
-    float acc[kMaxQ][kRowsPerThread];
-#pragma unroll
-    for (int qq = 0; qq < kMaxQ; ++qq)
-#pragma unroll
-      for (int j = 0; j < kRowsPerThread; ++j) acc[qq][j] = 0.f;
-
-    for (int r = 0; r < rank; ++r) {
-      __syncthreads();   // indices staged; the previous rank is done with s_zs
-      const float* tzr = s_tz + r * tzrow + kPadLo;   // tzr[t], t in [-kPadLo, nsteps + kPadHi)
-      // z convolution of the halo, output planes z0 .. z0 + qn - 1: plane
-      // z0 - a + pl feeds output qq with tap pl - qq, in K1's tap order
-      const int zstart = wrap(z0 - s.a, nz);
-      const int nplanes = qn + nsteps - 1;
-      for (int e = tid; e < halo; e += kThreads) {
-        const int iy = e / hx, ix = e - iy * hx;
-        const float* col = in + (size_t)s_row[iy] * nx + s_col[ix];
-        float zacc[kMaxQ];
-        z_column<STAGE, false>(col, zstart, nplanes, nz, plane, tzr, nsteps, zacc);
-        // the untested FMAs turn 0 * inf into NaN in outputs the inf does
-        // not reach (a ratio over fwd(est) <= 0 holds such planes): a
-        // column with a non-finite output is summed again with range tests
-        bool finite = true;
-#pragma unroll
-        for (int qq = 0; qq < kMaxQ; ++qq)
-          finite = finite && (qq >= qn || isfinite(zacc[qq]));
-        if (finite) {
-#pragma unroll
-          for (int qq = 0; qq < kMaxQ; ++qq)
-            if (qq < qn) s_zs[qq * halo + e] = zacc[qq];
-        } else {
-          z_column_tested<STAGE>(col, zstart, nplanes, nz, plane, tzr, nsteps, qn,
-                                 s_zs + e, halo);
-        }
-      }
-      const float* kyr = s_ty + r * ly;
-      const float* kxr = s_tx + r * lx;
-#pragma unroll
-      for (int qq = 0; qq < kMaxQ; ++qq) {
-        if (qq < qn) {
-          __syncthreads();   // s_zs written; the previous plane is done with s_mid
-          const float* zt = s_zs + qq * halo;
-          for (int t = ty; t < kTY; t += kThreadsY) {
-            for (int c = tx; c < hx; c += kTX) {
-              float sacc = 0.f;
-              for (int k = 0; k < ly; ++k)
-                sacc = fmaf(kyr[k], zt[(t + ly - 1 - k) * hx + c], sacc);
-              s_mid[t * hx + c] = sacc;
-            }
-          }
-          __syncthreads();
-#pragma unroll
-          for (int j = 0; j < kRowsPerThread; ++j) {
-            const float* row = s_mid + (ty + j * kThreadsY) * hx + tx + lx - 1;
-            float sacc = 0.f;
-            for (int k = 0; k < lx; ++k) sacc = fmaf(kxr[k], row[-k], sacc);
-            acc[qq][j] += sacc;
-          }
-        }
-      }
-    }
-
-    const int x = x0 + tx;
-#pragma unroll
-    for (int qq = 0; qq < kMaxQ; ++qq) {
-#pragma unroll
-      for (int j = 0; j < kRowsPerThread; ++j) {
-        const int y = y0 + ty + j * kThreadsY;
-        if (qq >= qn || y >= ny || x >= nx) continue;
-        const size_t o = (size_t)(z0 + qq) * plane + (size_t)y * nx + x;
-        const float val = acc[qq][j];
-        if (STAGE == 0)
-          dst[o] = __ldg(aux + o) / val;
-        else
-          dst[o] = fmaxf(__ldg(aux + o) * val, p.smallvalue);
-      }
-    }
+  if (tid == 0) s_task[0] = atomicAdd(q.ctr + 1, 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (s_task[0]) {
+    // the last block out: every block has taken its last ticket and
+    // finished its tasks, so the counters go back to 0 for the next launch
+    const int n = 2 + q.ngroups * (q.tiles[0] + q.tiles[1]);
+    for (int i = tid; i < n; i += kThreads) q.ctr[i] = 0;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) rl_fused_kernel(Params p) {
-  extern __shared__ float smem[];
-  run_stage<0>(p, smem);
-  cg::this_grid().sync();   // every ratio voxel is written (and visible)
-  run_stage<1>(p, smem);
+using K2Fn = void (*)(const K2Params);
+
+K2Fn k2_kernel_for(int path) {
+  switch (path) {
+    case 0: return rl_fused_kernel<0>;
+    case 1: return rl_fused_kernel<1>;
+    case 2: return rl_fused_kernel<2>;
+    case 3: return rl_fused_kernel<3>;
+    default: return rl_fused_kernel<-1>;
+  }
 }
 
-size_t stage_smem_bytes(const Stage& s, int q) {
-  const size_t hy = kTY + s.ly - 1, hx = kTX + s.lx - 1;
-  return ((size_t)q * hy * hx + kTY * hx +
-          (size_t)s.rank * (kPadLo + s.nsteps + kPadHi + s.ly + s.lx)) *
-             sizeof(float) +
-         (hy + hx) * sizeof(int);
+constexpr int kPlanValues = 14;
+
+void plan_values(const K2Plan& k, int* out) {
+  const int v[kPlanValues] = {k.path,      k.group,      k.ngroups,    k.deferred, k.lag,
+                              k.head,      k.ring,       k.smem,       k.st[0].ty, k.st[0].tx,
+                              k.st[1].ty,  k.st[1].tx,   k.st[0].ring, k.st[1].ring};
+  for (int i = 0; i < kPlanValues; ++i) out[i] = v[i];
 }
 
-// The most z planes per task (<= kMaxQ, <= nz) that keep two blocks per
-// SM; 1 when even one plane needs more.
-int pick_q(const Stage& s, int nz) {
-  for (int q = kMaxQ < nz ? kMaxQ : nz; q > 1; --q)
-    if (stage_smem_bytes(s, q) <= kTwoPerSmBytes) return q;
-  return 1;
-}
-
-bool stage_ok(const Stage& s) {
-  return s.rank >= 1 && s.rank <= kMaxRank && s.nsteps >= 1 && s.nsteps <= kMaxZTaps &&
-         s.a >= 0 && s.a < s.nsteps && s.ly >= 1 && s.ly <= kMaxXYTaps && s.lx >= 1 &&
-         s.lx <= kMaxXYTaps;
+// make_k2_plan after checking what K2 takes: cudaSuccess or cudaErrorInvalidValue.
+cudaError_t checked_plan(int nz, int ny, int nx, const int rank[2], const int ns[2],
+                         const int a[2], const int ly[2], const int lx[2], int sms, int group,
+                         int flags, K2Plan* k) {
+  for (int s = 0; s < 2; ++s)
+    if (!valid(nz, ny, nx, rank[s], ns[s], ly[s], lx[s], 0, 0) || a[s] < 0 || a[s] >= ns[s] ||
+        ns[s] > nz)
+      return cudaErrorInvalidValue;
+  if (sms < 1 || group < 0 ||
+      !make_k2_plan(nz, ny, nx, rank, ns, a, ly, lx, sms, group, flags, k))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// One K2 launch on `stream`: out = max(est * bp(img / fwd(est)), smallvalue).
-// `ratio` is scratch of nz * ny * nx floats. Stage 1 is the forward plan
-// (tz1, ty1, tx1, ...), stage 2 the back projector's. `info`, when not NULL,
-// receives {grid blocks, blocks per SM, z planes per task of stage 1 and 2,
-// shared-memory bytes per block}. Returns the cudaError_t of the launch, 0
-// on success.
-int mil_rl_iter_fused(const float* est, const float* img, float* out, float* ratio,
-                      const float* tz1, const float* ty1, const float* tx1, int rank1,
-                      int a1, int nsteps1, int ly1, int oy1, int lx1, int ox1,
-                      const float* tz2, const float* ty2, const float* tx2, int rank2,
-                      int a2, int nsteps2, int ly2, int oy2, int lx2, int ox2,
-                      int nz, int ny, int nx, float smallvalue, int* info,
-                      void* stream) {
-  Params p;
-  p.est = est;
-  p.img = img;
-  p.out = out;
-  p.ratio = ratio;
-  p.st[0] = Stage{tz1, ty1, tx1, rank1, a1, nsteps1, ly1, oy1, lx1, ox1, 1};
-  p.st[1] = Stage{tz2, ty2, tx2, rank2, a2, nsteps2, ly2, oy2, lx2, ox2, 1};
-  p.nz = nz;
-  p.ny = ny;
-  p.nx = nx;
-  p.smallvalue = smallvalue;
-  if (nz < 1 || ny < 1 || nx < 1 || !stage_ok(p.st[0]) || !stage_ok(p.st[1]) ||
-      p.st[0].nsteps > nz || p.st[1].nsteps > nz)
-    return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem = 0;
-  long long tasks = 0;
-  for (int k = 0; k < 2; ++k) {
-    Stage& s = p.st[k];
-    s.q = pick_q(s, nz);
-    const size_t b = stage_smem_bytes(s, s.q);
-    smem = b > smem ? b : smem;
-    const long long t = (long long)((nx + kTX - 1) / kTX) * ((ny + kTY - 1) / kTY) *
-                        ((nz + s.q - 1) / s.q);
-    tasks = t > tasks ? t : tasks;
-  }
-  if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+// The K2 plan for a (nz, ny, nx) grid and the two stages' (rank, z taps, a,
+// y taps, x taps), on a card of `sms` SMs; group 0 = the default;
+// flags as K1's. out[0..13] = instantiation (kSpecs index, -1 generic),
+// group planes, groups, deferred groups, stage-2 lag in groups, head planes,
+// ring planes, shared bytes, stage-1 tile rows and columns, stage-2 tile
+// rows and columns, stage-1 and stage-2 K1 ring depths. Returns 0, or
+// cudaErrorInvalidValue where K2 does not take it.
+int mil_rl_fused_plan(int nz, int ny, int nx, int rank1, int nsteps1, int a1, int ly1, int lx1,
+                      int rank2, int nsteps2, int a2, int ly2, int lx2, int sms, int group,
+                      int flags, int* out) {
+  const int rank[2] = {rank1, rank2}, ns[2] = {nsteps1, nsteps2}, a[2] = {a1, a2},
+            ly[2] = {ly1, ly2}, lx[2] = {lx1, lx2};
+  K2Plan k;
+  const cudaError_t err = checked_plan(nz, ny, nx, rank, ns, a, ly, lx, sms, group, flags, &k);
+  if (err == cudaSuccess) plan_values(k, out);
+  return static_cast<int>(err);
+}
 
-  cudaError_t err = cudaFuncSetAttribute(
-      rl_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// What K2's instantiation `path` compiled to, with `smem` dynamic shared
+// bytes: out[0] registers, out[1] spilled bytes a thread, out[2] resident
+// blocks per SM. Returns a cudaError_t, 0 on success.
+int mil_rl_fused_attrs(int path, int smem, int* out) {
+  const K2Fn fn = k2_kernel_for(path);
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+          cudaSuccess ||
+      (err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = blocks;
+  return 0;
+}
+
+// One K2 launch on `stream`: out = max(est * bp(img / fwd(est)), smallvalue).
+// `store` holds store_planes planes of ny * nx floats (the plan's head +
+// ring); `ctr` holds ctr_len >= 2 + groups x (stage-1 + stage-2 tiles) ints,
+// all 0 (a launch leaves them 0). Stage 1 is
+// the forward plan (tz1, ty1, tx1, ...), stage 2 the back projector's.
+// `info`, when not NULL, receives {grid blocks, resident blocks per SM,
+// the 14 plan values of mil_rl_fused_plan}. Returns the cudaError_t of the
+// launch, 0 on success.
+int mil_rl_iter_fused(const float* est, const float* img, float* out, float* store,
+                      int store_planes, int* ctr, int ctr_len, const float* tz1,
+                      const float* ty1, const float* tx1, int rank1, int a1, int nsteps1,
+                      int ly1, int oy1, int lx1, int ox1, const float* tz2, const float* ty2,
+                      const float* tx2, int rank2, int a2, int nsteps2, int ly2, int oy2,
+                      int lx2, int ox2, int nz, int ny, int nx, float smallvalue, int group,
+                      int flags, int* info, void* stream) {
+  const int sms = sm_count();
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidDevice);
+  const int rank[2] = {rank1, rank2}, ns[2] = {nsteps1, nsteps2}, a[2] = {a1, a2},
+            ly[2] = {ly1, ly2}, lx[2] = {lx1, lx2};
+  K2Plan k;
+  cudaError_t err = checked_plan(nz, ny, nx, rank, ns, a, ly, lx, sms, group, flags, &k);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rl_fused_kernel, kThreads,
-                                                      smem);
+  if (store_planes < k.head + k.ring)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K2Params q;
+  q.st[0] = stage_params(k.st[0], est, img, store, tz1, nullptr, ty1, tx1, nz, ny, nx, rank1,
+                         a1, nsteps1, ly1, oy1, lx1, ox1, 0, 0, 0, 0, 1, smallvalue);
+  q.st[1] = stage_params(k.st[1], store, est, out, tz2, nullptr, ty2, tx2, nz, ny, nx, rank2,
+                         a2, nsteps2, ly2, oy2, lx2, ox2, 0, 0, 0, 0, 2, smallvalue);
+  q.ctr = ctr;
+  q.store = store;
+  q.plane = (size_t)ny * nx;
+  q.nz = nz;
+  q.group = k.group;
+  q.ngroups = k.ngroups;
+  q.deferred = k.deferred;
+  q.lag = k.lag;
+  q.head = k.head;
+  q.ring = k.ring;
+  q.a2 = a2;
+  q.b2 = nsteps2 - 1 - a2;
+  for (int s = 0; s < 2; ++s) q.tiles[s] = q.st[s].tiles_x * q.st[s].tiles_y;
+  const long long total = (long long)k.ngroups * (q.tiles[0] + q.tiles[1]);
+  if (total > (1LL << 30) || ctr_len < 2 + total) return static_cast<int>(cudaErrorInvalidValue);
+  q.total = static_cast<int>(total);
+
+  const K2Fn fn = k2_kernel_for(k.path);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const long long resident = (long long)per_sm * sms;
-  const int grid = static_cast<int>(tasks < resident ? tasks : resident);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, k.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long slots = (long long)per_sm * sms;
+  const int grid = static_cast<int>(total < slots ? total : slots);
   if (info) {
     info[0] = grid;
     info[1] = per_sm;
-    info[2] = p.st[0].q;
-    info[3] = p.st[1].q;
-    info[4] = static_cast<int>(smem);
+    plan_values(k, info + 2);
   }
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(rl_fused_kernel), dim3(grid),
-                                    dim3(kThreads), args, smem,
-                                    static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err);
+  fn<<<grid, kThreads, k.smem, static_cast<cudaStream_t>(stream)>>>(q);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -29,7 +29,7 @@ from microimagelib_tpu_torch.kernels import corr as C
 from microimagelib_tpu_torch.kernels import fft_ct as F
 from microimagelib_tpu_torch.kernels import pipe_copy as K7
 from microimagelib_tpu_torch.kernels import rl_fused as KF
-from microimagelib_tpu_torch.ops.conv_sep import SepPlan, plan_rl_fused, plan_sep
+from microimagelib_tpu_torch.ops.conv_sep import RLFusedPlan, SepPlan, plan_rl_fused, plan_sep
 from microimagelib_tpu_torch.ops.matrix import dof_to_matrix
 
 
@@ -565,10 +565,93 @@ def test_nprobe_kernel_equals_k5_per_probe(cuda, shape):
     np.testing.assert_allclose(rows, plain, rtol=1e-5)
 
 
+def _rank4_plan(shape):
+    """Rank 4, no rolls, tap counts no specialised instantiation has."""
+    rng = np.random.default_rng(7)
+    return SepPlan(shape=shape, a=5, b=5, tz=rng.random((4, 11), dtype=np.float32) / 11,
+                   ty=rng.random((4, 7), dtype=np.float32) / 7, oy=-3,
+                   tx=rng.random((4, 9), dtype=np.float32) / 9, ox=-4, rolls=None)
+
+
+def _wide_plan(shape):
+    """Rank 2, 33 z taps and 100 y and x taps: no ring fits a block, so each
+    stage reads its z taps from device memory (the ratio through L2)."""
+    rng = np.random.default_rng(8)
+    return SepPlan(shape=shape, a=16, b=16, tz=rng.random((2, 33), dtype=np.float32) / 33,
+                   ty=rng.random((2, 100), dtype=np.float32) / 100, oy=-50,
+                   tx=rng.random((2, 100), dtype=np.float32) / 100, ox=-50, rolls=None)
+
+
+def _k2_plan(kind, shape):
+    if kind == "rank4":
+        return RLFusedPlan(_rank4_plan(shape), _rank4_plan(shape))
+    if kind == "wide":
+        return RLFusedPlan(_wide_plan(shape), _wide_plan(shape))
+    psf = {"bench9": _gauss((9, 9, 9), (1.5, 1.5, 1.5)),
+           "fusionA": _gauss((25, 25, 25), (3.5, 1.2, 1.2))}[kind]
+    return plan_rl_fused(psf, np.ascontiguousarray(psf[::-1, ::-1, ::-1]), shape)
+
+
+# (plan, grid, group, flags, store): the store K2's plan gives there,
+# "ring" where the ratio lives in the ring of z planes, "volume" where the
+# grid is smaller than head + ring
+K2_RING_CASES = [
+    ("fusionA", (26, 48, 64), 0, 0, "volume"),
+    ("fusionA", (83, 32, 64), 8, 0, "ring"),
+    ("fusionA", (83, 32, 64), 8, K.NO_RING, "ring"),
+    ("bench9", (61, 48, 64), 8, 0, "ring"),
+    ("bench9", (61, 48, 64), 3, 0, "ring"),
+    ("bench9", (61, 48, 64), 1, 0, "ring"),
+    ("bench9", (64, 40, 96), 8, K.GENERIC, "ring"),
+    ("bench9", (128, 64, 64), 0, 0, "ring"),
+    ("rank4", (45, 40, 72), 4, 0, "ring"),
+    ("wide", (40, 64, 104), 8, 0, "volume"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_RING_CASES,
+                         ids=lambda c: f"{c[0]}-{'x'.join(map(str, c[1]))}-g{c[2]}-f{c[3]}")
+def test_rl_fused_ring_plans_equal_the_k1_pair(cuda, case):
+    """K2 bit for bit a K1 ratio launch then a K1 update launch, and again
+    from one launch to the next, wherever the ratio lives (the ring of z
+    planes at nz off the group multiple, or the whole volume), at the
+    default group size and others, on the generic stage (rank 4),
+    K1's ring-less stage (wide taps, or forced) and the forced generic
+    instantiation; within 2e-5 x max of its plain version. The compiled
+    plan is the host's."""
+    kind, shape, group, flags, store = case
+    plan = _k2_plan(kind, shape)
+    assert plan is not None
+    host = KF.launch_plan(plan, group=group, flags=flags)
+    assert (host["ring"] > 0) == (store == "ring"), host
+    assert KF.kernel_plan(plan, group=group, flags=flags) == host
+    if kind in ("rank4", "wide") or flags & K.GENERIC:
+        assert host["path"] == -1
+    if kind == "wide" or flags & K.NO_RING:
+        assert host["ring_fwd"] == host["ring_bp"] == 0
+    rng = np.random.default_rng(0)
+    est = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100 + 1).to(cuda)
+    img = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100 + 1).to(cuda)
+    before = KF.LAUNCHES
+    out = KF.rl_iter_fused(est, img, plan, group=group, flags=flags)
+    again = KF.rl_iter_fused(est, img, plan, group=group, flags=flags)
+    torch.cuda.synchronize()
+    assert KF.LAUNCHES == before + 2
+    assert KF.LAST_CONFIG["ring"] == host["ring"]
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    pair = K.conv3_sep(K.conv3_sep(est, plan.fwd, aux=img, mode="ratio"), plan.bp,
+                       aux=est, mode="update")
+    assert torch.equal(out.view(torch.int32), pair.view(torch.int32))
+    ref = KF.rl_iter_fused_torch(est, img, plan)
+    assert (out - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+
+
 # K7's shapes in chip_smoke.py's Phase 16: the roofline's 512^3 with the
-# bench plan's shift, and shapes off the z-chunk and xy-tile multiples
+# bench plan's shift, shapes off the chunk multiples, and an nx that is not
+# a multiple of 4 (4-byte accesses)
 PIPE_COPY_CASES = [((512, 512, 512), 4), ((24, 40, 100), 0), ((37, 96, 160), 36),
-                   ((8, 16, 64), 0), ((32, 128, 128), 8)]
+                   ((8, 16, 64), 0), ((32, 128, 128), 8), ((9, 7, 301), 3)]
 
 
 @pytest.mark.cuda
@@ -585,5 +668,21 @@ def test_pipe_copy_kernel_equals_plain(cuda, case, geometry):
     torch.cuda.synchronize()
     assert K7.LAUNCHES == before + 2
     assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    ref = K7.pipe_copy_torch(v, aux, shift)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["z", "xy"])
+def test_pipe_copy_kernel_on_misaligned_volumes_equals_plain(cuda, geometry):
+    """Volumes that start 4 bytes past a 16-byte boundary take the 4-byte
+    accesses and give the same bits."""
+    shape, shift = (20, 48, 64), 5
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(1)
+    buf = torch.from_numpy(rng.random(3 * n + 3, dtype=np.float32) * 100 + 1).to(cuda)
+    v, aux = buf[1:n + 1].view(shape), buf[n + 2:2 * n + 2].view(shape)
+    assert v.data_ptr() % 16 and aux.data_ptr() % 16
+    out = K7.pipe_copy(v, aux, shift, geometry)
     ref = K7.pipe_copy_torch(v, aux, shift)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
