@@ -59,7 +59,11 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      within 0.5 voxel of the truth over the central half-box, K4 and K5
      launched at every level and no plain-version call; prints each
      level's evaluations, launches, K4/K5 device time per launch, kernel
-     ms and host share. Then the same pipeline at (128, 256, 256) on the kernels and
+     ms and host share. Then ``reg3d`` choice 1 (the phasor) on the bead
+     volume circularly shifted by two whole-voxel vectors, every |shift|
+     under size/4 and x over it (the wraparound case): both shifts come
+     back exactly; ``max3d_with_coords`` on three tied maxima returns the
+     first in C order. Then the same pipeline at (128, 256, 256) on the kernels and
      on ``MIL_NCC_IMPL=gather``: NCC within 1e-3, translations within
      0.35 voxel;
  11. the reg3D CLI on two 200 x 512 x 512 16-bit TIFFs, -regc 2 -affm 7
@@ -110,13 +114,34 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      the roofline tool (``microimagelib_tpu_torch.tools.conv_roofline``)
      at 512^3 in-process, prints its lines and checks it printed every
      metric, each finite and positive, and that K1 and K7 launched in its
-     run.
+     run;
+ 17. the time-lapse batch at full width: (a) the end-to-end surrogate
+     (``microimagelib_tpu_torch.tools.e2e_surrogate``) in-process, --xy 320
+     (raw A (52, 320, 320), grid 320^3), 3 timepoints, regMode 2, bg 100,
+     10 iterations, 16-bit MP_ZProj and MP_3D_Yaxis: the tool's checks
+     (output tree, every final NCC > 0.5), K4 and K5 launched, the decon's
+     kernel (auto's route for the surrogate's PSF) launched 40 times a
+     timepoint, no plain-version call; tp/min; the rotating MIP about y
+     alone at 320^3. (b) Phase 14's raw views as 16-bit TIFFs for 2
+     timepoints (t1: view B moved by BATCH_DRIFT) through regMode 3 from
+     the 2-D MIP start (choice 4) and regMode 1 from the phasor start
+     (choice 3, test image 0): each run's t0 matrix within
+     FUSION_TRUTH_VOXELS of the truth and at least the truth's NCC on the
+     registration's own cost, the two t0 matrices within
+     BATCH_AGREE_VOXELS of each other. Per timepoint: the seconds of each
+     stage (read, preprocess, registration, decon, MPs/MIPs, fetch, write,
+     the card synchronized after each) and each kernel's launches. Every
+     shape at which (a) and (b) launch K1, K3, K4 or K5 must be one at
+     which Phase 1, 5 or 9 held that kernel against its plain version.
+     Then (a) once more with no instrumentation: its tp/min is the batch's
+     own.
 
 It prints the card's name and power limit beside every time, ms per RL
 iteration for the K1, K2, K3 and ``torch.fft`` routes, one JSON line
 describing each kernel (its time, its plain version's, the least time the
-card could take for the same work and the time of the nearest PyTorch
-library call), and as its last line
+card could take for the same work, the time of the nearest PyTorch
+library call and its launches in Phase 17 (a), ``batch_launches``), and
+as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 then nonzero and that line is not printed. Needs one CUDA device; there
 is no CPU path.
@@ -127,6 +152,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -145,16 +171,19 @@ from microimagelib_tpu_torch.kernels import corr as C
 from microimagelib_tpu_torch.kernels import fft_ct as F
 from microimagelib_tpu_torch.kernels import pipe_copy as P
 from microimagelib_tpu_torch.kernels import rl_fused as KF
+from microimagelib_tpu_torch.models import batch as PB
 from microimagelib_tpu_torch.models import deconvolution as D
 from microimagelib_tpu_torch.models import fusion as FU
 from microimagelib_tpu_torch.models import gen_backprojector
+from microimagelib_tpu_torch.models import projections as PP
 from microimagelib_tpu_torch.models import registration as R
 from microimagelib_tpu_torch.ops.affine import affine_transform_3d
-from microimagelib_tpu_torch.ops.basics import rot_by_y_axis
+from microimagelib_tpu_torch.ops.basics import max3d_with_coords, rot_by_y_axis
 from microimagelib_tpu_torch.ops.conv_sep import plan_rl_fused, plan_sep
 from microimagelib_tpu_torch.ops.matrix import dof_to_matrix
 from microimagelib_tpu_torch.ops.resample import resize3d_separable
 from microimagelib_tpu_torch.tools import conv_roofline
+from microimagelib_tpu_torch.tools import e2e_surrogate as E2E
 
 SEED = 0
 N_ITERS = 10
@@ -170,6 +199,19 @@ FUSION_PIXEL = (0.1625, 0.1625, 1.0)
 # JAX package land 2.6-2.7 voxels off (tests/test_torch_fusion.py, CPU),
 # rounded up to 3 for their spread from run to run
 FUSION_TRUTH_VOXELS = 3.0
+# Phase 10's phasor cases, (x, y, z) whole-voxel circular shifts of the
+# (256, 512, 512) bead volume: every |shift| under size/4, then x over it
+# (the wraparound case the box ZNCC decides)
+PHASOR_SHIFTS = ((7, -12, 5), (150, 9, -4))
+# Phase 17: the end-to-end surrogate's lateral extent and timepoints, and
+# the drift (dof_to_matrix, 6 DOF) of view B at (b)'s second timepoint
+E2E_XY = 320
+E2E_TPS = 3
+BATCH_TPS = 2
+BATCH_DRIFT = (0.6, -0.4, 0.1, 0.05, -0.03, 0.04, 1, 1, 1)
+# the two (b) runs' first-timepoint matrices, voxels apart over the
+# central half-box
+BATCH_AGREE_VOXELS = 1.0
 LADDER = (-2.618, -1.0, -0.382, 0.382, 1.0, 1.618, 2.618, 4.236)
 # K2's small grids: the second with nz not a multiple of 8; the third with
 # 8-plane groups, so that the ratio lives in the ring at nz off the group
@@ -358,6 +400,7 @@ def main():
                 if not torch.equal(out.view(torch.int32), K.conv3_sep(
                         v, plan, aux=aux, mode=mode, flags=flags).view(torch.int32)):
                     raise AssertionError(f"{name} {mode}: switches {flags} change the bits")
+        CHECKED["K1"].add(shape)
         print(f"  {name}: plan {host}; two launches and the forced ring-less and "
               f"generic paths give the same bits")
 
@@ -494,6 +537,8 @@ def main():
     phase15_fusion_cli(views, card)
     torch.cuda.synchronize()
     k7 = phase16_roofline(dev, card)
+    torch.cuda.synchronize()
+    batch = phase17_batch(dev, card, views)
     # K6 was held against K5 at every shape the fusion launched it at; its
     # JSON numbers are those of the largest such shape
     unchecked = set(main14["k6_shapes"]) - set(k6)
@@ -592,6 +637,13 @@ def main():
         "bound_by": k7["bound"][1],
         "library_ms": k7["library_ms"],
     })
+    # the launches of Phase 17 (a), the batch's own path, beside each entry's
+    # main-path count
+    ids = {"conv3_sep": "K1", "rl_iter_fused": "K2", "conv3_ct": "K3",
+           "corr3d_partials": "K5", "corr3d_grad": "K4",
+           "corr3d_partials_nprobe": "K6", "pipe_copy": "K7"}
+    for k in kernels:
+        k["batch_launches"] = batch[ids[k["name"]]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -601,10 +653,11 @@ def main():
 
 
 # Phase 5's gate grids: the first four, then the card test's grids that put
-# 128, 256, 320 and 512 on each axis (and an odd row count)
+# 128, 256, 320 and 512 on each axis (and an odd row count), then the decon
+# grids of Phase 17's (a) and (b)
 K3_GRIDS = ((32, 32, 128), (64, 96, 128), DUAL_SHAPE, (256, 512, 512),
             (128, 256, 128), (320, 48, 512), (64, 512, 320), (256, 40, 256), (5, 3, 512),
-            (512, 24, 64))
+            (512, 24, 64), (E2E_XY,) * 3, FUSION_SHAPE)
 # grids, by voxel count, on which K3 is timed against torch.fft. Among those
 # whose every axis takes the length-specialised transform, the smallest
 # count from which K3 wins at that grid and every larger one is the FFT
@@ -660,6 +713,7 @@ def phase5_k3(dev, rng, card):
         del ref
         plain = F.conv3_ct_torch(v, otf)
         check_close(f"K3 {shape} vs conv3_ct_torch", out.cpu(), plain.cpu(), 0.0, 1e-4)
+        CHECKED["K3"].add(shape)
         if shape == DUAL_SHAPE:
             res["max_abs_err"] = float((out - plain).abs().max())
         del out, plain, v, otf
@@ -931,9 +985,22 @@ def call_device_ms(rows):
     return sum(ms for _key, ms, _n in rows) if rows else float("nan")
 
 
-# Phase 9's shapes: Phase 10's pyramid levels, then the largest level of
-# the fusion's registration that launches K4 and K5
-CORR_SHAPES = tuple(REG_LEVELS) + (FUSION_SHAPE,)
+def level_shapes(shape):
+    """The shapes a registration of ``shape`` runs at: each level of the
+    automatic pyramid (x stays 320: it pools only while it stays a multiple
+    of 128), then full size."""
+    return [tuple(s // k for s, k in zip(shape, f))
+            for f in R.pyramid_levels(R._auto_pool_factors(shape))] + [tuple(shape)]
+
+
+# Phase 9's shapes: Phase 10's pyramid levels, then every level of the
+# fusion's registration (Phases 14 and 17 (b)) and of the surrogate's
+# (Phase 17 (a))
+CORR_SHAPES = tuple(REG_LEVELS) + tuple(level_shapes(FUSION_SHAPE)) + tuple(
+    level_shapes((E2E_XY,) * 3))
+# the shapes at which Phases 1, 5 and 9 held K1, K3, K4 and K5 against their
+# plain versions; Phase 17 fails if its runs launch one at another shape
+CHECKED = {"K1": set(), "K3": set(), "K4": set(), "K5": set()}
 
 
 def phase9_corr(dev, card):
@@ -985,6 +1052,7 @@ def phase9_corr(dev, card):
                         raise AssertionError(f"{shape} {name}: gradient off by "
                                              f"{g_err:.3g} x max")
                 err = max(err, float(np.abs(out - ref).max()))
+                CHECKED[name_k].add(shape)
                 print(f"  {name_k} {shape} {name}: ss/st rel "
                       f"{rel.max():.3g}" + (f", gs/gt {g_err:.3g} x max" if grad
                                             else ""))
@@ -1132,7 +1200,9 @@ def phase10_reg(dev, card):
               f"(device K4 {g4:.4f}, K5 {g5:.4f} ms per launch; back to back K4 "
               f"{t4:.4f}, K5 {t5:.4f} ms per call), kernel {kern_ms:.3f} ms of the level, "
               f"host share {1 - kern_ms / 1e3 / secs:.3f} [{card}]")
-    del reg, vol, moved
+    del reg, moved
+    phasor_cases(vol, dev, card)
+    del vol
     torch.cuda.empty_cache()
 
     shape = (128, 256, 256)
@@ -1160,6 +1230,38 @@ def phase10_reg(dev, card):
     del vol, moved
     torch.cuda.empty_cache()
     return launches
+
+
+def phasor_cases(vol, dev, card):
+    """reg3d choice 1 on ``vol`` circularly shifted by each PHASOR_SHIFTS
+    vector: the shift comes back exactly. Then max3d_with_coords on the
+    card returns the first of tied maxima in C order, as torch.argmax's
+    contract and the JAX package's jnp.argmax say."""
+    sz, sy, sx = vol.shape
+    for shift in PHASOR_SHIFTS:
+        rolled = torch.roll(vol, shifts=(shift[2], shift[1], shift[0]), dims=(0, 1, 2))
+        torch.cuda.synchronize()
+        t = time.time()
+        _, tmx, _ = R.reg3d(vol, rolled, reg_choice=1, device=dev, want_reg=False)
+        wall = time.time() - t
+        found = tuple(int(v) for v in (tmx[3], tmx[7], tmx[11]))
+        wraps = [a for a, s, n in zip("xyz", shift, (sx, sy, sz)) if abs(s) > n // 4]
+        print(f"  reg3d choice 1 (phasor) on the beads rolled by {shift} (x, y, z; past "
+              f"size/4 on {wraps or 'no axis'}): found {found}, {wall:.3f} s [{card}]")
+        if found != tuple(shift):
+            raise AssertionError(f"phasor found {found}, the shift was {shift}")
+        del rolled
+    ties = torch.rand(vol.shape, device=dev)
+    where = ((sz * 3 // 4, sy // 16, sx * 3 // 4), (sz // 8, sy - 12, 3),
+             (sz // 8, sy - 13, sx - 1))
+    for z, y, x in where:
+        ties[z, y, x] = 2.0
+    _, (x, y, z) = max3d_with_coords(ties)
+    first = min(where)
+    print(f"  max3d_with_coords on three tied maxima: (x, y, z) = ({int(x)}, {int(y)}, "
+          f"{int(z)}), the first in C order is {first[::-1]}")
+    if (int(z), int(y), int(x)) != first:
+        raise AssertionError("max3d_with_coords did not return the first maximum on the card")
 
 
 def phase11_reg_cli(dev):
@@ -1326,15 +1428,6 @@ def probe_matrices():
     return np.stack(mats).astype(np.float32)
 
 
-def fusion_levels():
-    """The shapes the fusion's registration runs at: each level of the
-    automatic pyramid of FUSION_SHAPE (x stays 320: it pools only while it
-    stays a multiple of 128), then full size."""
-    return [tuple(s // k for s, k in zip(FUSION_SHAPE, f))
-            for f in R.pyramid_levels(R._auto_pool_factors(FUSION_SHAPE))] \
-        + [FUSION_SHAPE]
-
-
 def phase13_k6(dev, card):
     """K6 against K5 per probe and its plain version at every level shape of
     the fusion's registration (Phase 14's main path) and at Phase 10's
@@ -1344,7 +1437,7 @@ def phase13_k6(dev, card):
     mats = probe_matrices()
     eight = mats[:8]
     res = {}
-    for shape in fusion_levels() + list(REG_LEVELS):
+    for shape in level_shapes(FUSION_SHAPE) + list(REG_LEVELS):
         prng = np.random.default_rng(SEED + 13)
         src = torch.from_numpy(prng.random(shape, dtype=np.float32)).to(dev)
         tgt = torch.from_numpy(prng.random(shape, dtype=np.float32)).to(dev)
@@ -1851,6 +1944,229 @@ def rl_iteration_ms(img_d, psf, fwd, bp, card, label):
     print(f"  ms per RL iteration, {label} [{card}]: "
           + ", ".join(f"{k} {v:.3f}" for k, v in res.items()))
     return res
+
+STAGES = ("read", "wait", "preprocess", "registration", "decon", "mp", "fetch", "write")
+
+
+class TimepointCounts:
+    """Snapshots of the kernel counters at the start of each batch
+    timepoint (the batch isotropizes every timepoint's views first), so a
+    run's launches split by timepoint."""
+
+    def __init__(self):
+        self.snaps = []
+        self._orig = PB.preprocess_views
+
+    def __enter__(self):
+        def snap(*args, **kw):
+            torch.cuda.synchronize()
+            self.snaps.append(counts())
+            return self._orig(*args, **kw)
+
+        PB.preprocess_views = snap
+        return self
+
+    def __exit__(self, *exc):
+        PB.preprocess_views = self._orig
+
+    def per_timepoint(self, total):
+        """Launches between consecutive snapshots, the last to ``total``."""
+        ends = self.snaps[1:] + [total]
+        return [{k: e[k] - b[k] for k in total} for b, e in zip(self.snaps, ends)]
+
+
+class LaunchShapes:
+    """The shapes at which K1, K3, K4 and K5 launch while it is entered
+    (their wrappers' ``_launch``, where each counts a launch)."""
+
+    def __init__(self):
+        self.shapes = {k: set() for k in CHECKED}
+        self._orig = []
+
+    def __enter__(self):
+        for mod, kernel in ((K, lambda *a: "K1"), (F, lambda *a: "K3"),
+                            (C, lambda src, tgt, tmx, grad: "K4" if grad else "K5")):
+            def launch(*args, _orig=mod._launch, _kernel=kernel):
+                self.shapes[_kernel(*args)].add(tuple(args[0].shape))
+                return _orig(*args)
+
+            self._orig.append((mod, mod._launch))
+            mod._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        for mod, orig in self._orig:
+            mod._launch = orig
+
+    def check(self, label):
+        """Fail unless every launch shape was held against the plain version."""
+        unchecked = {k: sorted(v - CHECKED[k]) for k, v in self.shapes.items()
+                     if v - CHECKED[k]}
+        if unchecked:
+            raise AssertionError(f"{label} launched kernels at shapes no phase held "
+                                 f"against their plain versions: {unchecked}")
+        print(f"  {label} launched at {({k: sorted(v) for k, v in self.shapes.items() if v})}"
+              f", each held against its plain version in Phase 1, 5 or 9")
+
+
+def print_timepoints(label, timings, launches, card):
+    """Per timepoint the stage seconds of spim_fusion_batch's ``timings`` and
+    the launches of TimepointCounts; regMode 1's test registration first."""
+    if len(launches) > len(timings):
+        t = min(timings)
+        print(f"  ({label}) test registration on timepoint {t}: "
+              f"{timings[t].get('test registration', 0.0):.3f} s; launches "
+              f"{launches[0]} [{card}]")
+        launches = launches[1:]
+    for t, n in zip(sorted(timings), launches):
+        st = timings[t]
+        steps = ", ".join(f"{k} {st.get(k, 0.0):.3f}" for k in STAGES)
+        print(f"  ({label}) timepoint {t}: seconds {steps}; launches {n} [{card}]")
+
+
+def decon_launches(route, n_tp):
+    """(K1, K3) launches of n_tp dual-view decons of N_ITERS iterations on
+    auto's route: two K1 launches, or two K3 calls, per view and iteration."""
+    return {"separable": (4 * N_ITERS * n_tp, 0), "K3": (0, 4 * N_ITERS * n_tp)}[route]
+
+
+def phase17_batch(dev, card, views):
+    """The time-lapse batch at full width: (a) the end-to-end surrogate
+    in-process, (b) Phase 14's views as a two-timepoint series through
+    regMode 3 (2-D MIP start) and regMode 1 (phasor start). Returns the
+    kernel launches of (a), the main path's run."""
+    print(f"Phase 17: spimFusionBatch at full width [{card}]")
+    # ---- (a) the end-to-end surrogate ----
+    grid = (E2E_XY,) * 3
+    route = auto_route([E2E.curved_tilted_psf()], grid, dev)
+    print(f"  (a) e2e surrogate, --xy {E2E_XY} (raw A ({math.ceil(E2E_XY * 0.1625)}, "
+          f"{E2E_XY}, {E2E_XY}), grid {grid}), {E2E_TPS} timepoints, regMode 2, bg "
+          f"{E2E.BASELINE_OFFSET:g}, {N_ITERS} iterations, MP_ZProj + MP_3D_Yaxis 16-bit; "
+          f"auto takes the {route} route for the curved PSF")
+    if route == "torch.fft":
+        raise AssertionError("(a): the batch decon would launch no kernel")
+    timings = {}
+    torch.cuda.synchronize()
+    zero_counts()
+    buf = io.StringIO()
+    with TimepointCounts() as tc, LaunchShapes() as shapes_a, \
+            contextlib.redirect_stdout(buf):
+        res = E2E.run(E2E_TPS, E2E_XY, device=dev, timings=timings)
+    torch.cuda.synchronize()
+    total = counts()
+    for ln in buf.getvalue().splitlines():
+        if "Time cost for current image" in ln or "Processed" in ln:
+            print("  (a) " + ln.strip("."))
+    per_tp = tc.per_timepoint(total)
+    print(f"  (a) instrumented (stages synchronized): {res['wall_s']:.3f} s in the batch "
+          f"for {E2E_TPS} timepoints, {res['tp_per_min']:.3f} tp/min (inputs built in "
+          f"{res['build_s']:.3f} s); final NCCs {[round(v, 6) for v in res['nccs']]}; "
+          f"launches {total} [{card}]")
+    print_timepoints("a", timings, per_tp, card)
+    k1, k3 = decon_launches(route, E2E_TPS)
+    if (total["K4"] < 1 or total["K5"] < 1 or total["plain"] or total["K1"] != k1
+            or total["K3"] != k3 or len(per_tp) != E2E_TPS):
+        raise AssertionError(f"(a) took the wrong kernels for the {route} route: {total}")
+    shapes_a.check("(a)")
+    # the same run with no timings, no counter snapshots and no shape
+    # records: the batch's own throughput
+    with contextlib.redirect_stdout(io.StringIO()):
+        res_own = E2E.run(E2E_TPS, E2E_XY, device=dev)
+    print(f"  (a) uninstrumented, after the run above: {res_own['wall_s']:.3f} s in the "
+          f"batch for {E2E_TPS} timepoints, {res_own['tp_per_min']:.3f} tp/min; final "
+          f"NCCs {[round(v, 6) for v in res_own['nccs']]} [{card}]")
+    est = torch.rand(grid, device=dev) * 100
+    frames = PP.mip3d_frames(est, 2, 36)
+    mip_ms = alone_cuda_ms(lambda: PP.mip3d_frames(est, 2, 36), 2)
+    tp_s = res_own["wall_s"] / E2E_TPS
+    print(f"  rotating MIP about y alone at {grid}: 36 frames {tuple(frames.shape[1:])} "
+          f"of the ({frames.shape[2]}, {frames.shape[1]}, {frames.shape[2]}) rotated grid, "
+          f"{mip_ms:.3f} ms, {mip_ms / 1e3 / tp_s:.3f} of a timepoint's {tp_s:.3f} s "
+          f"[{card}]")
+    del est, frames
+    torch.cuda.empty_cache()
+
+    # ---- (b) Phase 14's views as a two-timepoint series ----
+    pa, pb = fusion_psfs()
+    route_b = auto_route([pa, pb], FUSION_SHAPE, dev)
+    inv_true = inverse12(dof_to_matrix(REG_DOF, 6))
+    t0_mats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for d in ("SPIMA", "SPIMB"):
+            os.makedirs(os.path.join(tmp, d))
+        a_raw, b_raw = views
+        drifted = affine_transform_3d(torch.from_numpy(b_raw).to(dev),
+                                      dof_to_matrix(BATCH_DRIFT, 6), b_raw.shape)
+        for t in range(BATCH_TPS):
+            writetifstack(os.path.join(tmp, "SPIMA", f"SPIMA_{t}.tif"), a_raw, 16)
+            writetifstack(os.path.join(tmp, "SPIMB", f"SPIMB_{t}.tif"),
+                          b_raw if t == 0 else drifted.cpu().numpy(), 16)
+        del drifted
+        writetifstack(os.path.join(tmp, "pa.tif"), pa, 32)
+        writetifstack(os.path.join(tmp, "pb.tif"), pb, 32)
+        # the registration's own cost on the u16 views the batch reads
+        views_iso = FU.preprocess_views(
+            readtifstack(os.path.join(tmp, "SPIMA", "SPIMA_0.tif"))[0],
+            readtifstack(os.path.join(tmp, "SPIMB", "SPIMB_0.tif"))[0],
+            FUSION_PIXEL, FUSION_PIXEL, -1, dev, as_device=True)
+        ncc_true = reg_ncc(*views_iso, inv_true)
+        for label, reg_mode, flag in (("regMode 3, 2-D MIP start (choice 4)", 3, 3),
+                                      ("regMode 1, phasor start (choice 3)", 1, 2)):
+            out = os.path.join(tmp, f"out{reg_mode}")
+            cfg = PB.BatchConfig(
+                out_dir=out, in_dir1=os.path.join(tmp, "SPIMA"),
+                in_dir2=os.path.join(tmp, "SPIMB"), name1="SPIMA_", name2="SPIMB_",
+                img_start=0, img_end=BATCH_TPS - 1, img_interval=1, img_test=0,
+                pixel1=FUSION_PIXEL, pixel2=FUSION_PIXEL, reg_mode=reg_mode,
+                im_rotation=-1, flag_initial_tmx=flag, tmx_file="", ftol=1e-4,
+                it_limit=3000, save_reg_a=False, save_reg_b=False,
+                psf1_file=os.path.join(tmp, "pa.tif"), psf2_file=os.path.join(tmp, "pb.tif"),
+                it_num_decon=N_ITERS, save_mp_z=True, save_mp_y=False, save_mp_x=False,
+                save_3d_x=False, save_3d_y=False, bit_per_sample=16, query_device=False,
+                device_num=0, verbose=False)
+            timings = {}
+            torch.cuda.synchronize()
+            zero_counts()
+            t = time.time()
+            with TimepointCounts() as tc, LaunchShapes() as shapes_b:
+                done = PB.spim_fusion_batch(cfg, device=dev, timings=timings)
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            n = counts()
+            mats = [read_tmx(os.path.join(out, "TMX", f"Matrix_{i}.tmx"))
+                    for i in range(BATCH_TPS)]
+            err = box_error(mats[0], inv_true, FUSION_SHAPE)
+            ncc = reg_ncc(*views_iso, mats[0])
+            dec, _ = readtifstack_16to16(os.path.join(out, "Decon", "Decon_0.tif"))
+            drift = box_error(mats[1], mats[0], FUSION_SHAPE)
+            with open(os.path.join(out, "ProcessingLog.txt")) as f:
+                nccs = re.findall(r"final cost function value: ([0-9.eE+-]+)", f.read())
+            print(f"  (b) {label}, instrumented: {wall:.3f} s for {BATCH_TPS} timepoints "
+                  f"({60 * BATCH_TPS / wall:.3f} tp/min); launches {n}; t0 matrix "
+                  f"{err:.4f} voxel from the truth (gate {FUSION_TRUTH_VOXELS}), NCC "
+                  f"{ncc:.6f} at it, {ncc_true:.6f} at the truth; t1 matrix {drift:.4f} "
+                  f"voxel from t0's; final NCCs in the log {nccs} [{card}]")
+            print_timepoints(f"b, regMode {reg_mode}", timings, tc.per_timepoint(n),
+                             card)
+            k1, k3 = decon_launches(route_b, BATCH_TPS)
+            if (done != list(range(BATCH_TPS)) or dec.shape != FUSION_SHAPE or not dec.any()
+                    or n["K1"] != k1 or n["K3"] != k3 or n["K4"] < 1 or n["plain"]):
+                raise AssertionError(f"(b) {label}: outputs {dec.shape} or kernels {n} wrong")
+            if err > FUSION_TRUTH_VOXELS or ncc < ncc_true:
+                raise AssertionError(f"(b) {label}: t0 matrix misses the truth gate")
+            shapes_b.check(f"(b) regMode {reg_mode}")
+            if reg_mode == 1 and not np.array_equal(mats[0], mats[1]):
+                raise AssertionError("(b) regMode 1 did not apply one matrix to all")
+            t0_mats[reg_mode] = mats[0]
+        del views_iso
+    apart = box_error(t0_mats[3], t0_mats[1], FUSION_SHAPE)
+    print(f"  (b) the two runs' t0 matrices are {apart:.4f} voxel apart over the central "
+          f"half-box (gate {BATCH_AGREE_VOXELS})")
+    if apart > BATCH_AGREE_VOXELS:
+        raise AssertionError("(b) the 2-D MIP and phasor starts disagree")
+    torch.cuda.empty_cache()
+    return total
+
 
 
 if __name__ == "__main__":

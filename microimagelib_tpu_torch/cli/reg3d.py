@@ -1,8 +1,7 @@
 """reg3D — intensity-based 3D image registration CLI, flag-compatible with
 the reference app (reference:src/reg3D.cpp:13-54 for the manual,
 :56-339 for behavior). ``-dev n`` selects ``cuda:n``; ``-gm 0`` runs on
-the CPU. Registration choices 1, 3 and 4 (phasor, 2-D MIP) and memory
-mode 2 are not ported yet and raise NotImplementedError.
+the CPU. Memory mode 2 is not ported yet and raises NotImplementedError.
 
     python -m microimagelib_tpu_torch.cli.reg3d -t target.tif -s source.tif -o out.tif -otmx out.tmx
 """

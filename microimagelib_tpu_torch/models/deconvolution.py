@@ -53,7 +53,11 @@ from microimagelib_tpu_torch.ops.conv_sep import (
     rl_iter_fused,
 )
 from microimagelib_tpu_torch.ops.fft_ct import conv3_ct, ct_specialised, ct_supported
-from microimagelib_tpu_torch.utils.device import free_memory_mb, require_cuda
+from microimagelib_tpu_torch.utils.device import (
+    free_memory_mb,
+    require_cuda,
+    resolve_device,
+)
 from microimagelib_tpu_torch.utils.envflags import env_on
 
 SMALLVALUE = 0.01
@@ -81,8 +85,9 @@ def gen_otf(psf, fft_shape, normalize=True, device=None):
     PSF exceeds the grid, circular split around the PSF center to the
     origin, forward rFFT (``genOTFgpu``, reference:src/api_subfunc.cu:
     3269-3307). ``psf`` is a tensor or a numpy array; the OTF lands on
-    ``device`` (default: the psf tensor's device, else the CPU)."""
-    psf = _as_tensor(psf, device)
+    ``device`` (default: the psf tensor's device, else cuda:0;
+    ``device="cpu"`` for the CPU)."""
+    psf = _as_tensor(psf, resolve_device(psf, device))
     if normalize:
         psf = psf / psf.sum()
     if any(p > f for p, f in zip(psf.shape, fft_shape)):
@@ -349,18 +354,19 @@ def _rl_single(img, otf, otf_bp, n_iters, const_initial, fft_impl,
 
 
 def rl_decon_single(img, otf, otf_bp, n_iters, const_initial=False,
-                    psf=None, psf_bp=None, stop_tol=None):
+                    psf=None, psf_bp=None, stop_tol=None, *, device=None):
     """Single-view RL on a pre-padded FFT-grid image; returns the estimate
     on the same grid and device (``decon_singleview_OTF1`` loop,
     reference:src/api_subfunc.cu:3404-3416).
 
-    ``img`` is a float32 tensor (or a numpy array, run on the CPU). When
+    ``img`` is a float32 tensor, run on its device, or a numpy array, run
+    on ``device`` (default cuda:0; ``device="cpu"`` for the CPU). When
     the raw projectors are given (``psf``, optional ``psf_bp``; host
     arrays) and the planner accepts both, the separable route runs;
     otherwise the FFT route, with ``otf``/``otf_bp`` (tensors or numpy
     arrays, e.g. built by the JAX package) or, when they are None, OTFs
     built here from the PSFs."""
-    img = _as_tensor(img)
+    img = _as_tensor(img, resolve_device(img, device))
     shape = tuple(img.shape)
     if psf is not None:
         psf_np = np.asarray(psf, np.float32)
@@ -442,17 +448,19 @@ def _rl_dual(img_a, img_b, otf_a, otf_b, otf_bp_a, otf_bp_b, n_iters,
 
 def rl_decon_dual(img_a, img_b, otf_a, otf_b, otf_bp_a, otf_bp_b, n_iters,
                   const_initial=False, psf_a=None, psf_b=None,
-                  psf_bp_a=None, psf_bp_b=None, stop_tol=None):
+                  psf_bp_a=None, psf_bp_b=None, stop_tol=None, *, device=None):
     """Joint dual-view RL on pre-padded FFT-grid views: view A then view B
     per iteration (``decon_dualview_OTF1``, reference:src/api_subfunc.cu:
-    3634-3660). Returns the estimate on the grid and device of ``img_a``.
+    3634-3660). Returns the estimate on the grid and device of ``img_a``:
+    a tensor's own device, or for a numpy array ``device`` (default
+    cuda:0; ``device="cpu"`` for the CPU).
 
     With the raw projectors (``psf_a``/``psf_b``, optional unmatched
     ``psf_bp_a``/``psf_bp_b``; host arrays) the separable route runs when
     the planner accepts all four; otherwise the FFT route, with the given
     OTFs (tensors or numpy arrays, e.g. built by the JAX package) or, when
     ``otf_a`` is None, all four built here from the PSFs."""
-    img_a = _as_tensor(img_a)
+    img_a = _as_tensor(img_a, resolve_device(img_a, device))
     img_b = _as_tensor(img_b, img_a.device)
     shape = tuple(img_a.shape)
     if psf_a is not None and psf_b is not None:

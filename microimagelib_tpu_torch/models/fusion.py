@@ -25,39 +25,37 @@ from __future__ import annotations
 import time
 
 import numpy as np
-import torch
 
 from microimagelib_tpu_torch.models.deconvolution import _as_tensor, decon_dualview
 from microimagelib_tpu_torch.models.registration import _reg_device, checkmatrix, reg3d
 from microimagelib_tpu_torch.ops.basics import rot_by_y_axis
 from microimagelib_tpu_torch.ops.resample import resize3d_separable
+from microimagelib_tpu_torch.utils.device import resolve_device
 
 __all__ = ["imresize3d", "imoperation3d", "fusion_sizes", "preprocess_views",
            "fusion_dualview"]
-
-
-def _device(device):
-    return torch.device("cpu") if device is None else torch.device(device)
 
 
 def imresize3d(img, out_shape_zyx, device=None):
     """Resample via a pure-scaling affine matrix (``imresize3d``,
     reference:src/apifunc.cpp:429-446). The transform is diagonal, so the
     trilinear resample factorizes into three products
-    (``ops/resample.py``). numpy in/out; runs on ``device`` (default the
-    CPU)."""
-    src = _as_tensor(np.asarray(img, np.float32), _device(device))
+    (``ops/resample.py``). numpy in/out; runs on ``device`` (default
+    cuda:0; ``device="cpu"`` for the CPU)."""
+    src = _as_tensor(img, resolve_device(img, device))
     return resize3d_separable(src, out_shape_zyx).cpu().numpy()
 
 
 def imoperation3d(img, op_choice, device=None):
     """+-90-degree Y rotation (``imoperation3D``,
     reference:src/apifunc.cpp:448-483). op_choice 1: +90, 2: -90, 0: none.
-    Output x/z extents swap. numpy in/out."""
+    Output x/z extents swap. numpy in/out; runs on ``device`` (default
+    cuda:0; ``device="cpu"`` for the CPU)."""
+    dev = resolve_device(img, device)
     if op_choice == 0:
         return np.asarray(img, np.float32)
     if op_choice in (1, 2):
-        src = _as_tensor(np.asarray(img, np.float32), _device(device))
+        src = _as_tensor(img, dev)
         return rot_by_y_axis(src, 1 if op_choice == 1 else -1).cpu().numpy()
     raise ValueError("Wrong operation choice")
 
@@ -84,11 +82,12 @@ def fusion_sizes(size_a_xyz, size_b_xyz, pixel_a, pixel_b, im_rotation):
 
 def preprocess_views(img_a, img_b, pixel_a, pixel_b, im_rotation, device=None,
                      verbose=False, as_device=False):
-    """Steps 1-2: isotropize A; rotate+isotropize B on ``device`` (default
+    """Steps 1-2: isotropize A; rotate+isotropize B on ``device`` (default:
+    view A's device when it is a tensor, else cuda:0; ``device="cpu"`` for
     the CPU). Returns (a_iso, b_iso) as (z, y, x) float32 arrays on the
     isotropic grid: numpy by default, tensors on the device with
     ``as_device=True`` (no host round trip between the steps)."""
-    dev = _device(device)
+    dev = resolve_device(img_a, device)
     a = _as_tensor(img_a, dev)
     b = _as_tensor(img_b, dev)
     size_a = (a.shape[2], a.shape[1], a.shape[0])
@@ -131,7 +130,6 @@ def fusion_dualview(img_a, img_b, psf_a, psf_b,
     The registration fallback of the reference: if ``checkmatrix``
     rejects the result of choice 2, 3 or 4, the registration is repeated
     with plain affine choice 2 (reference:src/api_decon.cpp:1243-1248).
-    Choices 1, 3 and 4 raise through ``reg3d`` (not ported).
 
     save_reg_callback(a_iso, reg_b) receives both registered views as
     numpy arrays.

@@ -1,25 +1,27 @@
-"""3D intensity-based affine registration: Powell- or L-BFGS-optimized
-normalized cross-correlation with the reference's DOF-escalation ladder
-and retry semantics, a multi-resolution pyramid, and the ``reg3d``
-dispatcher (the JAX package's ``models/registration.py``, 3-D affine
-part).
+"""2-D/3-D intensity-based registration: phase correlation (phasor), the
+exhaustive 2-D MIP shift search, and Powell- or L-BFGS-optimized affine
+registration over normalized cross-correlation with the reference's
+DOF-escalation ladder and retry semantics, a multi-resolution pyramid,
+and the ``reg3d``/``reg2d`` dispatchers (the JAX package's
+``models/registration.py``).
 
-The cost of one evaluation is one fused resample + NCC call on the card:
-K5 (sums) or K4 (sums and gradient), ``ops/corr.py``. The optimizers run on
-the host in float32 with one device sync per evaluation; the registration
-state lives in closures, so the library is re-entrant.
+The cost of one 3-D evaluation is one fused resample + NCC call on the
+card: K5 (sums) or K4 (sums and gradient), ``ops/corr.py``. The optimizers
+run on the host in float32 with one device sync per evaluation; the
+registration state lives in closures, so the library is re-entrant. The
+phasor runs on ``torch.fft``; the 2-D costs and the box ZNCC of the
+phasor's wraparound check are plain torch on the volumes' device.
 
 Devices: ``mem_mode`` 0 runs on the CPU (the kernels' plain versions); 1
 on the CUDA ``device`` (default cuda:0); -1 mode 1 when the ladder's
 ~5-volume working set fits the device's free memory. Mode 2 (host-staged
-streaming, ``_reg3d_affine_lowmem``) is not ported. Neither are the
-phasor and 2-D MIP choices of ``reg3d`` (1, 3, 4) nor the ``hybrid``
-engine: ROADMAP.md, queues 3 (phasor, MIPs and batch) and 4 (memory
-tiers).
+streaming: ``_reg3d_affine_lowmem``, ``reg3d_phasor_lowmem``) and the
+``hybrid`` engine are not ported: ROADMAP.md, queue 4 (memory tiers).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import time
@@ -30,8 +32,19 @@ import torch
 from microimagelib_tpu_torch.models.deconvolution import _as_tensor
 from microimagelib_tpu_torch.models.registration_device import reg_ladder_device
 from microimagelib_tpu_torch.models.registration_grad import reg_ladder_grad
-from microimagelib_tpu_torch.ops.affine import affine_transform_3d
-from microimagelib_tpu_torch.ops.basics import align_size_3d
+from microimagelib_tpu_torch.ops.affine import (
+    affine_transform_2d,
+    affine_transform_3d,
+    corr2d_partials,
+    corr2d_partials_batch,
+)
+from microimagelib_tpu_torch.ops.basics import (
+    align_size_3d,
+    circshift,
+    imshift,
+    max3d_with_coords,
+    max_projection,
+)
 from microimagelib_tpu_torch.ops.corr import corr3d_auto, resolve_ncc_impl
 from microimagelib_tpu_torch.ops.lbfgs import lbfgs_env
 from microimagelib_tpu_torch.ops.matrix import (
@@ -46,6 +59,7 @@ from microimagelib_tpu_torch.utils.device import (
     committed_platform,
     free_memory_mb,
     require_cuda,
+    resolve_device,
 )
 from microimagelib_tpu_torch.utils.envflags import env_on
 
@@ -163,6 +177,323 @@ def zncc(a, b):
     if denom == 0:
         return -2.0
     return st / denom
+
+
+# --------------------------------------------------------------------------
+# Phase correlation (phasor) registration
+# --------------------------------------------------------------------------
+
+def _phasor_surface(img1, img2):
+    """Normalized cross-power spectrum back in real space, on
+    ``torch.fft`` over all axes of the 2-D or 3-D inputs."""
+    dims = tuple(range(img1.ndim))
+    prod = torch.conj(torch.fft.rfftn(img1, dim=dims)) * torch.fft.rfftn(img2, dim=dims)
+    mag = prod.abs()
+    norm = torch.where(mag != 0, prod / mag, torch.zeros((), dtype=prod.dtype,
+                                                          device=prod.device))
+    return torch.fft.irfftn(norm, s=tuple(img1.shape), dim=dims)
+
+
+def _phasor_shift_nd(img1, img2):
+    """Raw phasor peak -> integer shift per axis (x, y, z ordering for 3D;
+    x, y for 2D). Mirrors circshift-by-half then argmax-minus-half
+    (reference:src/api_subfunc.cu:2476-2492)."""
+    surf = _phasor_surface(img1, img2)
+    if surf.ndim == 2:
+        sy, sx = surf.shape
+        surf = circshift(surf[None], sx // 2, sy // 2, 0)
+        _, (x, y, _z) = max3d_with_coords(surf)
+        return [int(x) - sx // 2, int(y) - sy // 2]
+    sz, sy, sx = surf.shape
+    surf = circshift(surf, sx // 2, sy // 2, sz // 2)
+    _, (x, y, z) = max3d_with_coords(surf)
+    return [int(x) - sx // 2, int(y) - sy // 2, int(z) - sz // 2]
+
+
+def _candidate_boxes(shifts, sizes):
+    """Per-axis crop interpretations for the wraparound check: index 0
+    keeps the found shift, 1 flips to the complementary one
+    (reference:src/api_subfunc.cu:2496-2589). Returns (combs, offs, cs,
+    valid) with one row per of the 2^nd combinations."""
+    beta = 4
+    nd = len(shifts)
+    crop_sizes, offsets = [], []
+    for i in range(nd):
+        ab = abs(shifts[i])
+        crop_sizes.append([sizes[i] - ab, ab])
+        if shifts[i] > 0:
+            offsets.append([0, sizes[i] - ab])
+        else:
+            offsets.append([ab, 0])
+    combs, offs, cs, valid = [], [], [], []
+    for comb in itertools.product(*([range(2)] * nd)):
+        combs.append(comb)
+        offs.append([offsets[i][comb[i]] for i in range(nd)])
+        cs.append([crop_sizes[i][comb[i]] for i in range(nd)])
+        valid.append(not any(crop_sizes[i][comb[i]] <= sizes[i] // beta
+                             for i in range(nd)))
+    return combs, offs, cs, valid
+
+
+def _box_znccs(a, b, offs_xyz, cs_xyz, valid):
+    """ZNCC of a and b over each box [off, off + cs) (x, y, z per row), by
+    cropping; sums in float64. -3 for an invalid or empty box, -2 where a
+    box has no variance. Both volumes are centered by their global means
+    first, as the JAX package does (no change to any box's ZNCC)."""
+    a = a - a.mean()
+    b = b - b.mean()
+    f64 = torch.float64
+    out = []
+    for off, cs, ok in zip(offs_xyz, cs_xyz, valid):
+        box = tuple(slice(o, o + c) for o, c in zip(off[::-1], cs[::-1]))
+        ab, bb = a[box], b[box]
+        n = ab.numel()
+        if not ok or n == 0:
+            out.append(-3.0)
+            continue
+        sa, sb = float(ab.sum(dtype=f64)), float(bb.sum(dtype=f64))
+        saa = float((ab * ab).sum(dtype=f64))
+        sbb = float((bb * bb).sum(dtype=f64))
+        sab = float((ab * bb).sum(dtype=f64))
+        va = saa - sa * sa / n
+        vb = sbb - sb * sb / n
+        cov = sab - sa * sb / n
+        denom = math.sqrt(max(va, 0.0) * max(vb, 0.0))
+        out.append(cov / denom if denom > 0 else -2.0)
+    return np.asarray(out)
+
+
+def _disambiguate_shifts(img1, img2, shifts, dims_xyz):
+    """Wraparound disambiguation: when any |shift| exceeds size/4, compare
+    ZNCC over the up-to-8 (3D) / 4 (2D) crop interpretations and flip the
+    winning axes to the complementary shift
+    (reference:src/api_subfunc.cu:2496-2589)."""
+    beta = 4
+    nd = len(shifts)
+    sizes = dims_xyz
+    if not any(abs(shifts[i]) > sizes[i] // beta for i in range(nd)):
+        return shifts
+    a3 = img1 if nd == 3 else img1[None]
+    b3 = img2 if nd == 3 else img2[None]
+    sh3 = list(shifts) + [0] * (3 - nd)
+    shifted = imshift(b3, -sh3[0], -sh3[1], -sh3[2])
+    combs, offs, cs, valid = _candidate_boxes(shifts, sizes)
+    if not any(valid):
+        return shifts
+    # (x, y, z) rows; in 2D the z box is the whole (unit) axis
+    offs3 = [list(o) + [0] * (3 - nd) for o in offs]
+    cs3 = [list(c) + [1] * (3 - nd) for c in cs]
+    ccs = _box_znccs(a3, shifted, offs3, cs3, valid)
+    best = combs[int(np.argmax(ccs))]
+    out = list(shifts)
+    for i in range(nd):
+        if best[i] == 1:
+            out[i] = shifts[i] - sizes[i] if shifts[i] > 0 else shifts[i] + sizes[i]
+    return out
+
+
+def reg3d_phasor(img1, img2, *, device=None):
+    """3D phase correlation with 8-case wraparound disambiguation
+    (``reg3d_phasor1``, reference:src/api_subfunc.cu:2465-2590). Inputs
+    are (z, y, x) tensors (run on their device) or numpy arrays (run on
+    ``device``, default cuda:0) of equal shape; returns (sx, sy, sz)
+    integer shifts (x, y, z order)."""
+    dev = resolve_device(img1, device)
+    a = _as_tensor(img1, dev)
+    b = _as_tensor(img2, dev)
+    sz, sy, sx = a.shape
+    shifts = _phasor_shift_nd(a, b)
+    return _disambiguate_shifts(a, b, shifts, [sx, sy, sz])
+
+
+def reg2d_phasor(img1, img2, *, device=None):
+    """2D analog (``reg2d_phasor1``, reference:src/api_subfunc.cu:2127-2224)."""
+    dev = resolve_device(img1, device)
+    a = _as_tensor(img1, dev)
+    b = _as_tensor(img2, dev)
+    sy, sx = a.shape
+    shifts = _phasor_shift_nd(a, b)
+    return _disambiguate_shifts(a, b, shifts, [sx, sy])
+
+
+def reg3d_phasor_lowmem(img1, img2, budget_bytes=None):
+    """The host-staged phasor (``reg3d_phasor2``) is not ported."""
+    raise _not_ported("reg3d_phasor_lowmem (the host-staged phasor, memory "
+                      "mode 2)", "queue 4 (memory tiers)")
+
+
+# --------------------------------------------------------------------------
+# 2D registration: shift-grid search and Powell affine
+# --------------------------------------------------------------------------
+
+def _host64(x):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float64)
+
+
+def _prep_2d(img1, img2, device):
+    """Mean-subtract both 2D images in float64 on the host; return them as
+    float32 tensors on ``device`` with the target's SD."""
+    t = _host64(img1)
+    s = _host64(img2)
+    t_ms = t - t.mean()
+    sd_t = math.sqrt(float((t_ms * t_ms).sum()))
+    if sd_t == 0:
+        raise ValueError("SD of image 1 is zero, empty image input")
+    s_ms = s - s.mean()
+    return (torch.as_tensor(t_ms.astype(np.float32), device=device),
+            torch.as_tensor(s_ms.astype(np.float32), device=device), sd_t)
+
+
+def _cost2d(src, tgt, sd_t):
+    def cost(p6):
+        ss, st = corr2d_partials(src, tgt, np.asarray(p6, np.float32))
+        ssf = math.sqrt(float(ss))
+        if ssf == 0:
+            return 2.0
+        return -(float(st) / ssf) / sd_t
+    return cost
+
+
+def reg2d_shiftalign(img1, img2, tmx_init=None, shift_region=0.4, total_step=40,
+                     x_only=False, records=None, *, device=None):
+    """Exhaustive 2D translation grid search over +-shift_region*size in
+    2*total_step steps per axis (``reg2d_shiftalign1``/``X1``,
+    reference:src/api_subfunc.cu:1859-2120). The candidates go to the
+    device in chunks of 256; the best is the first strictly above a best
+    value that starts at 0, so an all-negative grid keeps the shift at
+    (0, 0) as in the reference. Returns (reg_ms, tmx6): the transformed
+    mean-subtracted source (numpy) and the found 6-parameter matrix."""
+    t0 = time.time()
+    dev = resolve_device(img2, device)
+    sy1, sx1 = np.shape(img1)
+    sy2, sx2 = np.shape(img2)
+    tgt, src, sd_t = _prep_2d(img1, img2, dev)
+    if tmx_init is not None:
+        aff = np.asarray(tmx_init, np.float64).copy()
+    else:
+        aff = np.array([1, 0, (sx2 - sx1) // 2, 0, 1, (sy2 - sy1) // 2], np.float64)
+    cost = _cost2d(src, tgt, sd_t)
+    initial_cost = -cost(aff.astype(np.float32))
+    if records is not None:
+        records[4] = initial_cost
+
+    off_x, off_y = aff[2], aff[5]
+    step_x = sx2 * shift_region / total_step
+    steps = np.arange(-int(total_step), int(total_step))
+    cand_x = off_x + step_x * steps
+    if x_only:
+        n = cand_x.size
+        cands = np.stack([
+            np.broadcast_to(aff[0], (n,)), np.broadcast_to(aff[1], (n,)), cand_x,
+            np.broadcast_to(aff[3], (n,)), np.broadcast_to(aff[4], (n,)),
+            np.broadcast_to(aff[5], (n,)),
+        ], axis=1).astype(np.float32)
+    else:
+        step_y = sy2 * shift_region / total_step
+        cand_y = off_y + step_y * steps
+        gx, gy = np.meshgrid(cand_x, cand_y, indexing="ij")
+        flat_x, flat_y = gx.ravel(), gy.ravel()
+        n = flat_x.size
+        cands = np.stack([
+            np.broadcast_to(aff[0], (n,)), np.broadcast_to(aff[1], (n,)), flat_x,
+            np.broadcast_to(aff[3], (n,)), np.broadcast_to(aff[4], (n,)), flat_y,
+        ], axis=1).astype(np.float32)
+    best_cost = 0.0
+    best_x, best_y = 0.0, 0.0
+    chunk = 256
+    for i in range(0, len(cands), chunk):
+        ss_b, st_b = corr2d_partials_batch(src, tgt, cands[i:i + chunk])
+        ss_b = ss_b.cpu().numpy()
+        st_b = st_b.cpu().numpy()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ncc = np.where(np.sqrt(ss_b) == 0, -2.0, st_b / np.sqrt(ss_b) / sd_t)
+        j = int(np.argmax(ncc))
+        if ncc[j] > best_cost:
+            best_cost = float(ncc[j])
+            best_x = float(cands[i + j, 2])
+            best_y = float(cands[i + j, 5])
+    aff_out = aff.copy()
+    aff_out[2] = best_x
+    if not x_only:
+        aff_out[5] = best_y
+    fret = -cost(aff_out.astype(np.float32))
+    reg = affine_transform_2d(src, aff_out.astype(np.float32), (sy1, sx1))
+    if records is not None:
+        records[5] = fret
+        records[7] = time.time() - t0
+        records[8] = (2 * int(total_step)) ** 2 if not x_only else 2 * int(total_step)
+    return reg.cpu().numpy(), aff_out.astype(np.float32)
+
+
+def reg2d_affine(img1, img2, tmx_init=None, aff_method=1, ftol=1e-4, it_limit=3000,
+                 records=None, *, device=None):
+    """2D Powell affine registration, 6 parameters, mean-subtracted NCC
+    (``reg2d_affine1``, reference:src/api_subfunc.cu:2232-2336), on the NR
+    Powell of ``ops/powell.py``. Returns (registered original source
+    (numpy), tmx6)."""
+    t0 = time.time()
+    dev = resolve_device(img2, device)
+    sy1, sx1 = np.shape(img1)
+    sy2, sx2 = np.shape(img2)
+    tgt, src, sd_t = _prep_2d(img1, img2, dev)
+    if tmx_init is not None:
+        aff = np.asarray(tmx_init, np.float64).copy()
+    else:
+        aff = np.array([1, 0, (sx2 - sx1) // 2, 0, 1, (sy2 - sy1) // 2], np.float64)
+    cost = _cost2d(src, tgt, sd_t)
+    counter = EvalCounter(cost)
+    if records is not None:
+        records[1] = -counter(aff)
+    fret = None
+    if aff_method > 0:
+        aff, fret, _, counter = powell(aff, cost, ftol, it_limit, counter=counter)
+    # final resample of the ORIGINAL (non-mean-subtracted) source
+    reg = affine_transform_2d(_as_tensor(img2, dev), aff.astype(np.float32),
+                              (sy1, sx1))
+    if records is not None:
+        records[3] = -fret if fret is not None else records[1]
+        records[5] = counter.count
+        records[7] = time.time() - t0
+    return reg.cpu().numpy(), aff.astype(np.float32)
+
+
+def reg2d(img1, img2, reg_choice=2, flag_tmx=False, tmx=None, ftol=1e-4,
+          it_limit=3000, records=None, *, device=None):
+    """2D registration dispatcher (``reg2d``,
+    reference:src/api_reg.cpp:115-244). reg_choice: 0 apply matrix,
+    1 shift grid, 2 affine, 3 phasor. Returns (registered, tmx6, records)
+    with the registered image as numpy; runs on ``device`` (default: the
+    tensor's device, else cuda:0; ``device="cpu"`` for the CPU)."""
+    if records is None:
+        records = np.zeros(11, dtype=np.float64)
+    dev = resolve_device(img1, device)
+    sy1, sx1 = np.shape(img1)
+    if reg_choice == 0:
+        if flag_tmx and tmx is not None:
+            reg = affine_transform_2d(_as_tensor(img2, dev),
+                                      np.asarray(tmx, np.float32), (sy1, sx1))
+            return reg.cpu().numpy(), np.asarray(tmx, np.float32), records
+        return (_host64(img2).astype(np.float32),
+                np.array([1, 0, 0, 0, 1, 0], np.float32), records)
+    if reg_choice == 1:
+        reg, out = reg2d_shiftalign(img1, img2, tmx if flag_tmx else None, 0.4, 40,
+                                    records=records, device=dev)
+        return reg, out, records
+    if reg_choice == 2:
+        reg, out = reg2d_affine(img1, img2, tmx if flag_tmx else None, 1, ftol,
+                                it_limit, records, device=dev)
+        return reg, out, records
+    if reg_choice == 3:
+        if np.shape(img1) != np.shape(img2):
+            raise ValueError("Image size of the 2D images is not matched")
+        shifts = reg2d_phasor(img1, img2, device=dev)
+        src = _as_tensor(img2, dev)
+        reg = imshift(src[None], -shifts[0], -shifts[1], 0)[0]
+        out = np.array([1, 0, shifts[0], 0, 1, shifts[1]], np.float32)
+        return reg.cpu().numpy(), out, records
+    raise ValueError("Wrong registration choice")
 
 
 # --------------------------------------------------------------------------
@@ -606,22 +937,20 @@ def reg3d(img1, img2, reg_choice=2, aff_method=7, flag_tmx=False, tmx=None,
     """Main 3D registration entry (``reg3d``,
     reference:src/api_reg.cpp:264-607).
 
-    reg_choice: 0 apply-matrix only; 2 affine. The phasor (1), phasor ->
-    affine (3) and 2-D MIP -> affine (4) choices are not ported yet. The
-    source is centered-aligned to the target's shape first when sizes
-    differ (reference:src/api_reg.cpp:398-407). Returns (registered,
-    tmx12, records); ``as_device=True`` leaves the registered volume a
-    tensor on the device, ``want_reg=False`` skips the final transform
-    (None). ``pyramid='auto'`` pools above 96^3 voxels unless
-    engine='host'; ``on_level`` goes to :func:`reg3d_affine_pyramid`."""
+    reg_choice: 0 apply-matrix only; 1 phasor; 2 affine; 3 phasor ->
+    affine; 4 2D-MIP-shift-align -> affine. The source is centered-aligned
+    to the target's shape first when sizes differ
+    (reference:src/api_reg.cpp:398-407). Returns (registered, tmx12,
+    records); ``as_device=True`` leaves the registered volume a tensor on
+    the device, ``want_reg=False`` skips the final transform (None).
+    ``pyramid='auto'`` pools above 96^3 voxels unless engine='host';
+    ``on_level`` goes to :func:`reg3d_affine_pyramid`."""
     t0 = time.time()
     if records is None:
         records = np.zeros(11, dtype=np.float64)
-    if reg_choice in (1, 3, 4):
-        raise _not_ported(f"reg_choice {reg_choice} (phasor / 2-D MIP "
-                          "registration)", "queue 3 (phasor, MIPs and batch)")
-    if reg_choice not in (0, 2):
+    if reg_choice not in (0, 1, 2, 3, 4):
         raise ValueError("Wrong registration choice")
+    mem_mode_requested = mem_mode
     mem_mode, dev = _reg_device(tuple(np.shape(img1)), mem_mode, device)
     records[8] = free_memory_mb(dev)
     img1 = _as_tensor(img1, dev)
@@ -635,24 +964,85 @@ def reg3d(img1, img2, reg_choice=2, aff_method=7, flag_tmx=False, tmx=None,
         pyramid = img1.numel() > 96 ** 3 and engine != "host"
     want = False if want_reg is False else ("device" if as_device else True)
 
+    def run_affine(method, flag, mx):
+        if pyramid:
+            return reg3d_affine_pyramid(
+                img1, img2, method, flag, mx, ftol, it_limit, verbose,
+                records, dev, engine, mem_mode=mem_mode, want_reg=want,
+                on_level=on_level)
+        # grad_finish (non-pyramid engines only; the pyramid places its
+        # own finisher per MIL_REG_FINISH_LEVEL)
+        return reg3d_affine(img1, img2, method, flag, mx, ftol, it_limit,
+                            verbose, records, dev, engine, mem_mode,
+                            want_reg=want, grad_finish=grad_finish)
+
+    def run_phasor():
+        # the phasor holds ~6 volumes; where auto mode would not fit them,
+        # the JAX package takes its host-staged phasor, which is not ported
+        if (mem_mode_requested == -1 and dev.type == "cuda"
+                and 6 * img1.numel() * 4 > torch.cuda.mem_get_info(dev)[0] * 0.92):
+            return reg3d_phasor_lowmem(img1, img2)
+        return reg3d_phasor(img1, img2)
+
+    def shift_tmx(shifts):
+        t = identity_tmx()
+        t[3], t[7], t[11] = shifts
+        return t
+
     if reg_choice == 0:
         reg, out_tmx, records = reg3d_affine(
             img1, img2, 0, flag_tmx, tmx, ftol, it_limit, verbose, records,
             dev, engine, mem_mode, want_reg=want)
-    elif pyramid:
-        reg, out_tmx, records = reg3d_affine_pyramid(
-            img1, img2, aff_method, flag_tmx, tmx, ftol, it_limit, verbose,
-            records, dev, engine, mem_mode=mem_mode, want_reg=want,
-            on_level=on_level)
+    elif reg_choice == 1:
+        shifts = run_phasor()
+        out_tmx = shift_tmx(shifts)
+        reg = (imshift(img2, -shifts[0], -shifts[1], -shifts[2])
+               if want else None)
+    elif reg_choice == 2:
+        reg, out_tmx, records = run_affine(aff_method, flag_tmx, tmx)
+    elif reg_choice == 3:
+        reg, out_tmx, records = run_affine(aff_method, True,
+                                           shift_tmx(run_phasor()))
     else:
-        # grad_finish (non-pyramid engines only; the pyramid places its
-        # own finisher per MIL_REG_FINISH_LEVEL)
-        reg, out_tmx, records = reg3d_affine(
-            img1, img2, aff_method, flag_tmx, tmx, ftol, it_limit, verbose,
-            records, dev, engine, mem_mode, want_reg=want,
-            grad_finish=grad_finish)
+        if verbose:
+            print("\t... 2D MIP registration ... ")
+        # XY MIPs -> 2D shift align (both axes)
+        _, tmx1 = reg2d_shiftalign(max_projection(img1, 1),
+                                   max_projection(img2, 1), None, 0.3, 30,
+                                   x_only=False, device=dev)
+        # ZX MIPs -> X-only align (x of the MIP = volume z); carries the
+        # found x-shift into the unsearched second component like the
+        # reference (tmx2[5] = tmx1[2], reference:src/api_reg.cpp:494)
+        t2_init = np.array([1, 0, 0, 0, 1, tmx1[2]], np.float32)
+        _, tmx2 = reg2d_shiftalign(max_projection(img1, 2),
+                                   max_projection(img2, 2), t2_init, 0.3, 30,
+                                   x_only=True, device=dev)
+        t = shift_tmx((tmx1[2], tmx1[5], tmx2[2]))
+        if verbose:
+            print(f"\t... shift translation, X: {t[3]:.1f}; Y: {t[7]:.1f}; "
+                  f"Z: {t[11]:.1f}")
+            print("\t... 3D registration ... ")
+        reg, out_tmx, records = run_affine(aff_method, True, t)
     records[7] = time.time() - t0
     records[10] = free_memory_mb(dev)
     if isinstance(reg, torch.Tensor) and not as_device:
         reg = reg.cpu().numpy()
+    return reg, out_tmx, records
+
+
+def reg_3dgpu(img1, img2, aff_method=7, input_tmx=False, tmx=None, ftol=1e-4,
+              it_limit=3000, device=None, records=None, *, mem_mode=1):
+    """Legacy wrapper: MIP-initialized registration with checkmatrix
+    fallback to plain affine (``reg_3dgpu``,
+    reference:src/api_reg.cpp:609-652). Memory mode 1 on ``device`` as in
+    the JAX package; ``mem_mode=0`` runs it on the CPU."""
+    reg_choice = 2 if input_tmx else 4
+    reg, out_tmx, records = reg3d(img1, img2, reg_choice, aff_method, input_tmx,
+                                  tmx, ftol, it_limit, device, mem_mode, False,
+                                  records)
+    sz, sy, sx = np.shape(img1)
+    if not checkmatrix(out_tmx, sx, sy, sz):
+        reg, out_tmx, records = reg3d(img1, img2, 2, aff_method, input_tmx,
+                                      tmx, ftol, it_limit, device, mem_mode,
+                                      False, records)
     return reg, out_tmx, records

@@ -17,8 +17,10 @@ Boundary masks (the reference's asymmetry, kept on purpose):
 Outside the mask the sample is 0.
 
 Everything here is plain PyTorch and runs on the input's device, chunked
-over output z so a (256, 512, 512) volume peaks at a few volumes of
-temporaries. :func:`corr3d_partials` is the plain version of the kernel
+over output z (or, in 2-D, over candidate matrices) so a (256, 512, 512)
+volume peaks at a few volumes of temporaries. None of the 2-D and batched
+sums is a Pallas kernel in the JAX package, so plain torch is their port on
+the CPU and on the card. :func:`corr3d_partials` is the plain version of the kernel
 K5 and :func:`corr3d_grad_torch` (autograd through it) the plain version
 of K4 (``kernels/corr.py``).
 """
@@ -28,7 +30,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["affine_transform_3d", "corr3d_partials", "corr3d_grad_torch"]
+__all__ = ["affine_transform_3d", "corr3d_partials", "corr3d_grad_torch",
+           "corr3d_partials_batch", "affine_transform_2d", "corr2d_partials",
+           "corr2d_partials_batch"]
 
 # output voxels per chunk: ~30 temporaries of 4-8 bytes each, so a chunk
 # holds well under 1 GB of scratch
@@ -191,3 +195,93 @@ def corr3d_grad_torch(src, tgt, tmx):
             gs += 0.5 * ga.double()
             gt += gb.double()
     return ss, st, gs, gt
+
+
+def corr3d_partials_batch(src, tgt, tmx_batch):
+    """:func:`corr3d_partials` for each of N matrices (``tmx_batch``:
+    (N, 12)): (N,) float64 tensors of ss and st."""
+    ss, st = zip(*(corr3d_partials(src, tgt, m)
+                   for m in np.asarray(tmx_batch, np.float32).reshape(-1, 12)))
+    return torch.stack(ss), torch.stack(st)
+
+
+# --------------------------------------------------------------------------
+# 2-D: the transform and correlate kernels both use the strict lower bound
+# (``tx > 0``, reference:include/cukernel.cuh:558-596)
+# --------------------------------------------------------------------------
+
+def _coords_2d(m, oy, ox, device):
+    """Source coordinates (cx, cy) over an (oy, ox) grid for the 6-vector
+    matrices ``m`` ((N, 6) float32 tensor): (N, oy, ox) each, evaluated
+    ``m[0]*x + m[1]*y + m[2]`` left to right in fp32, as the JAX package
+    does."""
+    xs = torch.arange(ox, dtype=torch.float32, device=device)[None, None, :]
+    ys = torch.arange(oy, dtype=torch.float32, device=device)[None, :, None]
+    col = [m[:, j, None, None] for j in range(6)]
+    return (col[0] * xs + col[1] * ys + col[2],
+            col[3] * xs + col[4] * ys + col[5])
+
+
+def _bilerp(src, cx, cy):
+    """Bilinear sample of the (sy, sx) image at (cx, cy), zero outside the
+    strict validity box (c > -0.5 and c < size - 0.5), each texel clamped
+    on its own: the JAX package's ``_bilerp_flat`` with ``strict_lo``."""
+    sy, sx = src.shape
+    flat = src.contiguous().reshape(-1)
+    valid = (cx > -0.5) & (cy > -0.5) & (cx < sx - 0.5) & (cy < sy - 0.5)
+    x0 = torch.floor(cx)
+    y0 = torch.floor(cy)
+    fx = cx - x0
+    fy = cy - y0
+    xr = x0.clamp(-1, sx).to(torch.int64)
+    yr = y0.clamp(-1, sy).to(torch.int64)
+    x0i, x1i = xr.clamp(0, sx - 1), (xr + 1).clamp(0, sx - 1)
+    y0i, y1i = yr.clamp(0, sy - 1) * sx, (yr + 1).clamp(0, sy - 1) * sx
+    v00 = flat[y0i + x0i]
+    v01 = flat[y0i + x1i]
+    v10 = flat[y1i + x0i]
+    v11 = flat[y1i + x1i]
+    c0 = v00 + (v01 - v00) * fx
+    c1 = v10 + (v11 - v10) * fx
+    val = c0 + (c1 - c0) * fy
+    return torch.where(valid, val, torch.zeros((), dtype=val.dtype,
+                                               device=val.device))
+
+
+def _matrices_6(tmx, device):
+    return torch.as_tensor(np.asarray(
+        tmx.detach().cpu() if isinstance(tmx, torch.Tensor) else tmx,
+        np.float32).reshape(-1, 6), device=device)
+
+
+def affine_transform_2d(src, tmx6, out_shape):
+    """2-D affine resample of the (y, x) tensor ``src`` through the
+    6-parameter matrix onto ``out_shape`` (y, x), on src's device
+    (reference:include/cukernel.cuh:558-573)."""
+    oy, ox = (int(s) for s in out_shape)
+    cx, cy = _coords_2d(_matrices_6(tmx6, src.device)[:1], oy, ox, src.device)
+    return _bilerp(src, cx[0], cy[0])
+
+
+def corr2d_partials_batch(src, tgt, tmx_batch):
+    """(ss, st) of the 2-D fused resample + NCC partials (``corr2Dkernel``,
+    reference:include/cukernel.cuh:575-596) for each of N 6-vector
+    matrices (``tmx_batch``: (N, 6)): (N,) float64 tensors on the images'
+    device. Products in fp32, sums in float64. Candidates go in chunks of
+    at most :data:`CHUNK_VOXELS` samples."""
+    mats = _matrices_6(tmx_batch, src.device)
+    oy, ox = tgt.shape
+    step = max(1, CHUNK_VOXELS // max(1, oy * ox))
+    ss, st = [], []
+    for i in range(0, mats.shape[0], step):
+        cx, cy = _coords_2d(mats[i:i + step], oy, ox, src.device)
+        s = _bilerp(src, cx, cy)
+        ss.append(torch.sum(s * s, dim=(1, 2), dtype=torch.float64))
+        st.append(torch.sum(s * tgt, dim=(1, 2), dtype=torch.float64))
+    return torch.cat(ss), torch.cat(st)
+
+
+def corr2d_partials(src, tgt, tmx6):
+    """:func:`corr2d_partials_batch` for one matrix: float64 0-d tensors."""
+    ss, st = corr2d_partials_batch(src, tgt, tmx6)
+    return ss[0], st[0]

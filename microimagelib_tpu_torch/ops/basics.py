@@ -1,10 +1,12 @@
-"""Core volume ops the RL slice needs: FFT-size policy, flips, PSF
-placement, edge padding, cropping. Tensors are C-order ``(z, y, x)``; the
-results stay on the input tensor's device.
+"""Core volume ops: FFT-size policy, flips, shifts, PSF placement, edge
+padding, cropping, projections. Tensors are C-order ``(z, y, x)``; the
+results stay on the input tensor's device. Shift arguments keep the
+reference's (dx, dy, dz) = (x, y, z) order.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -44,6 +46,27 @@ def flip3(a):
     return torch.flip(a, dims=(0, 1, 2))
 
 
+def circshift(a, dx, dy, dz):
+    """Circular shift: out[z,y,x] = in[(z-dz)%sz, (y-dy)%sy, (x-dx)%sx]
+    (reference:include/cukernel.cuh:456-475)."""
+    return torch.roll(a, shifts=(int(dz), int(dy), int(dx)), dims=(0, 1, 2))
+
+
+def imshift(a, dx, dy, dz):
+    """Zero-filling shift (reference:include/cukernel.cuh:477-489): the
+    circular shift with every voxel whose source wrapped around set to 0."""
+    dx, dy, dz = int(dx), int(dy), int(dz)
+    out = circshift(a, dx, dy, dz)
+    for ax, d in enumerate((dz, dy, dx)):
+        n = a.shape[ax]
+        idx = torch.arange(n, device=a.device) - d
+        ok = ((idx >= 0) & (idx < n)).reshape([-1 if i == ax else 1
+                                               for i in range(3)])
+        out = torch.where(ok, out, torch.zeros((), dtype=out.dtype,
+                                               device=out.device))
+    return out
+
+
 def pad_psf_to_origin(psf, fft_shape):
     """Circularly split the PSF around its center voxel (size//2) so the
     center lands at index (0,0,0) of the FFT grid, zero elsewhere —
@@ -79,6 +102,34 @@ def crop_center(img, out_shape):
     return img[..., so[0]:so[0] + oz, so[1]:so[1] + oy, so[2]:so[2] + ox]
 
 
+def crop_at(img, out_shape, offset_xyz):
+    """Crop at explicit (x, y, z) offsets — ``cropgpu2``
+    (reference:src/api_subfunc.cu:1759-1766)."""
+    oz, oy, ox = out_shape
+    sox, soy, soz = offset_xyz
+    return img[soz:soz + oz, soy:soy + oy, sox:sox + ox]
+
+
+def max_projection(a, direction: int):
+    """Maximum intensity projection (reference:include/cukernel.cuh:394-418).
+
+    direction 1: along z -> (y, x) image;
+    direction 2: along y -> (x, z) image (height = x extent, width = z);
+    direction 3: along x -> (z, y) image.
+
+    The reference accumulates against an initial 0, so projections of
+    all-negative volumes floor at 0."""
+    if direction == 1:
+        out = a.amax(dim=0)
+    elif direction == 2:
+        out = a.amax(dim=1).T
+    elif direction == 3:
+        out = a.amax(dim=2)
+    else:
+        raise ValueError(f"Invalid projection direction {direction}")
+    return torch.clamp_min(out, 0)
+
+
 def rot_by_y_axis(a, direction: int):
     """+-90-degree rotation about the Y axis by index permutation
     (reference:include/cukernel.cuh:437-453): x and z swap extents.
@@ -112,3 +163,41 @@ def align_size_3d(img, out_shape):
         sl_in.append(slice(i_lo, i_lo + n))
     out[tuple(sl_out)] = img[tuple(sl_in)]
     return out
+
+
+def change_storage_order(a, order_mode: int):
+    """Transpose between TIFF order and x-major C order
+    (reference:include/cukernel.cuh:422-435); with one canonical layout it
+    is a plain axis transpose, kept for API parity."""
+    if order_mode in (1, -1):
+        return a.permute(2, 1, 0)
+    raise ValueError(f"Invalid order mode {order_mode}")
+
+
+def max3d_with_coords(a):
+    """Max value and its (x, y, z) coordinates — ``max3Dgpu``
+    (reference:src/api_subfunc.cu:436-470): the FIRST maximum in C-order
+    scan, as the reference's row-major host scan and ``torch.argmax``
+    (which returns the first maximal index on the CPU and on CUDA) give it.
+    Returns 0-d tensors on a's device."""
+    flat = a.reshape(-1)
+    flat_idx = torch.argmax(flat)
+    sz, sy, sx = a.shape
+    z = torch.div(flat_idx, sy * sx, rounding_mode="floor")
+    rem = flat_idx - z * (sy * sx)
+    y = torch.div(rem, sx, rounding_mode="floor")
+    x = rem - y * sx
+    return flat[flat_idx], (x, y, z)
+
+
+def np_snap_sizes(shape_zyx, tpu_friendly=True):
+    """Snap each axis of a (z, y, x) shape for the FFT."""
+    return tuple(snap_fft_size(int(s), tpu_friendly) for s in shape_zyx)
+
+
+def sum_dbl(a):
+    """Sum in float64 on the host, like the reference's double-accumulator
+    reductions (reference:include/cukernel.cuh:349-360)."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.sum(np.asarray(a, dtype=np.float64))

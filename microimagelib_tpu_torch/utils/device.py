@@ -67,6 +67,19 @@ def require_cuda(device=None):
     return torch.device("cuda", index)
 
 
+def resolve_device(x=None, device=None):
+    """The device an entry point runs on: ``device`` when given ('cpu' runs
+    on the CPU, a CUDA device must be present), else the device of a
+    tensor ``x``, else cuda:0. Never falls back to the CPU: without CUDA a
+    CUDA choice raises (:func:`require_cuda`)."""
+    if device is not None:
+        device = torch.device(device)
+        return device if device.type == "cpu" else require_cuda(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    return require_cuda(None)
+
+
 def committed_platform(t):
     """The device type a tensor lives on ('cpu', 'cuda'): the port's
     counterpart of the JAX package's committed-platform probe, read from

@@ -87,7 +87,7 @@ def test_conv_matches_jax_and_fft(rng, case):
     ref = np.asarray(J.conv3_sep(jnp.asarray(v), J.plan_sep(psf, shape, **kw),
                                  interpret=True))
     np.testing.assert_allclose(out, ref, atol=tol * np.abs(ref).max())
-    fft = _conv_spec(torch.from_numpy(v), gen_otf(psf, shape), shape).numpy()
+    fft = _conv_spec(torch.from_numpy(v), gen_otf(psf, shape, device="cpu"), shape).numpy()
     np.testing.assert_allclose(out, fft, atol=tol * np.abs(fft).max())
 
 

@@ -38,7 +38,7 @@ def _close(out, ref, tol=2e-4):
     (gauss3((5, 21, 9), (1.0, 3.0, 1.5)), (16, 16, 32)),   # oversized in y
 ])
 def test_gen_otf_matches_jax(psf, grid):
-    out = PD.gen_otf(psf, grid).numpy()
+    out = PD.gen_otf(psf, grid, device="cpu").numpy()
     ref = np.asarray(JD.gen_otf(jnp.asarray(psf), grid))
     np.testing.assert_allclose(out, ref, atol=1e-6 * np.abs(ref).max())
 
@@ -66,10 +66,10 @@ def test_rl_fft_route_with_jax_otfs(rng, monkeypatch):
     ref = np.asarray(JD.rl_decon_single(jnp.asarray(img), otf, otf_bp, 5))
     monkeypatch.setenv("MIL_CONV_SEP", "0")
     out = PD.rl_decon_single(img, np.asarray(otf), np.asarray(otf_bp), 5,
-                             psf=PSF).numpy()
+                             psf=PSF, device="cpu").numpy()
     _close(out, ref)
     # a refused/forced-off plan with no OTFs builds them from the PSFs
-    out2 = PD.rl_decon_single(img, None, None, 5, psf=PSF).numpy()
+    out2 = PD.rl_decon_single(img, None, None, 5, psf=PSF, device="cpu").numpy()
     _close(out2, ref)
 
 
@@ -85,11 +85,11 @@ def test_rl_loop_modes_match_jax(rng, monkeypatch, loop):
     ref = np.asarray(JD.rl_decon_single(jnp.asarray(img), otf, otf_bp, 12,
                                         stop_tol=stop))
     sep = PD.rl_decon_single(img, None, None, 12, psf=PSF,
-                             stop_tol=stop).numpy()
+                             stop_tol=stop, device="cpu").numpy()
     _close(sep, ref)
     monkeypatch.setenv("MIL_CONV_SEP", "0")
     fft = PD.rl_decon_single(img, None, None, 12, psf=PSF,
-                             stop_tol=stop).numpy()
+                             stop_tol=stop, device="cpu").numpy()
     _close(fft, ref)
 
 
@@ -114,7 +114,8 @@ def test_rl_unmatched_bp_matches_jax(rng, monkeypatch):
     monkeypatch.setenv("MIL_CONV_SEP", "1")
     ref = np.asarray(JD.rl_decon_single(jnp.asarray(img), None, None, 4,
                                         psf=PSF, psf_bp=bp))
-    out = PD.rl_decon_single(img, None, None, 4, psf=PSF, psf_bp=bp).numpy()
+    out = PD.rl_decon_single(img, None, None, 4, psf=PSF, psf_bp=bp,
+                             device="cpu").numpy()
     _close(out, ref)
 
 
@@ -132,7 +133,7 @@ def test_rl_tilted_psf_takes_rolled_sep_route(rng):
     ref = np.asarray(JD.rl_decon_single(
         jnp.asarray(img), JD.gen_otf(jnp.asarray(psf), shape),
         JD.gen_otf(jnp.asarray(bp), shape), 4))
-    out = PD.rl_decon_single(img, None, None, 4, psf=psf).numpy()
+    out = PD.rl_decon_single(img, None, None, 4, psf=psf, device="cpu").numpy()
     _close(out, ref, 5e-4)
 
 
@@ -188,7 +189,7 @@ def test_rl_dual_fft_route_with_jax_otfs(rng, const_initial):
     ref = np.asarray(JD.rl_decon_dual(jnp.asarray(a), jnp.asarray(b), *otfs,
                                       4, const_initial))
     out = PD.rl_decon_dual(a, b, *(np.asarray(o) for o in otfs), 4,
-                           const_initial).numpy()
+                           const_initial, device="cpu").numpy()
     _close(out, ref)
 
 
@@ -226,7 +227,8 @@ def test_rl_dual_wb_back_projectors_take_fft_route(rng, monkeypatch):
                                       psf_bp_b=bp_b))
     monkeypatch.setattr(PD, "conv3_sep", None)     # must not be reached
     out = PD.rl_decon_dual(a, b, None, None, None, None, 2, psf_a=PSF,
-                           psf_b=PSF_B, psf_bp_a=bp_a, psf_bp_b=bp_b).numpy()
+                           psf_b=PSF_B, psf_bp_a=bp_a, psf_bp_b=bp_b,
+                           device="cpu").numpy()
     _close(out, ref)
 
 
@@ -241,7 +243,8 @@ def test_rl_dual_ct_route_matches_jax_pallas(monkeypatch):
     otfs = _otfs(gauss3((7, 7, 7), (1.5, 1.0, 1.0)), psf_b, shape)
     monkeypatch.setenv("MIL_FFT_IMPL", "pallas")
     ref = np.asarray(JD.rl_decon_dual(jnp.asarray(a), jnp.asarray(b), *otfs, 2))
-    out = PD.rl_decon_dual(a, b, *(np.asarray(o) for o in otfs), 2).numpy()
+    out = PD.rl_decon_dual(a, b, *(np.asarray(o) for o in otfs), 2,
+                           device="cpu").numpy()
     np.testing.assert_allclose(out, ref, rtol=2e-3, atol=2e-3 * np.abs(ref).max())
 
 
@@ -306,8 +309,9 @@ def test_decon_dualview_prepared_and_batch_match_jax(rng):
     ref = np.asarray(JD.decon_dualview_prepared(
         jnp.asarray(pads_a[0]), jnp.asarray(pads_b[0]), *otfs, 3, False,
         out_shape))
-    out = PD.decon_dualview_prepared(pads_a[0], pads_b[0], *otfs_np, 3, False,
-                                     out_shape).numpy()
+    out = PD.decon_dualview_prepared(torch.from_numpy(pads_a[0]),
+                                     torch.from_numpy(pads_b[0]), *otfs_np, 3,
+                                     False, out_shape).numpy()
     assert out.shape == out_shape
     _close(out, ref)
     for const_initial in (False, True):

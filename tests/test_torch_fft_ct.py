@@ -432,8 +432,8 @@ def test_rl_dual_takes_the_policy_route(monkeypatch, shape, route):
     a = (rng.random(shape) * 100 + 1).astype(np.float32)
     b = (rng.random(shape) * 100 + 1).astype(np.float32)
     psf = np.ones((3, 3, 3), np.float32) / 27
-    otf = PD.gen_otf(psf, shape)
-    out = PD.rl_decon_dual(a, b, otf, otf, otf, otf, 2)
+    otf = PD.gen_otf(psf, shape, device="cpu")
+    out = PD.rl_decon_dual(a, b, otf, otf, otf, otf, 2, device="cpu")
     assert out.shape == shape and torch.isfinite(out).all()
     assert len(calls) == (8 if route == "ct" else 0)
 

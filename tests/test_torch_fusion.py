@@ -65,7 +65,7 @@ def test_rot_by_y_axis_matches_jax(rng, direction):
 def test_resize_matches_jax(rng, out_shape):
     a = (rng.random((6, 8, 10)) * 100).astype(np.float32)
     ref = JF.imresize3d(a, out_shape)
-    _close(PF.imresize3d(a, out_shape), ref, 1e-5)
+    _close(PF.imresize3d(a, out_shape, device="cpu"), ref, 1e-5)
     # a diagonal matrix with a translation column, as the JAX package takes it
     from microimagelib_tpu.ops.resample import resize3d_separable as jax_resize
 
@@ -81,16 +81,17 @@ def test_resize_matches_jax(rng, out_shape):
 def test_resize_ignores_tf32(rng, monkeypatch):
     """The products run in full fp32 whatever the global TF32 switch says."""
     a = (rng.random((6, 8, 10)) * 100).astype(np.float32)
-    ref = PF.imresize3d(a, (12, 9, 20))
+    ref = PF.imresize3d(a, (12, 9, 20), device="cpu")
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
-    np.testing.assert_array_equal(PF.imresize3d(a, (12, 9, 20)), ref)
+    np.testing.assert_array_equal(PF.imresize3d(a, (12, 9, 20), device="cpu"), ref)
     assert torch.backends.cuda.matmul.allow_tf32
 
 
 @pytest.mark.parametrize("op", [0, 1, 2])
 def test_imoperation3d_matches_jax(rng, op):
     a = rng.random((4, 5, 6)).astype(np.float32)
-    np.testing.assert_array_equal(PF.imoperation3d(a, op), JF.imoperation3d(a, op))
+    np.testing.assert_array_equal(PF.imoperation3d(a, op, device="cpu"),
+                                  JF.imoperation3d(a, op))
 
 
 @pytest.mark.parametrize("rot", [-1, 0, 1])
@@ -106,8 +107,8 @@ def test_preprocess_views_host_and_device_forms(rng, rot):
     a = (rng.random((6, 24, 24)) * 100).astype(np.float32)
     b = (rng.random((8, 24, 24)) * 100).astype(np.float32)
     px = (0.1625, 0.1625, 0.65)
-    host = PF.preprocess_views(a, b, px, px, rot)
-    dev = PF.preprocess_views(a, b, px, px, rot, as_device=True)
+    host = PF.preprocess_views(a, b, px, px, rot, device="cpu")
+    dev = PF.preprocess_views(a, b, px, px, rot, device="cpu", as_device=True)
     ref = JF.preprocess_views(a, b, px, px, rot)
     for h, d, r in zip(host, dev, ref):
         assert isinstance(h, np.ndarray) and isinstance(d, torch.Tensor)
@@ -201,7 +202,7 @@ def test_fusion_truth_on_dispim_views_matches_jax(monkeypatch):
     assert max(dist) <= CS.FUSION_TRUTH_VOXELS, dist
     assert abs(dist[0] - dist[1]) <= 0.35, dist
     views = PF.preprocess_views(a, b, CS.FUSION_PIXEL, CS.FUSION_PIXEL, -1,
-                                as_device=True)
+                                device="cpu", as_device=True)
     ncc = [CS.reg_ncc(*views, m) for m in (truth, tmx, jtmx)]
     print(f"port / JAX: {dist[0]:.4f} / {dist[1]:.4f} voxel from the truth, "
           f"{_box_error(tmx, jtmx, TRUTH_SHAPE):.4f} apart, final NCC {rec[3]:.6f} / "

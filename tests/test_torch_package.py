@@ -40,7 +40,11 @@ def test_every_module_imports_without_jax():
             "microimagelib_tpu_torch.kernels.rl_fused",
             "microimagelib_tpu_torch.cli.spim_fusion",
             "microimagelib_tpu_torch.kernels.pipe_copy",
-            "microimagelib_tpu_torch.tools.conv_roofline"} <= set(mods)
+            "microimagelib_tpu_torch.tools.conv_roofline",
+            "microimagelib_tpu_torch.models.projections",
+            "microimagelib_tpu_torch.models.batch",
+            "microimagelib_tpu_torch.cli.spim_fusion_batch",
+            "microimagelib_tpu_torch.tools.e2e_surrogate"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

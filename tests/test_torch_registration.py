@@ -98,9 +98,8 @@ def test_not_ported_raise(pair):
         R.reg3d_affine(vol, moved, aff_method=1, mem_mode=0, engine="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         R.reg3d_affine(vol, moved, aff_method=1, mem_mode=2)
-    for choice in (1, 3, 4):
-        with pytest.raises(NotImplementedError, match="queue 3"):
-            R.reg3d(vol, moved, reg_choice=choice, mem_mode=0)
+    with pytest.raises(NotImplementedError, match="queue 4"):
+        R.reg3d_phasor_lowmem(vol, moved)
 
 
 def test_needs_cuda_outside_mode_0(pair, monkeypatch):

@@ -123,7 +123,8 @@ def test_single_view_fused_route_matches_jax(rng, monkeypatch, const_initial):
                                         const_initial, psf=PSF))
     assert PD._sep_plans(PSF, flip(PSF), SHAPE)[0] == "fused"
     calls = _route_counter(monkeypatch)
-    out = PD.rl_decon_single(img, None, None, 3, const_initial, psf=PSF).numpy()
+    out = PD.rl_decon_single(img, None, None, 3, const_initial, psf=PSF,
+                             device="cpu").numpy()
     assert len(calls) == 3
     _close(out, ref, 2e-4)
 
@@ -138,7 +139,7 @@ def test_dual_view_fused_route_matches_jax(rng, monkeypatch):
                                       psf_a=PSF, psf_b=psf_b))
     calls = _route_counter(monkeypatch)
     out = PD.rl_decon_dual(img_a, img_b, None, None, None, None, 3,
-                           psf_a=PSF, psf_b=psf_b).numpy()
+                           psf_a=PSF, psf_b=psf_b, device="cpu").numpy()
     assert len(calls) == 6                         # two per iteration
     _close(out, ref, 2e-4)
     # decon_dualview takes the same route
@@ -151,7 +152,7 @@ def test_fused_off_by_default(rng, monkeypatch):
     monkeypatch.delenv("MIL_CONV_SEP_FUSED", raising=False)
     assert PD._sep_plans(PSF, flip(PSF), SHAPE)[0] == "pair"
     monkeypatch.setattr(PD, "rl_iter_fused", None)   # must not be reached
-    PD.rl_decon_single(_img(rng), None, None, 2, psf=PSF)
+    PD.rl_decon_single(_img(rng), None, None, 2, psf=PSF, device="cpu")
 
 
 def test_mixed_fused_and_pair_run_as_pairs(rng, monkeypatch):
@@ -177,7 +178,7 @@ def test_mixed_fused_and_pair_run_as_pairs(rng, monkeypatch):
 
     monkeypatch.setattr(PD, "conv3_sep", counted)
     out = PD.rl_decon_dual(img_a, img_b, None, None, None, None, 3,
-                           psf_a=PSF, psf_b=psf_b).numpy()
+                           psf_a=PSF, psf_b=psf_b, device="cpu").numpy()
     assert len(launches) == 12                     # 2 views x 2 x 3 iterations
     _close(out, ref, 5e-4)
     assert PD._as_pair(PD._sep_plans(PSF, flip(PSF), shape))[0].rank == 1
