@@ -135,6 +135,31 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      which Phase 1, 5 or 9 held that kernel against its plain version.
      Then (a) once more with no instrumentation: its tp/min is the batch's
      own.
+ 18. the beyond-HBM tiers (memory mode 2) at full size, after the
+     pageable and pinned host <-> device rates: (a) single-view RL on a
+     (696, 1016, 1016) volume, 2 iterations, streamed through host memory
+     with mem_mode=2, then with mem_mode=-1 under MIL_HBM_BUDGET_MB=16384
+     (a 16 GB card: records[0] must be 2, the streamed call's peak device
+     memory under the budget), each within 2e-3 x max of mode 1 on the
+     card on the same FFT (MIL_CONV_SEP=0, MIL_FFT_IMPL=xla); seconds per
+     streamed iteration and the share of it the bytes moved take at the
+     pinned rate; (b) the same for dual view at (320, 512, 512), the auto
+     case under a 2 GB budget against mode 1's own route (2e-2); (c) the
+     low-memory registration of a (768, 1024, 1024) bead pair moved by a
+     whole-voxel translation under the 16 GB budget: a host-pooled coarse
+     ladder on K4/K5, the streamed full-resolution polish and final
+     transform; within 0.5 voxel of the truth and 1e-3 NCC of mode 1 on
+     the same pair, the streamed transform bit-equal to the resident one,
+     its peak memory under the budget; the peak factor of one streamed
+     block against ``ops.affine.STREAM_PEAK_FACTOR``; then ``reg3d`` with
+     the ``hybrid`` engine on Phase 10's (256, 512, 512) pair against the
+     ``grad`` engine (1e-3 NCC, 0.5 voxel); (d) the spimFusion CLI with -gm 2 on Phase 14's views against
+     Phase 14 (b) (1e-3 NCC, 0.5 voxel, each within FUSION_TRUTH_VOXELS of
+     the truth).
+
+The CLI phases (4, 8, 11, 15, 17, 18 (d)) must read and write their TIFFs
+through the native codec only (``io.tiff.COUNTS``); Phase 11 prints the
+reg3D CLI's TIFF seconds.
 
 It prints the card's name and power limit beside every time, ms per RL
 iteration for the K1, K2, K3 and ``torch.fft`` routes, one JSON line
@@ -163,6 +188,7 @@ import torch
 
 from microimagelib_tpu_torch.cli import decon_dv, decon_sv, gen_bp, reg3d as reg3d_cli
 from microimagelib_tpu_torch.cli import spim_fusion as fusion_cli
+from microimagelib_tpu_torch.io import tiff as TIFF
 from microimagelib_tpu_torch.io.tiff import readtifstack, readtifstack_16to16, writetifstack
 from microimagelib_tpu_torch.io.tmx import read_tmx
 from microimagelib_tpu_torch.kernels import build
@@ -172,11 +198,13 @@ from microimagelib_tpu_torch.kernels import fft_ct as F
 from microimagelib_tpu_torch.kernels import pipe_copy as P
 from microimagelib_tpu_torch.kernels import rl_fused as KF
 from microimagelib_tpu_torch.models import batch as PB
+from microimagelib_tpu_torch.models import decon_streamed as DS
 from microimagelib_tpu_torch.models import deconvolution as D
 from microimagelib_tpu_torch.models import fusion as FU
 from microimagelib_tpu_torch.models import gen_backprojector
 from microimagelib_tpu_torch.models import projections as PP
 from microimagelib_tpu_torch.models import registration as R
+from microimagelib_tpu_torch.ops import affine as AF
 from microimagelib_tpu_torch.ops.affine import affine_transform_3d
 from microimagelib_tpu_torch.ops.basics import max3d_with_coords, rot_by_y_axis
 from microimagelib_tpu_torch.ops.conv_sep import plan_rl_fused, plan_sep
@@ -232,6 +260,19 @@ CORR_OPS = {False: 43, True: 86}
 # that is not a multiple of 4 (4-byte accesses)
 PIPE_COPY_CASES = (((512, 512, 512), 4), ((24, 40, 100), 0), ((37, 96, 160), 36),
                    ((8, 16, 64), 0), ((32, 128, 128), 8), ((9, 7, 301), 3))
+# Phase 18: the beyond-HBM shapes of the JAX package's round-5 probe
+# (tools/hw_beyond_hbm.py: single-view RL (696, 1016, 1016), whose mode-1
+# working set is ~18 GB, and a (768, 1024, 1024) registration pair), a
+# 16 GB card's budget, the dual-view grid under a budget below its
+# 9-volume working set, and the whole-voxel translation (z, y, x) of the
+# registration pair
+BHBM_DECON_SHAPE = (696, 1016, 1016)
+BHBM_DECON_ITERS = 2
+BHBM_BUDGET_MB = 16384
+BHBM_DUAL_BUDGET_MB = 2048
+BHBM_REG_SHAPE = (768, 1024, 1024)
+BHBM_REG_SHIFT = (5, 9, 7)
+HYBRID_SHAPE = REG_SHAPE
 
 
 def gauss3(p, s):
@@ -499,7 +540,7 @@ def main():
 
     # ---- Phase 4: the CLI ----------------------------------------------
     print("Phase 4: deconSingleView CLI, 200 x 512 x 512 16-bit TIFF")
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, native_tiff("Phase 4"):
         f_img, f_psf, f_out = (os.path.join(tmp, n) for n in
                                ("img.tif", "psf.tif", "out.tif"))
         writetifstack(f_img, rng.random((200, 512, 512), dtype=np.float32)
@@ -525,20 +566,26 @@ def main():
     ct = phase5_k3(dev, rng, card)
     ct_launches, psfs = phase6_dual_wb(dev, rng, card)
     phase7_dual_matched(dev, psfs, card)
-    phase8_dual_cli(rng, psfs)
+    with native_tiff("Phase 8"):
+        phase8_dual_cli(rng, psfs)
     torch.cuda.synchronize()
     corr = phase9_corr(dev, card)
     corr_launches = phase10_reg(dev, card)
-    phase11_reg_cli(dev)
+    with native_tiff("Phase 11"):
+        phase11_reg_cli(dev)
     torch.cuda.synchronize()
     k2 = phase12_k2(dev, card)
     k6 = phase13_k6(dev, card)
     main14, views = phase14_fusion(dev, card)
-    phase15_fusion_cli(views, card)
+    with native_tiff("Phase 15"):
+        phase15_fusion_cli(views, card)
     torch.cuda.synchronize()
     k7 = phase16_roofline(dev, card)
     torch.cuda.synchronize()
-    batch = phase17_batch(dev, card, views)
+    with native_tiff("Phase 17"):
+        batch = phase17_batch(dev, card, views)
+    torch.cuda.synchronize()
+    bhbm = phase18_beyond_hbm(dev, card, main14, views)
     # K6 was held against K5 at every shape the fusion launched it at; its
     # JSON numbers are those of the largest such shape
     unchecked = set(main14["k6_shapes"]) - set(k6)
@@ -644,6 +691,8 @@ def main():
            "corr3d_partials_nprobe": "K6", "pipe_copy": "K7"}
     for k in kernels:
         k["batch_launches"] = batch[ids[k["name"]]]
+        # and of Phase 18 (c), the low-memory registration's coarse ladder
+        k["bhbm_launches"] = bhbm[ids[k["name"]]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1288,6 +1337,10 @@ def phase11_reg_cli(dev):
         for ln in buf.getvalue().splitlines():
             if "Time cost" in ln:
                 print("  " + ln.strip("*").strip())
+            if "image reading/writing" in ln:
+                io_s = float(ln.split(":")[1].split()[0])
+                print(f"  reg3D CLI TIFF seconds with the native codec: {io_s:.3f} s "
+                      "(1.116 s on the NumPy codec: PERF.md section 5)")
         out, size = readtifstack_16to16(f["r.tif"])
         if out.shape != shape or out.dtype != np.uint16:
             raise AssertionError(f"reg3D output {out.shape} {out.dtype}")
@@ -1581,6 +1634,7 @@ def phase14_fusion(dev, card):
         runs[label] = (rec, tmx, reg_b, a_iso, n)
         del decon
     (rec_a, tmx_a, reg_b, a_iso, n_a), (rec_b, tmx_b, _, _, _) = runs["a"], runs["b"]
+    runs_b_tmx, runs_b_ncc = tmx_b, rec_b[3]
     d_m = box_error(tmx_a, tmx_b, FUSION_SHAPE)
     print(f"  (a) vs (b): NCC {rec_a[3]:.6f} vs {rec_b[3]:.6f}, matrices {d_m:.4f} voxel "
           "apart over the central half-box")
@@ -1631,7 +1685,8 @@ def phase14_fusion(dev, card):
     del otfs, reg_b
     torch.cuda.empty_cache()
     k6_shapes = reg_levels(dev, a_raw, b_raw, card)
-    return {"k2": n_a["K2"], "k6": n_a["K6"], "k6_shapes": k6_shapes}, (a_raw, b_raw)
+    return ({"k2": n_a["K2"], "k6": n_a["K6"], "k6_shapes": k6_shapes,
+             "tmx_b": runs_b_tmx, "ncc_b": runs_b_ncc}, (a_raw, b_raw))
 
 
 def reg_levels(dev, a_raw, b_raw, card):
@@ -2166,6 +2221,328 @@ def phase17_batch(dev, card, views):
         raise AssertionError("(b) the 2-D MIP and phasor starts disagree")
     torch.cuda.empty_cache()
     return total
+
+
+@contextlib.contextmanager
+def native_tiff(label):
+    """Check that the block's TIFF reads and writes all went through the
+    native codec (``io.tiff.COUNTS``), and that it read and wrote."""
+    before = dict(TIFF.COUNTS)
+    yield
+    n = {k: TIFF.COUNTS[k] - before[k] for k in before}
+    print(f"  {label} TIFF calls by codec: {n}")
+    if n["numpy_read"] or n["numpy_write"] or not n["native_read"] or not n["native_write"]:
+        raise AssertionError(f"{label}: TIFF I/O not all on the native codec: {n}")
+
+
+def transfer_rates(dev, card, mib=1024):
+    """Host <-> device GB/s of one ``mib`` MiB copy each way from pageable
+    and from pinned host memory (the best of three)."""
+    n = mib << 18
+    d = torch.empty(n, device=dev)
+    rates = {}
+    for kind, pin in (("pageable", False), ("pinned", True)):
+        h = torch.ones(n, pin_memory=pin)
+        for way in ("H2D", "D2H"):
+            best = math.inf
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if way == "H2D":
+                    d.copy_(h, non_blocking=pin)
+                else:
+                    h.copy_(d, non_blocking=pin)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t)
+            rates[f"{way} {kind}"] = 4 * n / best / 1e9
+        del h
+    del d
+    print(f"  host <-> device, {mib} MiB copies [{card}]: "
+          + ", ".join(f"{k} {v:.2f} GB/s" for k, v in rates.items()))
+    return rates
+
+
+def peak_since(dev, base):
+    return torch.cuda.max_memory_allocated(dev) - base
+
+
+def fresh_peak(dev):
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def streamed_iteration(stats, rates, card, label):
+    """Print seconds per streamed RL iteration, its bytes and the share of
+    it those bytes take at the pinned rates of this run."""
+    iters = stats["iter_s"]
+    h2d = (stats["h2d_bytes"] - stats["setup_h2d_bytes"]) / len(iters)
+    d2h = (stats["d2h_bytes"] - stats["setup_d2h_bytes"]) / len(iters)
+    s_it = sum(iters) / len(iters)
+    xfer = h2d / (rates["H2D pinned"] * 1e9) + d2h / (rates["D2H pinned"] * 1e9)
+    print(f"  {label}: {s_it:.3f} s per streamed iteration ({[round(t, 3) for t in iters]}), "
+          f"{h2d / 1e9:.2f} GB to and {d2h / 1e9:.2f} GB from the card each, "
+          f"{(h2d + d2h) / 1e9 / s_it:.2f} GB/s achieved; at the pinned rates the "
+          f"transfers take {xfer:.3f} s = {100 * xfer / s_it:.1f}% of it [{card}]")
+    return s_it, xfer / s_it
+
+
+def block_peak_factors(dev, src, tgt, tmx, card):
+    """Peak device bytes of one streamed block over its raw bytes (source
+    window + output or target rows), for the transform and the NCC sums,
+    at 1 and 4 output planes and at the 16 GB plan's block."""
+    sz, sy, sx = src.shape
+    m = np.asarray(tmx, np.float64).reshape(3, 4)
+    plan = AF._stream_blocks(tmx, sz, sz, sy, sx, sy, sx, BHBM_BUDGET_MB * 1048576.0)
+    worst = 0.0
+    for n in (1, 4, plan[0][1]):
+        z0 = sz // 2
+        lo, hi = AF._zspan_for_rows(m, z0, z0 + n - 1, sy, sx, sz)
+        raw = AF._block_bytes(n, lo, hi, sy * sx, sy * sx)
+        for kind in ("transform", "ncc"):
+            base = fresh_peak(dev)
+            win = torch.from_numpy(src[lo:hi]).to(dev)
+            if kind == "transform":
+                out = AF.affine_transform_3d_window(win, tmx, (n, sy, sx), z0, lo, sz)
+            else:
+                out = AF.corr3d_partials_window(win, torch.from_numpy(tgt[z0:z0 + n]).to(dev),
+                                                tmx, z0, lo, sz)
+            torch.cuda.synchronize(dev)
+            f = peak_since(dev, base) / raw
+            del win, out
+            worst = max(worst, f)
+            print(f"  one streamed block, {kind}, {n} output planes, {hi - lo} source "
+                  f"rows: peak {f:.2f} x its {raw / 1e6:.1f} MB raw bytes "
+                  f"(STREAM_PEAK_FACTOR {AF.STREAM_PEAK_FACTOR}) [{card}]")
+    if worst > AF.STREAM_PEAK_FACTOR:
+        raise AssertionError(f"a streamed block peaked at {worst:.2f} x its raw bytes, "
+                             f"over STREAM_PEAK_FACTOR {AF.STREAM_PEAK_FACTOR}")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase18_beyond_hbm(dev, card, main14, views):
+    """The beyond-HBM tiers (memory mode 2) at full size. Returns the
+    kernel launches of (c)'s low-memory registration."""
+    print(f"Phase 18: the beyond-HBM tiers (memory mode 2) [{card}]")
+    rates = transfer_rates(dev, card)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+
+    def host_rand(shape):
+        return (torch.rand(shape, generator=gen, device=dev) * 100 + 1).cpu().numpy()
+
+    # ---- (a) streamed single-view RL ----
+    shape = BHBM_DECON_SHAPE
+    grid = D._fft_grid(shape)
+    psf = bench_psf()
+    print(f"  (a) decon_singleview {shape} (grid {grid}), bench 9^3 PSF, "
+          f"{BHBM_DECON_ITERS} iterations; mode-1 working set "
+          f"{D._workingset_bytes(grid) / 1e9:.2f} GB")
+    img = host_rand(shape)
+    t = time.time()
+    with env(MIL_CONV_SEP="0", MIL_FFT_IMPL="xla"):
+        ref = D.decon_singleview(img, psf, BHBM_DECON_ITERS, device=dev, mem_mode=1)
+    print(f"  (a) mode 1 on the card (torch.fft route): {time.time() - t:.3f} s [{card}]")
+    for label, mode, budget_mb in (("mem_mode=2", 2, None),
+                                   (f"mem_mode=-1, MIL_HBM_BUDGET_MB={BHBM_BUDGET_MB}",
+                                    -1, BHBM_BUDGET_MB)):
+        rec = np.zeros(10)
+        base = fresh_peak(dev)
+        with env(**({"MIL_HBM_BUDGET_MB": str(budget_mb)} if budget_mb else {})):
+            budget = D.hbm_budget_bytes(dev)
+            t = time.time()
+            out = D.decon_singleview(img, psf, BHBM_DECON_ITERS, device=dev,
+                                     mem_mode=mode, records=rec)
+        wall = time.time() - t
+        peak = peak_since(dev, base)
+        print(f"  (a) {label}: records[0] {rec[0]:g}, chunks (z, y) "
+              f"{DS._chunk_counts(grid, budget)}, {wall:.3f} s (decon {rec[8]:.3f} s), "
+              f"peak device memory {peak / 1e9:.3f} GB of a {budget / 1e9:.3f} GB budget "
+              f"[{card}]")
+        if rec[0] != 2 or peak > budget:
+            raise AssertionError(f"(a) {label}: mode {rec[0]}, peak {peak} > {budget}")
+        check_close(f"(a) {label} vs mode 1", out, ref, 0.0, 2e-3)
+        del out
+    del ref
+    stats = {}
+    with env(MIL_HBM_BUDGET_MB=str(BHBM_BUDGET_MB)):
+        DS.rl_decon_single_streamed(DS.np_pad_stack_edge(img, grid), psf, flip(psf), 1,
+                                    budget_bytes=D.hbm_budget_bytes(dev), device=dev,
+                                    stats=stats)
+    s_it_a, share_a = streamed_iteration(stats, rates, card, f"(a) {grid}, 16 GB budget")
+    del img
+    torch.cuda.empty_cache()
+
+    # ---- (b) streamed dual-view RL ----
+    pa, pb = gauss3((25, 25, 25), (3.5, 1.2, 1.2)), gauss3((25, 25, 25), (1.2, 1.2, 3.5))
+    a, b = host_rand(DUAL_SHAPE), host_rand(DUAL_SHAPE)
+    print(f"  (b) decon_dualview {DUAL_SHAPE}, the 25^3 dual-view PSFs, "
+          f"{BHBM_DECON_ITERS} iterations; mode-1 working set "
+          f"{D._workingset_bytes(DUAL_SHAPE, True) / 1e9:.2f} GB")
+    with env(MIL_CONV_SEP="0", MIL_FFT_IMPL="xla"):
+        ref_fft = D.decon_dualview(a, b, pa, pb, BHBM_DECON_ITERS, device=dev, mem_mode=1)
+    ref_auto = D.decon_dualview(a, b, pa, pb, BHBM_DECON_ITERS, device=dev, mem_mode=1)
+    for label, mode, budget_mb, ref, tol in (
+            ("mem_mode=2", 2, None, ref_fft, 2e-3),
+            (f"mem_mode=-1, MIL_HBM_BUDGET_MB={BHBM_DUAL_BUDGET_MB}", -1,
+             BHBM_DUAL_BUDGET_MB, ref_auto, 2e-2)):
+        rec = np.zeros(10)
+        base = fresh_peak(dev)
+        with env(**({"MIL_HBM_BUDGET_MB": str(budget_mb)} if budget_mb else {})):
+            budget = D.hbm_budget_bytes(dev)
+            out = D.decon_dualview(a, b, pa, pb, BHBM_DECON_ITERS, device=dev,
+                                   mem_mode=mode, records=rec)
+        peak = peak_since(dev, base)
+        print(f"  (b) {label}: records[0] {rec[0]:g}, chunks (z, y) "
+              f"{DS._chunk_counts(DUAL_SHAPE, budget)}, decon {rec[8]:.3f} s, peak "
+              f"{peak / 1e9:.3f} GB of {budget / 1e9:.3f} GB [{card}]")
+        if rec[0] != 2 or peak > budget:
+            raise AssertionError(f"(b) {label}: mode {rec[0]}, peak {peak} > {budget}")
+        check_close(f"(b) {label} vs mode 1 ({'torch.fft' if tol == 2e-3 else 'auto'} "
+                    "route)", out, ref, 0.0, tol)
+    stats = {}
+    with env(MIL_HBM_BUDGET_MB=str(BHBM_DUAL_BUDGET_MB)):
+        DS.rl_decon_dual_streamed(a, b, pa, pb, flip(pa), flip(pb), 1,
+                                  budget_bytes=D.hbm_budget_bytes(dev), device=dev,
+                                  stats=stats)
+    streamed_iteration(stats, rates, card, f"(b) {DUAL_SHAPE}, 2 GB budget")
+    del a, b, ref_fft, ref_auto
+    torch.cuda.empty_cache()
+
+    # ---- (c) low-memory registration, then the hybrid engine ----
+    shape = BHBM_REG_SHAPE
+    dz, dy, dx = BHBM_REG_SHIFT
+    truth = dof_to_matrix([dx, dy, dz, 0, 0, 0, 1, 1, 1], 3)
+    vol_d = beads(shape, SEED + 18, dev)
+    vol = vol_d.cpu().numpy()
+    moved = torch.roll(vol_d, BHBM_REG_SHIFT, dims=(0, 1, 2)).cpu().numpy()
+    del vol_d
+    torch.cuda.empty_cache()
+    print(f"  (c) reg3d_affine {shape}, method 1, beads moved by (x, y, z) "
+          f"({dx}, {dy}, {dz}) voxels; mode-1 working set {5 * 4 * np.prod(shape) / 1e9:.2f} GB")
+    zero_counts()
+    t = time.time()
+    _, tmx1, rec1 = R.reg3d_affine(vol, moved, aff_method=1, device=dev, mem_mode=1,
+                                   want_reg=False)
+    n1 = counts()
+    print(f"  (c) mode 1: {time.time() - t:.3f} s, NCC {rec1[3]:.6f}, "
+          f"{box_error(tmx1, truth, shape):.4f} voxel from the truth, launches {n1} [{card}]")
+    torch.cuda.empty_cache()
+    with env(MIL_HBM_BUDGET_MB=str(BHBM_BUDGET_MB)):
+        budget = D.hbm_budget_bytes(dev)
+        mode, _ = R._reg_device(shape, -1, dev)
+        if not R._beyond_budget(mode, shape, dev):
+            raise AssertionError("(c) the pair fits the 16 GB budget")
+        zero_counts()
+        base = fresh_peak(dev)
+        t = time.time()
+        reg, tmx2, rec2 = R.reg3d_affine(vol, moved, aff_method=1, device=dev,
+                                         mem_mode=-1)
+        wall = time.time() - t
+        peak = peak_since(dev, base)
+    bhbm = counts()
+    err = box_error(tmx2, truth, shape)
+    # both matrices on mode 1's cost (the polish of method 1 scores the
+    # source pre-transformed by the coarse matrix, whose zero fill differs)
+    moved_d = torch.from_numpy(moved).to(dev)
+    vol_d = torch.from_numpy(vol).to(dev)
+    ncc1, ncc2 = reg_ncc(vol_d, moved_d, tmx1), reg_ncc(vol_d, moved_d, tmx2)
+    del vol_d
+    print(f"  (c) low-memory tier under {BHBM_BUDGET_MB} MB: {wall:.3f} s (iterations "
+          f"{rec2[6]:.3f} s), coarse NCC {rec2[2]:.6f}, polished {rec2[3]:.6f}, "
+          f"{int(rec2[5])} streamed evaluations at {rec2[4]:.1f} ms for the first, "
+          f"{err:.4f} voxel from the truth, peak device memory {peak / 1e9:.3f} GB; "
+          f"on mode 1's cost NCC {ncc2:.6f} vs mode 1's {ncc1:.6f}; coarse ladder "
+          f"launches {bhbm}; matrix {np.round(tmx2, 5).tolist()} [{card}]")
+    if (err > 0.5 or abs(ncc2 - ncc1) > 1e-3 or peak > budget or bhbm["K4"] < 1
+            or bhbm["K5"] < 1 or bhbm["plain"]):
+        raise AssertionError("(c) the low-memory registration missed its gates")
+    resident = affine_transform_3d(moved_d, tmx2, shape).cpu().numpy()
+    del moved_d
+    if not np.array_equal(resident.view(np.int32), reg.view(np.int32)):
+        raise AssertionError("(c) the streamed final transform is not bit-equal to "
+                             "affine_transform_3d")
+    print("  (c) the streamed final transform equals affine_transform_3d bit for bit")
+    del resident, reg
+    torch.cuda.empty_cache()
+    block_peak_factors(dev, moved, vol, tmx2, card)
+    del vol, moved
+
+    hybrid_vs_grad(dev, card)
+    phase18_fusion_cli(dev, card, main14, views)
+    return bhbm
+
+
+def hybrid_vs_grad(dev, card):
+    """Phase 18 (c): ``reg3d`` (choice 2, method 7, the automatic pyramid)
+    on Phase 10's pair at HYBRID_SHAPE with the ``hybrid`` engine against
+    the ``grad`` engine."""
+    true_m = dof_to_matrix(REG_DOF, 6)
+    vol_d = beads(HYBRID_SHAPE, SEED, dev)
+    moved_d = affine_transform_3d(vol_d, true_m, HYBRID_SHAPE)
+    found = {}
+    for engine in ("grad", "hybrid"):
+        zero_counts()
+        t = time.time()
+        _, tmx, rec = R.reg3d(vol_d, moved_d, 2, 7, engine=engine, device=dev,
+                              mem_mode=1, want_reg=False)
+        n = counts()
+        found[engine] = (tmx, rec[3], n)
+        print(f"  (c) reg3d engine {engine} at {HYBRID_SHAPE}, method 7, pyramid: "
+              f"{time.time() - t:.3f} s, NCC {rec[3]:.6f}, {int(rec[5])} evaluations at "
+              f"full resolution, launches {n} [{card}]")
+    (tmx_g, ncc_g, _), (tmx_h, ncc_h, n_h) = found["grad"], found["hybrid"]
+    apart = box_error(tmx_h, tmx_g, HYBRID_SHAPE)
+    print(f"  (c) hybrid vs grad: NCC {ncc_h:.6f} vs {ncc_g:.6f}, matrices {apart:.4f} "
+          "voxel apart")
+    if abs(ncc_h - ncc_g) > 1e-3 or apart > 0.5 or n_h["K5"] < 1 or n_h["K4"] or n_h["plain"]:
+        raise AssertionError("(c) the hybrid engine disagrees with the grad engine")
+    del vol_d, moved_d
+    torch.cuda.empty_cache()
+
+
+def phase18_fusion_cli(dev, card, main14, views):
+    """Phase 18 (d): the spimFusion CLI with -gm 2 on Phase 14's views
+    against Phase 14 (b)."""
+    print("  (d) spimFusion CLI -gm 2 on Phase 14's views, -bit 16 -otmx")
+    pa, pb = fusion_psfs()
+    with tempfile.TemporaryDirectory() as tmp, native_tiff("Phase 18 (d)"):
+        f = {n: os.path.join(tmp, n) for n in ("a.tif", "b.tif", "pa.tif", "pb.tif",
+                                                 "out.tif", "m.tmx")}
+        writetifstack(f["a.tif"], views[0], 16)
+        writetifstack(f["b.tif"], views[1], 16)
+        writetifstack(f["pa.tif"], pa, 32)
+        writetifstack(f["pb.tif"], pb, 32)
+        zero_counts()
+        buf = io.StringIO()
+        t = time.time()
+        with env(**FUSED_OFF), contextlib.redirect_stdout(buf):
+            rc = fusion_cli.main(["-i1", f["a.tif"], "-i2", f["b.tif"], "-fp1", f["pa.tif"],
+                                  "-fp2", f["pb.tif"], "-o", f["out.tif"], "-regc", "2",
+                                  "-affm", "7", "-it", str(N_ITERS), "-bit", "16",
+                                  "-gm", "2", "-otmx", f["m.tmx"], "-verbOFF"])
+        wall = time.time() - t
+        if rc != 0:
+            raise AssertionError(f"spimFusion -gm 2 returned {rc}")
+        out, size = readtifstack_16to16(f["out.tif"])
+        tmx = read_tmx(f["m.tmx"])
+    n = counts()
+    inv_true = inverse12(dof_to_matrix(REG_DOF, 6))
+    views_iso = FU.preprocess_views(*views, FUSION_PIXEL, FUSION_PIXEL, -1, dev,
+                                    as_device=True)
+    ncc_d, ncc_b = reg_ncc(*views_iso, tmx), reg_ncc(*views_iso, main14["tmx_b"])
+    del views_iso
+    apart = box_error(tmx, main14["tmx_b"], FUSION_SHAPE)
+    errs = [box_error(m, inv_true, FUSION_SHAPE) for m in (tmx, main14["tmx_b"])]
+    print(f"  (d) output {size} (x, y, z) {out.dtype}, {wall:.3f} s in main(), launches {n}; "
+          f"NCC {ncc_d:.6f} vs Phase 14 (b)'s {ncc_b:.6f}, matrices {apart:.4f} voxel "
+          f"apart, {errs[0]:.4f} and {errs[1]:.4f} voxel from the truth [{card}]")
+    if (out.shape != FUSION_SHAPE or not out.any() or abs(ncc_d - ncc_b) > 1e-3
+            or apart > 0.5 or max(errs) > FUSION_TRUTH_VOXELS or n["K4"] < 1
+            or n["K1"] or n["K2"] or n["K3"] or n["plain"]):
+        raise AssertionError("(d) the -gm 2 fusion missed its gates")
+    torch.cuda.empty_cache()
 
 
 

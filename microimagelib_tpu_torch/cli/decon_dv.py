@@ -1,7 +1,9 @@
 """deconDualView — joint dual-view RL deconvolution CLI, flag-compatible
 with the reference app (reference:src/decon_dv.cpp:45-288), including the
 input-size equality validation (reference:src/decon_dv.cpp:167-188).
-``-dev n`` selects ``cuda:n``; ``-gm 0`` runs on the CPU.
+``-dev n`` selects ``cuda:n``; ``-gm 0`` runs on the CPU; ``-gm 2`` (or
+``-gm -1`` beyond the device memory budget) streams the RL through host
+memory.
 
     python -m microimagelib_tpu_torch.cli.decon_dv -i1 a.tif -i2 b.tif -fp1 pa.tif -fp2 pb.tif -o out.tif -it 10
 """

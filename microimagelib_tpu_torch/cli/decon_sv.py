@@ -1,6 +1,7 @@
 """deconSingleView — single-view RL deconvolution CLI, flag-compatible
 with the reference app (reference:src/decon_sv.cpp:44-239). ``-dev n``
-selects ``cuda:n``; ``-gm 0`` runs on the CPU.
+selects ``cuda:n``; ``-gm 0`` runs on the CPU; ``-gm 2`` (or ``-gm -1``
+beyond the device memory budget) streams the RL through host memory.
 
     python -m microimagelib_tpu_torch.cli.decon_sv -i img.tif -fp psf.tif -o out.tif -it 20
 """

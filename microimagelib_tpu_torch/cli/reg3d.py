@@ -1,7 +1,9 @@
 """reg3D — intensity-based 3D image registration CLI, flag-compatible with
 the reference app (reference:src/reg3D.cpp:13-54 for the manual,
 :56-339 for behavior). ``-dev n`` selects ``cuda:n``; ``-gm 0`` runs on
-the CPU. Memory mode 2 is not ported yet and raises NotImplementedError.
+the CPU; ``-gm 2`` (or ``-gm -1`` beyond the device memory budget) takes
+the memory-saving tier: the streamed final transform, and for a pair
+beyond the budget the low-memory registration.
 
     python -m microimagelib_tpu_torch.cli.reg3d -t target.tif -s source.tif -o out.tif -otmx out.tmx
 """

@@ -1,7 +1,8 @@
 """spimFusion — single-timepoint diSPIM dual-view fusion CLI,
 flag-compatible with the reference app (reference:src/spim_fusion.cpp:
 84-688). ``-dev n`` selects ``cuda:n``; ``-gm 0`` runs on the CPU; ``-gm 2``
-(host-staged streaming) is not ported and raises NotImplementedError.
+(or ``-gm -1`` beyond the device memory budget) takes the registration's
+and the decon's host-staged streaming tiers.
 ``MIL_CONV_SEP_FUSED=1`` runs the decon's iterations on K2 and
 ``MIL_REG_BATCH_LS=1`` the registration finisher's line searches on K6.
 

@@ -17,6 +17,15 @@ uncompressed, striped, 1 sample/pixel, 8/16/32-bit unsigned or 32-bit
 float. The writer emits classic little-endian TIFF, one strip per page,
 matching the reference writer's layout (ROWSPERSTRIP = height,
 COMPRESSION_NONE, PLANARCONFIG_SEPARATE, reference:src/apifunc.cpp:258-276).
+
+Native fast path: the stack reads and writes go through the native codec
+(``native/miltiff.cpp``, page-parallel with the u16 <-> f32 conversion
+fused into the copy; built with the host C++ compiler at first use,
+``native/build.py``) where it decodes the layout — little-endian,
+uncompressed, one strip a page, u16 or f32 — and through NumPy otherwise
+(big-endian, compressed, multi-strip, other depths). A failed build
+raises. ``MIL_NO_NATIVE_TIFF`` set to any value keeps every call on NumPy.
+:data:`COUNTS` counts the calls each codec served.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from __future__ import annotations
 import mmap
 import os
 import struct
+import threading
 
 import numpy as np
 
@@ -49,6 +59,57 @@ _TYPE_FMT = {1: "B", 3: "H", 4: "I", 8: "h", 9: "i", 11: "f", 12: "d", 16: "Q", 
 
 class TiffError(RuntimeError):
     pass
+
+
+# calls served by each codec: native / numpy, read / write (the batch
+# writes from a pool of threads)
+COUNTS = {"native_read": 0, "native_write": 0, "numpy_read": 0, "numpy_write": 0}
+_COUNTS_LOCK = threading.Lock()
+
+
+def _count(key):
+    with _COUNTS_LOCK:
+        COUNTS[key] += 1
+
+
+def _native():
+    """The native codec (built and loaded at first use), or None under
+    MIL_NO_NATIVE_TIFF."""
+    if os.environ.get("MIL_NO_NATIVE_TIFF"):
+        return None
+    from microimagelib_tpu_torch.native import build
+
+    return build.load()
+
+
+def _native_read(path):
+    """(float32 (z, y, x) stack, (w, h, n), bits) through the native codec,
+    or None where it is off or does not decode the layout."""
+    native = _native()
+    if native is None:
+        return None
+    try:
+        raw, w, h, n, bits = native.read_stack_f32(path)
+    except FileNotFoundError:
+        raise TiffError(f"*** File does not exist: {path}") from None
+    except ValueError:
+        return None   # a layout the native codec does not decode
+    _count("native_read")
+    stack = np.frombuffer(raw, dtype=np.float32).reshape(n, h, w)
+    return stack, (int(w), int(h), int(n)), int(bits)
+
+
+def _native_write(path, stack, bits):
+    """Write the (z, y, x) stack through the native codec (float32 data,
+    C-cast to u16 for 16 bits); False where it is off."""
+    native = _native()
+    if native is None:
+        return False
+    z, h, w = stack.shape
+    native.write_stack(path, np.ascontiguousarray(stack, dtype=np.float32),
+                       w, h, z, bits)
+    _count("native_write")
+    return True
 
 
 def _read_ifd_entries(mm, off, bo, big):
@@ -211,7 +272,13 @@ def readtifstack(path, dtype=np.float32):
     """Read a TIFF stack into a ``(z, y, x)`` array of ``dtype`` (default float32).
 
     16-bit unsigned input is widened to float; 32-bit float read natively
-    (reference:src/apifunc.cpp:140-196). Returns ``(stack, size_xyz)``."""
+    (reference:src/apifunc.cpp:140-196). Returns ``(stack, size_xyz)``;
+    the native codec's float32 stack is read-only."""
+    if dtype == np.float32:
+        got = _native_read(path)
+        if got is not None:
+            return got[:2]
+    _count("numpy_read")
     mm, bo, big, first = _open_tiff(path)
     try:
         all_tags = list(_iter_ifds(mm, bo, big, first))
@@ -257,7 +324,12 @@ def _read_imagej_contiguous(mm, bo, tags, n_images, dtype, path):
 def readtifstack_16to16(path):
     """Read a 16-bit TIFF stack natively as uint16 ``(z, y, x)``.
 
-    Mirrors reference:src/apifunc.cpp:198-239."""
+    Mirrors reference:src/apifunc.cpp:198-239. 16-bit stacks the native
+    codec decodes go through it (u16 -> f32 -> u16 is exact)."""
+    got = _native_read(path)
+    if got is not None and got[2] == 16:
+        return got[0].astype(np.uint16), got[1]
+    _count("numpy_read")
     mm, bo, big, first = _open_tiff(path)
     try:
         pages = []
@@ -358,6 +430,9 @@ def writetifstack(path, stack, bit_per_sample=16):
     if stack.ndim == 2:
         stack = stack[None]
     z, h, w = stack.shape
+    if bit_per_sample in (16, 32) and _native_write(path, stack, bit_per_sample):
+        return
+    _count("numpy_write")
     if bit_per_sample == 16:
         data = _float_to_u16_c_cast(stack)
         pages = [np.ascontiguousarray(data[i]).astype("<u2").tobytes() for i in range(z)]
@@ -374,10 +449,14 @@ def writetifstack(path, stack, bit_per_sample=16):
 
 def writetifstack_16to16(path, stack):
     """Write a uint16 ``(z, y, x)`` stack as 16-bit multi-page TIFF
-    (reference:src/apifunc.cpp:300-326)."""
+    (reference:src/apifunc.cpp:300-326), through the native codec unless
+    it is off (u16 -> f32 -> u16 is exact)."""
     stack = np.asarray(stack, dtype=np.uint16)
     if stack.ndim == 2:
         stack = stack[None]
+    if _native_write(path, stack, 16):
+        return
+    _count("numpy_write")
     z, h, w = stack.shape
     pages = [np.ascontiguousarray(stack[i]).astype("<u2").tobytes() for i in range(z)]
     blob = _build_classic_tiff_pages(pages, w, h, 16, 1)

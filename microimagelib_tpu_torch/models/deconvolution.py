@@ -46,6 +46,12 @@ from microimagelib_tpu_torch.ops.basics import (
     snap_fft_size,
 )
 from microimagelib_tpu_torch.kernels.conv_sep import plan_of
+from microimagelib_tpu_torch.models.decon_streamed import (
+    np_crop_center,
+    np_pad_stack_edge,
+    rl_decon_dual_streamed,
+    rl_decon_single_streamed,
+)
 from microimagelib_tpu_torch.ops.conv_sep import (
     conv3_sep,
     plan_rl_fused,
@@ -494,7 +500,8 @@ def rl_decon_dual(img_a, img_b, otf_a, otf_b, otf_bp_a, otf_bp_b, n_iters,
 
 # --------------------------------------------------------------------------
 # Memory mode (the reference's gpuMemMode, reference:src/api_decon.cpp:
-# 111-135)
+# 111-135): 1 device-resident, 2 host-staged streaming
+# (models/decon_streamed.py)
 # --------------------------------------------------------------------------
 
 def _workingset_bytes(fft_shape, dual=False):
@@ -506,29 +513,66 @@ def _workingset_bytes(fft_shape, dual=False):
     return (9 if dual else 6) * vol
 
 
-def _resolve_device(mem_mode, fft_shape, device, dual=False):
-    """(mode, torch.device) for ``mem_mode``: 0 the CPU; 1 the given CUDA
-    device (default cuda:0); -1 mode 1 when the working set fits the
-    device's free memory, else an error; 2 (host-staged streaming) is not
-    ported yet."""
+def hbm_budget_bytes(device=None):
+    """Free device memory in bytes, the budget of the memory tiers:
+    ``MIL_HBM_BUDGET_MB`` when set (to test the tiering deterministically,
+    or to act as a smaller card), else the free memory of the CUDA
+    ``device`` (default cuda:0): ``torch.cuda.mem_get_info`` (the
+    reference's ``cudaMemGetInfo``) plus what PyTorch's caching allocator
+    holds there unused; None for the CPU."""
+    env = os.environ.get("MIL_HBM_BUDGET_MB")
+    if env:
+        return float(env) * 1048576.0
+    device = torch.device("cuda", 0) if device is None else torch.device(device)
+    if device.type != "cuda":
+        return None
+    device = require_cuda(device)
+    return float(torch.cuda.mem_get_info(device)[0]
+                 + torch.cuda.memory_reserved(device)
+                 - torch.cuda.memory_allocated(device))
+
+
+def _resolve_mem_mode(mem_mode, fft_shape, dual, device, verbose=False):
+    """(mode, torch.device) for ``mem_mode`` (the reference's gpuMemMode,
+    reference:src/api_decon.cpp:111-135): 0 the CPU; 1 device-resident and
+    2 host-staged streaming, both on ``device`` (default cuda:0;
+    ``device="cpu"`` runs them on the CPU); -1 mode 1 when the working set
+    fits 0.92 of :func:`hbm_budget_bytes`, else mode 2 (mode 1 when there
+    is no budget: the CPU without ``MIL_HBM_BUDGET_MB``)."""
     if mem_mode == 0:
         return 0, torch.device("cpu")
-    if mem_mode == 2:
-        raise NotImplementedError(
-            "mem_mode 2 (host-staged streaming, models/decon_streamed.py) is "
-            "not ported yet: ROADMAP.md, 'memory tiers and multi-device'")
-    if mem_mode not in (-1, 1):
+    if mem_mode not in (-1, 1, 2):
         raise ValueError(f"Invalid memory mode {mem_mode}")
-    device = require_cuda(device)
-    if mem_mode == -1:
-        free = torch.cuda.mem_get_info(device)[0]
-        need = _workingset_bytes(fft_shape, dual)
-        if need > free * 0.92:
-            raise RuntimeError(
-                f"the {need / 1048576:.0f} MB RL working set does not fit "
-                f"the {free / 1048576:.0f} MB free on {device}, and the "
-                "host-staged streaming mode is not ported yet")
-    return 1, device
+    device = resolve_device(None, device)
+    if mem_mode != -1:
+        return int(mem_mode), device
+    budget = hbm_budget_bytes(device)
+    if budget is None:
+        return 1, device
+    need = _workingset_bytes(fft_shape, dual)
+    mode = 1 if need <= budget * 0.92 else 2
+    if verbose and mode == 2:
+        print(f"...device memory budget {budget/1048576:.0f} MB below the "
+              f"{need/1048576:.0f} MB working set: host-staged streaming mode")
+    return mode, device
+
+
+def _host_np(x):
+    """A float32 numpy view or copy of a tensor or array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _finish_records(records, mode, device, t0, t1, t2, t3):
+    if records is not None:
+        records[0] = mode
+        records[4] = free_memory_mb(device)
+        records[5] = free_memory_mb(device)
+        records[6] = t1 - t0
+        records[7] = t2 - t1
+        records[8] = t3 - t2
+        records[9] = t3 - t0
 
 
 # --------------------------------------------------------------------------
@@ -555,10 +599,11 @@ def decon_singleview(img, psf, n_iters=20, const_initial=False, psf_bp=None,
     (-1 on the CPU), [6..9] init/preproc/decon/total seconds
     (reference:src/api_decon.cpp:56-59).
 
-    ``mem_mode``: 0 the CPU; 1 the CUDA ``device`` (a ``torch.device``,
-    default cuda:0); -1 mode 1 when the working set fits the device's free
-    memory, else an error; 2 (host-staged streaming) raises
-    NotImplementedError."""
+    ``mem_mode`` (:func:`_resolve_mem_mode`): 0 the CPU; 1 device-resident
+    on ``device`` (a ``torch.device``, default cuda:0); 2 host-staged
+    streaming through ``device`` (``models/decon_streamed.py``: the device
+    holds one chunk at a time); -1 mode 1 when the working set fits the
+    device memory budget (:func:`hbm_budget_bytes`), else mode 2."""
     t0 = time.time()
     img_shape = tuple(img.shape)
     psf_np = np.asarray(psf, dtype=np.float32)
@@ -567,15 +612,34 @@ def decon_singleview(img, psf, n_iters=20, const_initial=False, psf_bp=None,
         print(f"...Image size {img_shape[2]} x {img_shape[1]} x {img_shape[0]}")
         print(f"...PSF size {psf_np.shape[2]} x {psf_np.shape[1]} x {psf_np.shape[0]}")
         print(f"...FFT size {fft_shape[2]} x {fft_shape[1]} x {fft_shape[0]}")
-    mode, device = _resolve_device(mem_mode, fft_shape, device)
+    mode, device = _resolve_mem_mode(mem_mode, fft_shape, False, device, verbose)
     if records is not None:
         records[1] = free_memory_mb(device)
+    bp_np = np.asarray(psf_bp, np.float32) if psf_bp is not None else None
+
+    if mode == 2:
+        img_np = _host_np(img)
+        t1 = time.time()
+        padded = (np_pad_stack_edge(img_np, fft_shape)
+                  if fft_shape != img_shape else img_np)
+        t2 = time.time()
+        if records is not None:
+            records[2] = free_memory_mb(device)
+        est = rl_decon_single_streamed(
+            padded, psf_np, bp_np if bp_np is not None else psf_np[::-1, ::-1, ::-1],
+            n_iters, const_initial, budget_bytes=hbm_budget_bytes(device),
+            device=device)
+        if records is not None:
+            records[3] = free_memory_mb(device)
+        out_np = np_crop_center(est, img_shape).copy()
+        _finish_records(records, 2, device, t0, t1, t2, time.time())
+        return out_np
+
     img_t = _as_tensor(img, device)
     t1 = time.time()
 
     padded = (pad_stack_edge(img_t, fft_shape)
               if fft_shape != img_shape else img_t)
-    bp_np = np.asarray(psf_bp, np.float32) if psf_bp is not None else None
     t2 = time.time()
     if records is not None:
         records[2] = free_memory_mb(device)
@@ -586,15 +650,7 @@ def decon_singleview(img, psf, n_iters=20, const_initial=False, psf_bp=None,
         records[3] = free_memory_mb(device)
     out = crop_center(est, img_shape) if fft_shape != img_shape else est
     out_np = out.cpu().numpy()
-    t3 = time.time()
-    if records is not None:
-        records[0] = mode
-        records[4] = free_memory_mb(device)
-        records[5] = free_memory_mb(device)
-        records[6] = t1 - t0
-        records[7] = t2 - t1
-        records[8] = t3 - t2
-        records[9] = t3 - t0
+    _finish_records(records, mode, device, t0, t1, t2, time.time())
     return out_np
 
 
@@ -608,8 +664,8 @@ def decon_dualview(img_a, img_b, psf_a, psf_b, n_iters=10, const_initial=False,
     matching the reference's single ``flagUnmatch``; otherwise each view
     back-projects with its flipped PSF. Returns float32 numpy with the
     views' shape. ``records`` and ``mem_mode`` as in
-    :func:`decon_singleview` (``verbose`` prints nothing here, as in the
-    JAX package's device-resident modes)."""
+    :func:`decon_singleview` (``verbose`` prints only the streaming
+    mode's line, as in the JAX package)."""
     t0 = time.time()
     shape_a = tuple(img_a.shape)
     shape_b = tuple(img_b.shape)
@@ -618,18 +674,40 @@ def decon_dualview(img_a, img_b, psf_a, psf_b, n_iters=10, const_initial=False,
     psf_a_np = np.asarray(psf_a, dtype=np.float32)
     psf_b_np = np.asarray(psf_b, dtype=np.float32)
     fft_shape = _fft_grid(shape_a, tpu_friendly_fft)
-    mode, device = _resolve_device(mem_mode, fft_shape, device, dual=True)
+    mode, device = _resolve_mem_mode(mem_mode, fft_shape, True, device, verbose)
     if records is not None:
         records[1] = free_memory_mb(device)
+    unmatch = psf_bp_a is not None and psf_bp_b is not None
+    bp_a = np.asarray(psf_bp_a, np.float32) if unmatch else None
+    bp_b = np.asarray(psf_bp_b, np.float32) if unmatch else None
+
+    if mode == 2:
+        views = [_host_np(v) for v in (img_a, img_b)]
+        t1 = time.time()
+        pads = [np_pad_stack_edge(v, fft_shape) if fft_shape != shape_a else v
+                for v in views]
+        del views
+        t2 = time.time()
+        if records is not None:
+            records[2] = free_memory_mb(device)
+        est = rl_decon_dual_streamed(
+            *pads, psf_a_np, psf_b_np,
+            bp_a if unmatch else psf_a_np[::-1, ::-1, ::-1],
+            bp_b if unmatch else psf_b_np[::-1, ::-1, ::-1],
+            n_iters, const_initial, budget_bytes=hbm_budget_bytes(device),
+            device=device)
+        if records is not None:
+            records[3] = free_memory_mb(device)
+        out_np = np_crop_center(est, shape_a).copy()
+        _finish_records(records, 2, device, t0, t1, t2, time.time())
+        return out_np
+
     img_a = _as_tensor(img_a, device)
     img_b = _as_tensor(img_b, device)
     t1 = time.time()
 
     pad_a = pad_stack_edge(img_a, fft_shape) if fft_shape != shape_a else img_a
     pad_b = pad_stack_edge(img_b, fft_shape) if fft_shape != shape_a else img_b
-    unmatch = psf_bp_a is not None and psf_bp_b is not None
-    bp_a = np.asarray(psf_bp_a, np.float32) if unmatch else None
-    bp_b = np.asarray(psf_bp_b, np.float32) if unmatch else None
     t2 = time.time()
     if records is not None:
         records[2] = free_memory_mb(device)
@@ -641,15 +719,7 @@ def decon_dualview(img_a, img_b, psf_a, psf_b, n_iters=10, const_initial=False,
         records[3] = free_memory_mb(device)
     out = crop_center(est, shape_a) if fft_shape != shape_a else est
     out_np = out.cpu().numpy()
-    t3 = time.time()
-    if records is not None:
-        records[0] = mode
-        records[4] = free_memory_mb(device)
-        records[5] = free_memory_mb(device)
-        records[6] = t1 - t0
-        records[7] = t2 - t1
-        records[8] = t3 - t2
-        records[9] = t3 - t0
+    _finish_records(records, mode, device, t0, t1, t2, time.time())
     return out_np
 
 

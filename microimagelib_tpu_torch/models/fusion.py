@@ -15,9 +15,12 @@ reference:src/spim_fusion.cpp:336-363):
      ``MIL_CONV_SEP_FUSED=1``)
 
 Devices: ``mem_mode`` 0 runs on the CPU (the kernels' plain versions);
-1 and -1 on the CUDA ``device`` (default cuda:0); 2 raises, as in the
-registration and decon entries. The views stay on the device from the
-resample to the decon.
+1, 2 and -1 on ``device`` (default cuda:0). ``mem_mode`` passes through
+to the registration and the decon: 2 (or -1 beyond the memory budget)
+takes their memory-saving tiers (the streamed final transform, the
+low-memory registration, the streamed RL), whose volumes live in host
+memory. Otherwise the views stay on the device from the resample to the
+decon.
 """
 
 from __future__ import annotations
@@ -26,7 +29,11 @@ import time
 
 import numpy as np
 
-from microimagelib_tpu_torch.models.deconvolution import _as_tensor, decon_dualview
+from microimagelib_tpu_torch.models.deconvolution import (
+    _as_tensor,
+    _host_np,
+    decon_dualview,
+)
 from microimagelib_tpu_torch.models.registration import _reg_device, checkmatrix, reg3d
 from microimagelib_tpu_torch.ops.basics import rot_by_y_axis
 from microimagelib_tpu_torch.ops.resample import resize3d_separable
@@ -124,7 +131,8 @@ def fusion_dualview(img_a, img_b, psf_a, psf_b,
     """Full fusion of one timepoint. Returns (decon, tmx, reg_b, a_iso).
 
     ``reg_b`` stays on the device (a tensor, like reg3d's
-    ``as_device=True``): it feeds the decon without a host round trip.
+    ``as_device=True``): it feeds the decon without a host round trip; in
+    memory mode 2 it is host numpy, from the streamed transform.
     ``a_iso`` and ``decon`` are numpy.
 
     The registration fallback of the reference: if ``checkmatrix``
@@ -141,7 +149,7 @@ def fusion_dualview(img_a, img_b, psf_a, psf_b,
     t0 = time.time()
     if records is None:
         records = np.zeros(22, dtype=np.float64)
-    # the views' device, as the registration resolves it (mode 2 raises)
+    # the views' device, as the registration resolves it
     _mode, dev = _reg_device(tuple(np.shape(img_a)), mem_mode, device)
     a_iso, b_iso = preprocess_views(img_a, img_b, pixel_a, pixel_b,
                                     im_rotation, dev, verbose, as_device=True)
@@ -162,7 +170,7 @@ def fusion_dualview(img_a, img_b, psf_a, psf_b,
     del b_iso
 
     if save_reg_callback is not None:
-        save_reg_callback(a_iso.cpu().numpy(), reg_b.cpu().numpy())
+        save_reg_callback(_host_np(a_iso), _host_np(reg_b))
 
     decon_records = np.zeros(10, dtype=np.float64)
     decon = decon_dualview(
@@ -171,4 +179,4 @@ def fusion_dualview(img_a, img_b, psf_a, psf_b,
         verbose=verbose, records=decon_records)
     records[11:21] = decon_records
     records[21] = time.time() - t0
-    return decon, out_tmx, reg_b, a_iso.cpu().numpy()
+    return decon, out_tmx, reg_b, _host_np(a_iso)

@@ -13,10 +13,14 @@ phasor runs on ``torch.fft``; the 2-D costs and the box ZNCC of the
 phasor's wraparound check are plain torch on the volumes' device.
 
 Devices: ``mem_mode`` 0 runs on the CPU (the kernels' plain versions); 1
-on the CUDA ``device`` (default cuda:0); -1 mode 1 when the ladder's
-~5-volume working set fits the device's free memory. Mode 2 (host-staged
-streaming: ``_reg3d_affine_lowmem``, ``reg3d_phasor_lowmem``) and the
-``hybrid`` engine are not ported: ROADMAP.md, queue 4 (memory tiers).
+on ``device`` (default cuda:0); 2 the memory-saving tier on ``device``: a
+pair that fits keeps the mode-1 search and streams the final transform
+through host-staged z windows, a pair beyond the memory budget
+(``models.deconvolution.hbm_budget_bytes``) runs
+:func:`_reg3d_affine_lowmem` (a host-pooled coarse ladder on the card,
+then a streamed full-resolution polish) and the host-staged phasor
+:func:`reg3d_phasor_lowmem`; -1 mode 1 when the ladder's ~5-volume working
+set fits the budget, else mode 2.
 """
 
 from __future__ import annotations
@@ -29,14 +33,32 @@ import time
 import numpy as np
 import torch
 
-from microimagelib_tpu_torch.models.deconvolution import _as_tensor
-from microimagelib_tpu_torch.models.registration_device import reg_ladder_device
+from microimagelib_tpu_torch.models.decon_streamed import (
+    _chunk_counts,
+    _Mover,
+    _pass_rfft2,
+    _spans,
+    np_align_size_3d,
+)
+from microimagelib_tpu_torch.models.deconvolution import (
+    _as_tensor,
+    _host_np,
+    hbm_budget_bytes,
+)
+from microimagelib_tpu_torch.models.registration_device import (
+    cost_eval_reg_device,
+    linmin_reg_device,
+    reg_ladder_device,
+)
 from microimagelib_tpu_torch.models.registration_grad import reg_ladder_grad
 from microimagelib_tpu_torch.ops.affine import (
+    _host_tensor,
     affine_transform_2d,
     affine_transform_3d,
+    affine_transform_3d_streamed,
     corr2d_partials,
     corr2d_partials_batch,
+    corr3d_partials_streamed,
 )
 from microimagelib_tpu_torch.ops.basics import (
     align_size_3d,
@@ -58,7 +80,6 @@ from microimagelib_tpu_torch.ops.powell import EvalCounter, powell
 from microimagelib_tpu_torch.utils.device import (
     committed_platform,
     free_memory_mb,
-    require_cuda,
     resolve_device,
 )
 from microimagelib_tpu_torch.utils.envflags import env_on
@@ -93,36 +114,34 @@ def checkmatrix(m, sx, sy, sz):
 
 def _reg_mode1_fits(shape, device):
     """Whether the mode-1 ladder's working set (source + target + a few
-    temporaries, ~5 volumes) fits the device's free memory (always true
-    for the CPU)."""
-    device = torch.device("cpu") if device is None else torch.device(device)
-    if device.type != "cuda":
+    temporaries, ~5 volumes) fits 0.92 of the device memory budget
+    (:func:`hbm_budget_bytes`; always for the CPU without
+    ``MIL_HBM_BUDGET_MB``)."""
+    budget = hbm_budget_bytes(device)
+    if budget is None:
         return True
-    free = torch.cuda.mem_get_info(device)[0]
-    return 5 * int(np.prod(shape)) * 4 <= free * 0.92
-
-
-def _resolve_reg_mem_mode(shape, mem_mode, device):
-    """-1 auto / 0 CPU / 1 device-resident / 2 memory-saving: auto takes 1
-    when the mode-1 working set fits, else 2 (the reference's
-    ``reg3d_affine2`` probe, reference:src/api_reg.cpp:330-372)."""
-    if mem_mode in (0, 1, 2):
-        return int(mem_mode)
-    if mem_mode != -1:
-        raise ValueError(f"Invalid memory mode {mem_mode}")
-    device = require_cuda(device)
-    return 1 if _reg_mode1_fits(shape, device) else 2
+    return 5 * int(np.prod(shape)) * 4 <= budget * 0.92
 
 
 def _reg_device(shape, mem_mode, device):
-    """(mode, torch.device): 0 -> the CPU, 1 -> the CUDA device; 2 raises."""
-    mode = _resolve_reg_mem_mode(shape, mem_mode, device)
-    if mode == 2:
-        raise _not_ported("registration memory mode 2 (host-staged streaming, "
-                          "_reg3d_affine_lowmem)", "queue 4 (memory tiers)")
-    if mode == 0:
+    """(mode, torch.device) for ``mem_mode`` (the reference's
+    ``reg3d_affine2`` probe, reference:src/api_reg.cpp:330-372): 0 the
+    CPU; 1 and 2 ``device`` (default cuda:0, ``device="cpu"`` the CPU);
+    -1 mode 1 when the mode-1 working set fits the budget, else 2."""
+    if mem_mode == 0:
         return 0, torch.device("cpu")
-    return 1, require_cuda(device)
+    if mem_mode not in (-1, 1, 2):
+        raise ValueError(f"Invalid memory mode {mem_mode}")
+    dev = resolve_device(None, device)
+    if mem_mode == -1:
+        return (1 if _reg_mode1_fits(shape, dev) else 2), dev
+    return int(mem_mode), dev
+
+
+def _beyond_budget(mode, shape, dev):
+    """Mode 2 on a pair that does not fit the budget: the tier where the
+    device never holds a whole volume."""
+    return mode == 2 and not _reg_mode1_fits(shape, dev)
 
 
 # --------------------------------------------------------------------------
@@ -132,18 +151,21 @@ def _reg_device(shape, mem_mode, device):
 def atrans3dgpu(img2, tmx, out_shape_zyx, device=None, mem_mode=-1):
     """Apply a 3x4 matrix to a volume, producing ``out_shape_zyx``
     (reference:src/api_reg.cpp:58-85). numpy in/out. mem_mode 0 runs on
-    the CPU, 1 on the CUDA ``device``, -1 on the device when source and
-    output fit its free memory; mode 2 (streamed) is not ported."""
+    the CPU, 1 on ``device``; 2 (or -1 when source and output exceed the
+    memory budget) streams the transform: the source stays in host memory
+    and each output z block goes to the device with only the source rows
+    it can sample (:func:`~microimagelib_tpu_torch.ops.affine.affine_transform_3d_streamed`,
+    bit-equal to mode 1)."""
     img2 = np.asarray(img2, np.float32)
+    dev = torch.device("cpu") if mem_mode == 0 else resolve_device(None, device)
     if mem_mode == -1:
-        dev = require_cuda(device)
+        budget = hbm_budget_bytes(dev)
         need = 4 * (img2.size + int(np.prod(out_shape_zyx))) * 4
-        if need > torch.cuda.mem_get_info(dev)[0] * 0.92:
-            mem_mode = 2
+        mem_mode = 2 if budget is not None and need > budget * 0.92 else 1
     if mem_mode == 2:
-        raise _not_ported("the streamed affine transform (memory mode 2)",
-                          "queue 4 (memory tiers)")
-    dev = torch.device("cpu") if mem_mode == 0 else require_cuda(device)
+        return affine_transform_3d_streamed(
+            img2, np.asarray(tmx, np.float32), tuple(out_shape_zyx),
+            budget_bytes=hbm_budget_bytes(dev), device=dev)
     out = affine_transform_3d(_as_tensor(img2, dev), tmx, tuple(out_shape_zyx))
     return out.cpu().numpy()
 
@@ -316,10 +338,113 @@ def reg2d_phasor(img1, img2, *, device=None):
     return _disambiguate_shifts(a, b, shifts, [sx, sy])
 
 
-def reg3d_phasor_lowmem(img1, img2, budget_bytes=None):
-    """The host-staged phasor (``reg3d_phasor2``) is not ported."""
-    raise _not_ported("reg3d_phasor_lowmem (the host-staged phasor, memory "
-                      "mode 2)", "queue 4 (memory tiers)")
+# --------------------------------------------------------------------------
+# Low-memory (host-staged) 3-D phasor: the reference's reg3d_phasor2
+# --------------------------------------------------------------------------
+
+def _crosspow_chunk(s1, s2):
+    """The streamed middle pass of the phasor on a y chunk of both rFFT2
+    spectra: FFT along z, normalized cross-power, inverse z FFT."""
+    prod = torch.conj(torch.fft.fft(s1, dim=0)) * torch.fft.fft(s2, dim=0)
+    mag = prod.abs()
+    norm = torch.where(mag != 0, prod / mag,
+                       torch.zeros((), dtype=prod.dtype, device=prod.device))
+    return torch.fft.ifft(norm, dim=0)
+
+
+def _irfft2_argmax_slab(spec_slab, x_out):
+    """(peak value, flat index within the slab) of the slab's surface:
+    irFFT2 over (y, x), then the first maximum in C order."""
+    surf = torch.fft.irfft2(spec_slab, s=(spec_slab.shape[1], x_out))
+    idx = torch.argmax(surf)
+    return float(surf.reshape(-1)[idx]), int(idx)
+
+
+def _box_stats_slab(a_slab, b_slab, z0, offs_xyz, cs_xyz):
+    """Per-slab partial sums (n, sa, sb, saa, sbb, sab) in float64 of each
+    candidate box (x, y, z offsets and sizes; the slab holds global z rows
+    [z0, z0 + cz)), by cropping the box's rows that fall in the slab."""
+    f64 = torch.float64
+    cz = a_slab.shape[0]
+    out = np.zeros((len(offs_xyz), 6), np.float64)
+    for k, (off, cs) in enumerate(zip(offs_xyz, cs_xyz)):
+        lo = max(off[2], z0) - z0
+        hi = min(off[2] + cs[2], z0 + cz) - z0
+        if hi <= lo:
+            continue
+        box = (slice(lo, hi), slice(off[1], off[1] + cs[1]),
+               slice(off[0], off[0] + cs[0]))
+        a, b = a_slab[box], b_slab[box]
+        out[k] = [a.numel(), float(a.sum(dtype=f64)), float(b.sum(dtype=f64)),
+                  float((a * a).sum(dtype=f64)), float((b * b).sum(dtype=f64)),
+                  float((a * b).sum(dtype=f64))]
+    return out
+
+
+def reg3d_phasor_lowmem(img1, img2, budget_bytes=None, *, device=None):
+    """3-D phase correlation with the device never holding a whole volume:
+    the memory-saving ``reg3d_phasor2`` (reference:src/api_subfunc.cu:
+    2591-2726). Both spectra, the cross-power surface and the wraparound
+    check's box statistics stream through host buffers in z-slab / y-chunk
+    passes on ``device`` (default cuda:0; ``device="cpu"`` for the CPU),
+    in chunks sized by ``budget_bytes`` as the streamed RL sizes them.
+    Returns the shifts of :func:`reg3d_phasor`."""
+    mv = _Mover(resolve_device(None, device))
+    a = mv.host_copy(_host_np(img1), torch.float32)
+    b = mv.host_copy(_host_np(img2), torch.float32)
+    sz, sy, sx = a.shape
+    xh = sx // 2 + 1
+    nz, ny = _chunk_counts((sz, sy, sx), budget_bytes)
+    spec1 = mv.host((sz, sy, xh), torch.complex64)
+    spec2 = mv.host((sz, sy, xh), torch.complex64)
+    _pass_rfft2(mv, a, spec1, nz)
+    _pass_rfft2(mv, b, spec2, nz)
+    for sl in _spans(sy, ny):
+        mv.down(spec1[:, sl], _crosspow_chunk(mv.up(spec1[:, sl]),
+                                              mv.up(spec2[:, sl])))
+    del spec2
+    best_val, best_idx = -math.inf, 0
+    for sl in _spans(sz, nz):
+        v, idx = _irfft2_argmax_slab(mv.up(spec1[sl]), sx)
+        if v > best_val:
+            best_val, best_idx = v, idx + sl.start * sy * sx
+    del spec1
+    pz, rem = divmod(best_idx, sy * sx)
+    py, px = divmod(rem, sx)
+
+    def wrap(p, n):
+        return ((p + n // 2) % n) - n // 2
+
+    shifts = [wrap(px, sx), wrap(py, sy), wrap(pz, sz)]
+    sizes = [sx, sy, sz]
+    if not any(abs(shifts[i]) > sizes[i] // 4 for i in range(3)):
+        return shifts
+    combs, offs, cs, valid = _candidate_boxes(shifts, sizes)
+    if not any(valid):
+        return shifts
+    # the zero-filling shift of the moving volume, on the host
+    shifted = imshift(b, -shifts[0], -shifts[1], -shifts[2])
+    acc = np.zeros((len(combs), 6), np.float64)
+    for sl in _spans(sz, nz):
+        acc += _box_stats_slab(mv.up(a[sl]), mv.up(shifted[sl]), sl.start,
+                               offs, cs)
+    ccs = np.full(len(combs), -3.0)
+    for k in range(len(combs)):
+        n, sa, sb, saa, sbb, sab = acc[k]
+        if not valid[k] or n <= 0:
+            continue
+        va = saa - sa * sa / n
+        vb = sbb - sb * sb / n
+        cov = sab - sa * sb / n
+        denom = math.sqrt(max(va, 0.0) * max(vb, 0.0))
+        ccs[k] = cov / denom if denom > 0 else -2.0
+    best = combs[int(np.argmax(ccs))]
+    out = list(shifts)
+    for i in range(3):
+        if best[i] == 1:
+            out[i] = (shifts[i] - sizes[i] if shifts[i] > 0
+                      else shifts[i] + sizes[i])
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -500,13 +625,153 @@ def reg2d(img1, img2, reg_choice=2, flag_tmx=False, tmx=None, ftol=1e-4,
 # 3D affine registration core
 # --------------------------------------------------------------------------
 
-def _final_transform(img2, aff_coef, out_shape, mem_mode):
-    """Final re-sample of the ORIGINAL source (mode 2, streamed, is not
-    ported)."""
+def _final_transform(img2, aff_coef, out_shape, mem_mode, device=None):
+    """Final re-sample of the ORIGINAL source: a tensor on its device, or
+    for mode 2 host numpy, streamed through ``device`` in z blocks from a
+    host copy of the source (bit-equal to the resident transform)."""
     if mem_mode == 2:
-        raise _not_ported("the streamed final transform (memory mode 2)",
-                          "queue 4 (memory tiers)")
+        return affine_transform_3d_streamed(
+            _host_np(img2), np.asarray(aff_coef, np.float32), tuple(out_shape),
+            budget_bytes=hbm_budget_bytes(device), device=device)
     return affine_transform_3d(img2, aff_coef, tuple(out_shape))
+
+
+def _host_ms(vol, mv):
+    """``vol`` minus its float64 mean, rounded to float32, in a host buffer
+    of ``mv`` (pinned for a CUDA device), with the float64 energy: the
+    streamed cost's preprocessed volume."""
+    vol = torch.as_tensor(vol)
+    mean = float(vol.sum(dtype=torch.float64)) / vol.numel()
+    out = mv.host(tuple(vol.shape), torch.float32)
+    energy = 0.0
+    for sl in _spans(vol.shape[0], max(1, vol.shape[0] // 8)):
+        d = vol[sl].double() - mean
+        out[sl] = d
+        energy += float((out[sl].double() ** 2).sum())
+    return out, energy
+
+
+def _reg3d_affine_lowmem(img1, img2, aff_method, flag_tmx, tmx, ftol,
+                         it_limit, verbose, records, device, engine,
+                         want_reg=True):
+    """Affine registration of a pair beyond the device memory budget: the
+    device never holds a whole volume (the memory-saving ``reg3d_affine2``,
+    reference:src/api_subfunc.cu:2995-3266, still held one volume and a
+    texture on the GPU):
+
+      1. both volumes are mean-pooled on the host until ~5 volumes of the
+         pooled pair fit half the budget, and the mode-1 ladder runs
+         there on ``device`` (K4/K5);
+      2. the scaled-up matrix is polished at full resolution with the
+         streamed NCC cost (``corr3d_partials_streamed``: one source
+         window and one target block on the device at a time), at most
+         MIL_REG_STREAM_BUDGET evaluations (default 100);
+         MIL_REG_STREAM_POLISH=1 lifts the cap to ``it_limit``, =0 skips
+         the polish;
+      3. the final transform of the source streams through z windows.
+
+    Returns (registered, tmx12, records) like :func:`reg3d_affine`; the
+    registered volume is host numpy (None for ``want_reg=False``)."""
+    t_start = time.time()
+    if records is None:
+        records = np.zeros(11, dtype=np.float64)
+    img1, img2 = _host_tensor(img1), _host_tensor(img2)
+    budget = hbm_budget_bytes(device)
+    # coarse level: pool until ~5 volumes fit in half the budget
+    vox_budget = (budget * 0.5 / 20.0) if budget else 96 ** 3
+    factor = _auto_pool_factors(tuple(img1.shape), budget=vox_budget)
+    if verbose:
+        print(f"\t... beyond-HBM registration: coarse ladder at "
+              f"1/{factor} resolution, streamed full-resolution cost")
+    tmx_c = (_tmx_full_to_coarse(tmx, factor)
+             if (flag_tmx and tmx is not None) else None)
+    _, m_coarse, rec_c = reg3d_affine(
+        _mean_pool(img1, factor), _mean_pool(img2, factor), aff_method,
+        tmx_c is not None, tmx_c, ftol, it_limit, verbose, None, device,
+        engine, mem_mode=1, want_reg=False)
+    m_full = _tmx_coarse_to_full(m_coarse, factor)
+    records[2] = rec_c[3]
+
+    mv = _Mover(device)
+    tgt_ms, st2 = _host_ms(img1, mv)
+    src_ms, _ = _host_ms(img2, mv)
+    sd_t = math.sqrt(st2)
+    if sd_t == 0:
+        raise ValueError("SD of image 1 is zero, empty image input")
+    n_evals = 0
+
+    def cost_streamed(src, m12):
+        nonlocal n_evals
+        n_evals += 1
+        ss, st = corr3d_partials_streamed(src, tgt_ms,
+                                          np.asarray(m12, np.float32),
+                                          budget_bytes=budget, device=device)
+        ssf = math.sqrt(ss)
+        if ssf == 0:
+            return 2.0
+        return -(st / ssf) / sd_t
+
+    t_e = time.time()
+    fret = cost_streamed(src_ms, m_full)
+    records[1] = rec_c[1]
+    records[4] = (time.time() - t_e) * 1000.0
+
+    t_iter0 = time.time()
+    polish_env = os.environ.get("MIL_REG_STREAM_POLISH", "budget")
+    if polish_env == "0":
+        polish_cap = 0
+    elif polish_env == "1":
+        polish_cap = int(it_limit)
+    else:
+        polish_cap = min(int(it_limit),
+                         int(os.environ.get("MIL_REG_STREAM_BUDGET", "100")))
+    if polish_cap > 0:
+        # polish the REQUESTED model (dofNum semantics, reference:src/
+        # api_subfunc.cu:2893-2916): methods >= 5 search the 12 matrix
+        # parameters from the coarse result; methods 1-4 pre-transform the
+        # source by the coarse matrix (streamed) and search the residual
+        # DOF model from identity
+        if aff_method >= 5:
+            def cost12(p):
+                return cost_streamed(src_ms, params_to_matrix(p))
+
+            p0 = matrix_to_params(np.asarray(m_full, np.float64))
+            p_min, fret, _, _ = powell(p0, cost12, ftol, polish_cap,
+                                       counter=EvalCounter(cost12))
+            m_full = params_to_matrix(p_min).astype(np.float32)
+        else:
+            pre = _final_transform(img2, m_full, tuple(img1.shape), 2, device)
+            pre_ms, _ = _host_ms(pre, mv)
+            del pre
+            dof_num = {1: 3, 2: 6, 3: 7, 4: 9}[aff_method]
+
+            def full_dof(sub):
+                full = np.zeros(9, np.float64)
+                full[6:9] = 1.0
+                full[:dof_num] = sub
+                return full
+
+            def cost_dof_stream(sub):
+                return cost_streamed(pre_ms, dof_to_matrix(full_dof(sub), dof_num))
+
+            sub0 = np.zeros(dof_num, np.float64)
+            if dof_num >= 7:
+                sub0[6:dof_num] = 1.0
+            p_min, fret, _, _ = powell(sub0, cost_dof_stream, ftol, polish_cap,
+                                       counter=EvalCounter(cost_dof_stream))
+            m_full = compose_affine(np.asarray(m_full, np.float32),
+                                    dof_to_matrix(full_dof(p_min), dof_num))
+
+    records[3] = -fret
+    records[5] = n_evals
+    records[6] = time.time() - t_iter0
+    reg = (_final_transform(img2, m_full, tuple(img1.shape), 2, device)
+           if want_reg else None)
+    records[7] = time.time() - t_start
+    if verbose:
+        print(f"\t... optimized cross correlation value: {-fret:f};")
+        print(f"\t... time cost for registration: {records[7]:f} s;")
+    return reg, np.asarray(m_full, np.float32), records
 
 
 def _reg_stats(src_base, tgt):
@@ -545,10 +810,15 @@ def reg3d_affine(img1, img2, aff_method=7, flag_tmx=False, tmx=None, ftol=1e-4,
 
     engine: 'grad' (L-BFGS over K4's gradient, then a Powell finisher over
     K5), 'device' (the Powell ladder over K5), 'host' (the NR Powell of
-    ``ops/powell.py``, float64, one K5 call per evaluation); 'auto' takes
-    MIL_REG_ENGINE when set, else 'grad' on a CUDA device while
-    MIL_REG_GRAD is on (default) and 'device' otherwise. 'hybrid' is not
-    ported.
+    ``ops/powell.py``, float64, one K5 call per evaluation), 'hybrid' (that
+    Powell with each line minimization the float32 mnbrak + brent of
+    ``ops/powell_device.py`` over K5); 'auto' takes MIL_REG_ENGINE when
+    set, else 'grad' on a CUDA device while MIL_REG_GRAD is on (default)
+    and 'device' otherwise.
+
+    mem_mode (:func:`_reg_device`): 2 streams the final transform through
+    host-staged z windows and, for a pair beyond the memory budget, runs
+    :func:`_reg3d_affine_lowmem`.
 
     records layout (len 8+): [1] initial NCC, [2] intermediate NCC,
     [3] final NCC, [4] per-eval ms, [5] total evals, [6] iteration s,
@@ -565,17 +835,37 @@ def reg3d_affine(img1, img2, aff_method=7, flag_tmx=False, tmx=None, ftol=1e-4,
             f"reg3d_affine needs equal shapes, got {tuple(np.shape(img1))} vs "
             f"{tuple(np.shape(img2))}; use reg3d, which aligns the source first")
     mem_mode, dev = _reg_device(tuple(np.shape(img1)), mem_mode, device)
+    if _beyond_budget(mem_mode, tuple(np.shape(img1)), dev):
+        if aff_method != 0:
+            return _reg3d_affine_lowmem(img1, img2, aff_method, flag_tmx, tmx,
+                                        ftol, it_limit, verbose, records, dev,
+                                        engine, want_reg=want_reg)
+        # apply only: the streamed transform or the source itself, on the
+        # host
+        if flag_tmx and tmx is not None:
+            out_tmx = np.asarray(tmx, np.float32).copy()
+            reg = (_final_transform(img2, out_tmx, tuple(np.shape(img1)), 2, dev)
+                   if want_reg else None)
+        else:
+            out_tmx = identity_tmx()
+            reg = _host_np(img2) if want_reg else None
+        records[7] = time.time() - t_start
+        if verbose:
+            print("\t... no registration performed!")
+        return reg, out_tmx, records
     img1 = _as_tensor(img1, dev)
     img2 = _as_tensor(img2, dev)
 
     def _finish_reg(aff_coef):
         """The final full-volume transform of the source: None for
         ``want_reg=False`` (pyramid levels need only the matrix), left on
-        the device for ``want_reg='device'``."""
+        the device for ``want_reg='device'``; host numpy in mode 2."""
         if not want_reg:
             return None
-        reg = _final_transform(img2, aff_coef, img1.shape, mem_mode)
-        return reg if want_reg == "device" else reg.cpu().numpy()
+        reg = _final_transform(img2, aff_coef, img1.shape, mem_mode, dev)
+        if isinstance(reg, np.ndarray) or want_reg == "device":
+            return reg
+        return reg.cpu().numpy()
 
     if aff_method == 0:
         if flag_tmx and tmx is not None:
@@ -642,10 +932,6 @@ def reg3d_affine(img1, img2, aff_method=7, flag_tmx=False, tmx=None, ftol=1e-4,
     if engine == "auto":
         on_card = committed_platform(src_ms) == "cuda"
         engine = "grad" if on_card and env_on("MIL_REG_GRAD", True) else "device"
-    if engine == "hybrid":
-        raise _not_ported("the 'hybrid' registration engine",
-                          "queue 4 (memory tiers)")
-
     ladder = None
     if engine in ("grad", "device") and aff_method in (1, 2, 3, 4, 5, 6, 7):
         if engine == "grad":
@@ -671,9 +957,38 @@ def reg3d_affine(img1, img2, aff_method=7, flag_tmx=False, tmx=None, ftol=1e-4,
         _report_ladder(aff_method, np.asarray(stage), records, verbose)
         counter.count = int(nev)
     else:
-        aff_coef, fret = _host_ladder(aff_method, ftol, it_limit, counter,
-                                      cost12, cost_dof, p_init, records,
-                                      verbose)
+        if engine == "hybrid":
+            def stage(p0, mode, this_ftol):
+                def func(p):
+                    return float(cost_eval_reg_device(src_ms, tgt_ms, sd_t, p,
+                                                      mode, ncc_impl=ncc_impl))
+
+                def linmin_fn(p, xi):
+                    return linmin_reg_device(src_ms, tgt_ms, sd_t, p, xi, mode,
+                                             ncc_impl=ncc_impl)
+
+                counter.func = func
+                p_min, f_min, _, _ = powell(p0, func, this_ftol, it_limit,
+                                            counter=counter, linmin_fn=linmin_fn)
+                return p_min, f_min
+        else:
+            def stage(p0, mode, this_ftol):
+                if mode == "p12":
+                    fn = cost12
+                else:
+                    dof_num = int(mode[3:])
+
+                    def fn(sub):
+                        full = np.zeros(9, np.float64)
+                        full[6:9] = 1.0
+                        full[:dof_num] = sub
+                        return cost_dof(full, dof_num)
+                counter.func = fn
+                p_min, f_min, _, _ = powell(p0, fn, this_ftol, it_limit,
+                                            counter=counter)
+                return p_min, f_min
+        aff_coef, fret = _powell_ladder(aff_method, ftol, p_init, records,
+                                        verbose, stage)
 
     if flag_tmx and tmx is not None and aff_method != 5:
         aff_coef = compose_affine(np.asarray(tmx, np.float32), aff_coef)
@@ -691,31 +1006,19 @@ def reg3d_affine(img1, img2, aff_method=7, flag_tmx=False, tmx=None, ftol=1e-4,
     return reg, np.asarray(aff_coef, np.float32), records
 
 
-def _host_ladder(aff_method, ftol, it_limit, counter, cost12, cost_dof,
-                 p_init, records, verbose):
-    """The 'host' engine: the NR Powell of ops/powell.py over the ladder.
-    Returns (aff_coef, fret)."""
-    def run_powell(p0, fn, this_ftol):
-        counter.func = fn
-        p_min, f_min, _, _ = powell(p0, fn, this_ftol, it_limit, counter=counter)
-        return p_min, f_min
-
+def _powell_ladder(aff_method, ftol, p_init, records, verbose, stage):
+    """The affMethod ladder over host Powell stages (the 'host' and
+    'hybrid' engines): ``stage(p0, mode, ftol) -> (p_min, f_min)`` runs
+    Powell on the mode's cost, 'dofN' (the first N entries of a 9-DOF
+    vector, as the reference passes dofNum as Powell's dimensionality,
+    reference:src/api_subfunc.cu:2893-2916) or 'p12'. Returns (aff_coef,
+    fret)."""
     dof9 = np.zeros(9, dtype=np.float64)
     dof9[6:9] = 1.0
 
     def run_dof_stage(dof_num, this_ftol):
-        """Optimize only the first ``dof_num`` DOF components, as the
-        reference passes dofNum as Powell's dimensionality
-        (reference:src/api_subfunc.cu:2893-2916)."""
-        sub0 = dof9[:dof_num].copy()
-
-        def fn(sub):
-            full = dof9.copy()
-            full[:dof_num] = sub
-            return cost_dof(full, dof_num)
-
-        sub_min, f_min = run_powell(sub0, fn, this_ftol)
-        dof9[:dof_num] = sub_min
+        sub, f_min = stage(dof9[:dof_num].copy(), f"dof{dof_num}", this_ftol)
+        dof9[:dof_num] = sub
         return f_min
 
     if aff_method in (1, 2, 3, 4):
@@ -723,7 +1026,7 @@ def _host_ladder(aff_method, ftol, it_limit, counter, cost12, cost_dof,
         fret = run_dof_stage(dof_num, ftol)
         return dof_to_matrix(dof9, dof_num), fret
     if aff_method == 5:
-        p, fret = run_powell(p_init.astype(np.float64), cost12, ftol)
+        p, fret = stage(p_init.astype(np.float64), "p12", ftol)
         return params_to_matrix(p), fret
     if aff_method == 6:
         fret = run_dof_stage(6, 0.01)
@@ -731,7 +1034,7 @@ def _host_ladder(aff_method, ftol, it_limit, counter, cost12, cost_dof,
         if verbose:
             print(f"\t... cross correlation value after 6 DOF: {-fret:f};")
         p = matrix_to_params(dof_to_matrix(dof9, 6)).astype(np.float64)
-        p, fret = run_powell(p, cost12, ftol)
+        p, fret = stage(p, "p12", ftol)
         return params_to_matrix(p), fret
     if aff_method == 7:
         fret = None
@@ -742,7 +1045,7 @@ def _host_ladder(aff_method, ftol, it_limit, counter, cost12, cost_dof,
                       f"{-fret:f};")
         records[2] = -fret
         p = matrix_to_params(dof_to_matrix(dof9, 9)).astype(np.float64)
-        p, fret = run_powell(p, cost12, ftol)
+        p, fret = stage(p, "p12", ftol)
         return params_to_matrix(p), fret
     raise ValueError("Wrong affine registration method")
 
@@ -859,6 +1162,11 @@ def reg3d_affine_pyramid(img1, img2, aff_method=7, flag_tmx=False, tmx=None,
     ``on_level(label, shape, seconds)``, when given, is called after each
     level (for profiling)."""
     mem_mode, dev = _reg_device(tuple(np.shape(img1)), mem_mode, device)
+    if _beyond_budget(mem_mode, tuple(np.shape(img1)), dev):
+        # the beyond-budget tier pools its own coarse level
+        return reg3d_affine(img1, img2, aff_method, flag_tmx, tmx, ftol,
+                            it_limit, verbose, records, dev, engine, 2,
+                            want_reg=want_reg)
     img1 = _as_tensor(img1, dev)
     img2 = _as_tensor(img2, dev)
     if records is None:
@@ -953,15 +1261,25 @@ def reg3d(img1, img2, reg_choice=2, aff_method=7, flag_tmx=False, tmx=None,
     mem_mode_requested = mem_mode
     mem_mode, dev = _reg_device(tuple(np.shape(img1)), mem_mode, device)
     records[8] = free_memory_mb(dev)
-    img1 = _as_tensor(img1, dev)
-    img2 = _as_tensor(img2, dev)
-    if img1.shape != img2.shape:
-        img2 = align_size_3d(img2, tuple(img1.shape))
+    beyond = _beyond_budget(mem_mode, tuple(np.shape(img1)), dev)
+    if beyond:
+        # the volumes stay in host memory end to end; the low-memory tier
+        # pools its own coarse level, so the pyramid is skipped
+        img1 = _host_np(img1)
+        img2 = _host_np(img2)
+        if img1.shape != img2.shape:
+            img2 = np_align_size_3d(img2, img1.shape)
+        pyramid = False
+    else:
+        img1 = _as_tensor(img1, dev)
+        img2 = _as_tensor(img2, dev)
+        if img1.shape != img2.shape:
+            img2 = align_size_3d(img2, tuple(img1.shape))
     records[0] = 1
     records[9] = free_memory_mb(dev)
 
     if pyramid == "auto":
-        pyramid = img1.numel() > 96 ** 3 and engine != "host"
+        pyramid = int(np.prod(img1.shape)) > 96 ** 3 and engine != "host"
     want = False if want_reg is False else ("device" if as_device else True)
 
     def run_affine(method, flag, mx):
@@ -977,11 +1295,18 @@ def reg3d(img1, img2, reg_choice=2, aff_method=7, flag_tmx=False, tmx=None,
                             want_reg=want, grad_finish=grad_finish)
 
     def run_phasor():
-        # the phasor holds ~6 volumes; where auto mode would not fit them,
-        # the JAX package takes its host-staged phasor, which is not ported
-        if (mem_mode_requested == -1 and dev.type == "cuda"
-                and 6 * img1.numel() * 4 > torch.cuda.mem_get_info(dev)[0] * 0.92):
-            return reg3d_phasor_lowmem(img1, img2)
+        # the host-staged phasor (the reference's reg3d_phasor2,
+        # reference:src/api_subfunc.cu:2591-2726): mode 2, or auto when the
+        # phasor's ~6 volumes exceed the budget
+        budget = hbm_budget_bytes(dev)
+        use_lowmem = mem_mode == 2 or (
+            mem_mode_requested == -1 and budget is not None
+            and 6 * int(np.prod(img1.shape)) * 4 > budget * 0.92)
+        if use_lowmem:
+            if verbose:
+                print("\t... phasor in host-staged memory-saving mode")
+            return reg3d_phasor_lowmem(img1, img2, budget_bytes=budget,
+                                       device=dev)
         return reg3d_phasor(img1, img2)
 
     def shift_tmx(shifts):
@@ -990,14 +1315,23 @@ def reg3d(img1, img2, reg_choice=2, aff_method=7, flag_tmx=False, tmx=None,
         return t
 
     if reg_choice == 0:
-        reg, out_tmx, records = reg3d_affine(
-            img1, img2, 0, flag_tmx, tmx, ftol, it_limit, verbose, records,
-            dev, engine, mem_mode, want_reg=want)
+        if mem_mode == 2 and flag_tmx and tmx is not None:
+            out_tmx = np.asarray(tmx, np.float32).copy()
+            reg = (_final_transform(img2, out_tmx, tuple(img1.shape), 2, dev)
+                   if want else None)
+        else:
+            reg, out_tmx, records = reg3d_affine(
+                img1, img2, 0, flag_tmx, tmx, ftol, it_limit, verbose, records,
+                dev, engine, mem_mode, want_reg=want)
     elif reg_choice == 1:
         shifts = run_phasor()
         out_tmx = shift_tmx(shifts)
-        reg = (imshift(img2, -shifts[0], -shifts[1], -shifts[2])
-               if want else None)
+        if not want:
+            reg = None
+        elif mem_mode == 2:
+            reg = _final_transform(img2, out_tmx, tuple(img1.shape), 2, dev)
+        else:
+            reg = imshift(img2, -shifts[0], -shifts[1], -shifts[2])
     elif reg_choice == 2:
         reg, out_tmx, records = run_affine(aff_method, flag_tmx, tmx)
     elif reg_choice == 3:
@@ -1006,17 +1340,19 @@ def reg3d(img1, img2, reg_choice=2, aff_method=7, flag_tmx=False, tmx=None,
     else:
         if verbose:
             print("\t... 2D MIP registration ... ")
+        vol1, vol2 = (torch.as_tensor(v) for v in (img1, img2))
         # XY MIPs -> 2D shift align (both axes)
-        _, tmx1 = reg2d_shiftalign(max_projection(img1, 1),
-                                   max_projection(img2, 1), None, 0.3, 30,
+        _, tmx1 = reg2d_shiftalign(max_projection(vol1, 1),
+                                   max_projection(vol2, 1), None, 0.3, 30,
                                    x_only=False, device=dev)
         # ZX MIPs -> X-only align (x of the MIP = volume z); carries the
         # found x-shift into the unsearched second component like the
         # reference (tmx2[5] = tmx1[2], reference:src/api_reg.cpp:494)
         t2_init = np.array([1, 0, 0, 0, 1, tmx1[2]], np.float32)
-        _, tmx2 = reg2d_shiftalign(max_projection(img1, 2),
-                                   max_projection(img2, 2), t2_init, 0.3, 30,
+        _, tmx2 = reg2d_shiftalign(max_projection(vol1, 2),
+                                   max_projection(vol2, 2), t2_init, 0.3, 30,
                                    x_only=True, device=dev)
+        del vol1, vol2
         t = shift_tmx((tmx1[2], tmx1[5], tmx2[2]))
         if verbose:
             print(f"\t... shift translation, X: {t[3]:.1f}; Y: {t[7]:.1f}; "

@@ -5,6 +5,11 @@ device cost, one fused resample + NCC call (K5) per evaluation — or, with
 ``batch_ls`` (``MIL_REG_BATCH_LS=1``), 8 probes per line-search call in one
 launch of K6 and one sync.
 
+The ``hybrid`` engine keeps Powell's outer loop on the host
+(``ops/powell.py``) and hands each whole line minimization to
+:func:`linmin_reg_device`, the float32 mnbrak + brent of
+``ops/powell_device.py`` over the same device cost.
+
 The matrix builders are torch twins of ``ops/matrix.py`` on CPU float32
 tensors: the Powell ladder evaluates them without a gradient, and the
 gradient ladder (``registration_grad.py``) differentiates through them
@@ -19,7 +24,7 @@ import numpy as np
 import torch
 
 from microimagelib_tpu_torch.ops.corr import corr3d_auto, corr3d_partials_nprobe
-from microimagelib_tpu_torch.ops.powell_device import powell_device
+from microimagelib_tpu_torch.ops.powell_device import _linmin, powell_device
 
 _F32 = torch.float32
 
@@ -248,3 +253,32 @@ def reg_ladder_device(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
     else:
         raise ValueError("Wrong affine registration method")
     return aff, fret, stage_costs, nev
+
+
+# ---------------------------------------------------------------------------
+# hybrid engine: the host Powell with the float32 line minimization
+# ---------------------------------------------------------------------------
+
+def _cost_for_mode(src_ms, tgt_ms, sd_t, mode, ncc_impl=None):
+    """The cost of a 'p12' parameter vector or of the first N entries of a
+    9-DOF vector ('dof3', 'dof6', 'dof7', 'dof9')."""
+    cost_m = _make_cost(src_ms, tgt_ms, sd_t, ncc_impl)
+    if mode == "p12":
+        return _p12_cost(cost_m)
+    return _dof_cost(cost_m, int(mode[3:]))
+
+
+def linmin_reg_device(src_ms, tgt_ms, sd_t, p, xi, mode, ncc_impl=None):
+    """One whole line minimization of the registration cost along ``xi``
+    from ``p``, in float32 with one K5 call per evaluation (the JAX
+    package's one-program ``linmin_reg_device``). Returns (p_new,
+    xi_scaled, f_min, n_evals)."""
+    cost = _cost_for_mode(src_ms, tgt_ms, sd_t, mode, ncc_impl)
+    return _linmin(cost, np.asarray(p, np.float32), np.asarray(xi, np.float32))
+
+
+def cost_eval_reg_device(src_ms, tgt_ms, sd_t, p, mode, ncc_impl=None):
+    """One cost evaluation (Powell's start point and extrapolation probe)
+    as a float32 scalar."""
+    return _cost_for_mode(src_ms, tgt_ms, sd_t, mode, ncc_impl)(
+        np.asarray(p, np.float32))

@@ -30,9 +30,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from microimagelib_tpu_torch.utils.device import resolve_device
+
 __all__ = ["affine_transform_3d", "corr3d_partials", "corr3d_grad_torch",
            "corr3d_partials_batch", "affine_transform_2d", "corr2d_partials",
-           "corr2d_partials_batch"]
+           "corr2d_partials_batch", "affine_transform_3d_window",
+           "corr3d_partials_window", "affine_transform_3d_streamed",
+           "corr3d_partials_streamed", "zslab_footprint_hops"]
 
 # output voxels per chunk: ~30 temporaries of 4-8 bytes each, so a chunk
 # holds well under 1 GB of scratch
@@ -72,10 +76,14 @@ def _coords(m, z0, z1, oy, ox, device, row_first=False):
                  + m[4 * a + 3] for a in range(3))
 
 
-def _trilerp(flat, shape, cx, cy, cz, strict_lo):
-    """Trilinear sample of the flattened (sz, sy, sx) volume ``flat`` at
-    (cx, cy, cz), zero outside the validity box: the JAX package's
-    ``_trilerp_window`` over the whole volume, in the same fp32 order."""
+def _trilerp(flat, shape, cx, cy, cz, strict_lo, win_start=0, wz=None):
+    """Trilinear sample of the (sz, sy, sx) volume ``shape`` at (cx, cy,
+    cz), zero outside the validity box: the JAX package's
+    ``_trilerp_window`` in the same fp32 order. ``flat`` holds the whole
+    volume flattened, or with ``wz`` only its z rows [win_start, win_start
+    + wz): the validity box and the clamps stay those of the whole volume,
+    so a window that covers every valid sample's footprint gives the same
+    bits (a sample outside the window is always one the mask zeroes)."""
     sz, sy, sx = shape
     if strict_lo:
         valid = (cx > -0.5) & (cy > -0.5) & (cz > -0.5)
@@ -101,6 +109,9 @@ def _trilerp(flat, shape, cx, cy, cz, strict_lo):
     x0i, x1i = corners(x0, sx)
     y0i, y1i = corners(y0, sy)
     z0i, z1i = corners(z0, sz)
+    if wz is not None:
+        z0i = (z0i - win_start).clamp_(0, wz - 1)
+        z1i = (z1i - win_start).clamp_(0, wz - 1)
     syx = sy * sx
     b00 = z0i * syx + y0i * sx
     b01 = z0i * syx + y1i * sx
@@ -203,6 +214,187 @@ def corr3d_partials_batch(src, tgt, tmx_batch):
     ss, st = zip(*(corr3d_partials(src, tgt, m)
                    for m in np.asarray(tmx_batch, np.float32).reshape(-1, 12)))
     return torch.stack(ss), torch.stack(st)
+
+
+# --------------------------------------------------------------------------
+# z windows and the streamed (beyond-HBM) drivers
+# --------------------------------------------------------------------------
+
+def affine_transform_3d_window(src_win, tmx, block_shape, z0_out, win_start,
+                               sz_global):
+    """Output rows [z0_out, z0_out + bz) of :func:`affine_transform_3d`
+    (``block_shape`` = (bz, oy, ox)) sampled from the source's z rows
+    [win_start, win_start + wz) held in ``src_win`` (wz, sy, sx), of a
+    source of ``sz_global`` rows. Coordinates and masks are those of the
+    whole transform, so blocks put together give its bits exactly, where
+    each window covers its rows' footprint (:func:`_zspan_for_rows`)."""
+    m = _matrix_floats(tmx)
+    bz, oy, ox = (int(s) for s in block_shape)
+    wz, sy, sx = src_win.shape
+    flat = src_win.contiguous().reshape(-1)
+    out = torch.empty((bz, oy, ox), dtype=torch.float32, device=src_win.device)
+    for c0, c1 in _z_chunks(bz, oy, ox):
+        cx, cy, cz = _coords(m, z0_out + c0, z0_out + c1, oy, ox, src_win.device)
+        out[c0:c1] = _trilerp(flat, (int(sz_global), sy, sx), cx, cy, cz,
+                              False, int(win_start), wz)
+    return out
+
+
+def corr3d_partials_window(src_win, target_block, tmx, z0_out, win_start,
+                           sz_global):
+    """(sum s^2, sum s*t) as float64 0-d tensors over the target's z rows
+    [z0_out, z0_out + bz) (``target_block``, (bz, sy, sx)), the source's
+    rows [win_start, win_start + wz) held in ``src_win``: the terms of
+    :func:`corr3d_partials` for those rows, in the same fp32 order, so
+    the partials of blocks that cover the target add up to its sums."""
+    m = _matrix_floats(tmx)
+    bz, sy, sx = target_block.shape
+    wz = src_win.shape[0]
+    flat = src_win.contiguous().reshape(-1)
+    f64 = dict(dtype=torch.float64, device=src_win.device)
+    ss, st = torch.zeros((), **f64), torch.zeros((), **f64)
+    for c0, c1 in _z_chunks(bz, sy, sx):
+        cx, cy, cz = _coords(m, z0_out + c0, z0_out + c1, sy, sx,
+                             src_win.device, row_first=True)
+        s = _trilerp(flat, (int(sz_global), sy, sx), cx, cy, cz, True,
+                     int(win_start), wz)
+        ss += torch.sum(s * s, dtype=torch.float64)
+        st += torch.sum(s * target_block[c0:c1], dtype=torch.float64)
+    return ss, st
+
+
+def _zspan_for_rows(m, zlo, zhi, oy_n, ox_n, sz):
+    """Source z window [lo, hi) that output rows [zlo, zhi] can sample:
+    the affine z coordinate at the 8 corners (an affine map takes its
+    extrema at corners), floored, plus the second texel."""
+    czs = [m[2, 0] * x + m[2, 1] * y + m[2, 2] * z + m[2, 3]
+           for x in (0.0, ox_n - 1.0) for y in (0.0, oy_n - 1.0)
+           for z in (float(zlo), float(zhi))]
+    lo = int(np.clip(np.floor(min(czs)), 0, sz - 1))
+    hi = int(np.clip(np.floor(max(czs)) + 2, 1, sz))
+    return lo, hi
+
+
+# Peak device bytes of one streamed block over the bytes of its source
+# window and its output (or target) block, the raw bytes the JAX package's
+# block plan budgets. The gather's int64 corners, indices, fractions and
+# samples make it ~20x, where the JAX plan assumed 1x (its beyond-HBM
+# registration ran out of memory). chip_smoke.py Phase 18 measures it with
+# torch.cuda.max_memory_allocated for the transform and the NCC sums
+# (tests/test_torch_kernels.py holds one block under it): PERF.md section 5.
+STREAM_PEAK_FACTOR = 24.0
+# the share of the budget one block may take at that peak
+STREAM_BUDGET_SHARE = 0.5
+
+
+def _block_bytes(n, lo, hi, plane_src, plane_out):
+    """Raw bytes of one block: its source window and its output rows."""
+    return 4 * ((hi - lo) * plane_src + n * plane_out)
+
+
+def _stream_blocks(tmx, sz, oz, oy_n, ox_n, sy, sx, budget_bytes,
+                   n_blocks=None):
+    """Block plan of the streamed drivers: [(z0, n, lo, hi)], output rows
+    [z0, z0 + n) from source rows [lo, hi). Without ``n_blocks`` the
+    count doubles from 1 until every block's peak (STREAM_PEAK_FACTOR x
+    its raw bytes) fits STREAM_BUDGET_SHARE of ``budget_bytes`` (one
+    block without a budget); blocks are ceil-sized, the tail shorter."""
+    m = np.asarray(tmx, np.float64).reshape(3, 4)
+
+    def plan(nb):
+        bz = -(-oz // nb)
+        return [(z0, min(bz, oz - z0),
+                 *_zspan_for_rows(m, z0, min(oz, z0 + bz) - 1, oy_n, ox_n, sz))
+                for z0 in range(0, oz, bz)]
+
+    def peak(blocks):
+        return max(STREAM_PEAK_FACTOR * _block_bytes(n, lo, hi, sy * sx,
+                                                     oy_n * ox_n)
+                   for _z0, n, lo, hi in blocks)
+
+    if n_blocks is None:
+        n_blocks = 1
+        if budget_bytes:
+            while (n_blocks < oz
+                   and peak(plan(n_blocks)) > budget_bytes * STREAM_BUDGET_SHARE):
+                n_blocks *= 2
+    return plan(max(1, min(int(n_blocks), oz)))
+
+
+def _host_tensor(a):
+    """A CPU tensor view of a numpy array or tensor (pinned stays pinned)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    a = np.asarray(a, np.float32)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def affine_transform_3d_streamed(src_host, tmx, out_shape, budget_bytes=None,
+                                 n_blocks=None, *, device=None):
+    """Beyond-HBM affine transform: the source stays in host memory (numpy
+    or a CPU tensor, best pinned); each output z block goes to ``device``
+    (default cuda:0; ``device="cpu"`` for the CPU) with only the source
+    rows it can sample. Returns host float32 numpy, bit-equal to
+    :func:`affine_transform_3d`."""
+    dev = resolve_device(None, device)
+    src = _host_tensor(src_host)
+    sz, sy, sx = src.shape
+    oz, oy_n, ox_n = (int(s) for s in out_shape)
+    out = torch.empty((oz, oy_n, ox_n), dtype=torch.float32,
+                      pin_memory=dev.type == "cuda")
+    for z0, n, lo, hi in _stream_blocks(tmx, sz, oz, oy_n, ox_n, sy, sx,
+                                        budget_bytes, n_blocks):
+        win = src[lo:hi].to(dev, non_blocking=True)
+        out[z0:z0 + n].copy_(affine_transform_3d_window(
+            win, tmx, (n, oy_n, ox_n), z0, lo, sz), non_blocking=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out.numpy()
+
+
+def corr3d_partials_streamed(src_host, tgt_host, tmx, budget_bytes=None,
+                             n_blocks=None, *, device=None):
+    """NCC partials (sum s^2, sum s*t) as Python floats with both volumes
+    in host memory (numpy or CPU tensors, best pinned, mean-subtracted like
+    :func:`corr3d_partials`' inputs): each target z block goes to
+    ``device`` (default cuda:0) with only the source rows its samples can
+    reach, and the blocks' float64 partials add up on the device — the
+    beyond-HBM registration cost."""
+    dev = resolve_device(None, device)
+    src = _host_tensor(src_host)
+    tgt = _host_tensor(tgt_host)
+    sz, sy, sx = src.shape
+    oz = tgt.shape[0]
+    f64 = dict(dtype=torch.float64, device=dev)
+    ss, st = torch.zeros((), **f64), torch.zeros((), **f64)
+    for z0, n, lo, hi in _stream_blocks(tmx, sz, oz, sy, sx, sy, sx,
+                                        budget_bytes, n_blocks):
+        a, b = corr3d_partials_window(
+            src[lo:hi].to(dev, non_blocking=True),
+            tgt[z0:z0 + n].to(dev, non_blocking=True), tmx, z0, lo, sz)
+        ss += a
+        st += b
+    return float(ss), float(st)
+
+
+def zslab_footprint_hops(tmx, shape_zyx, n_shards):
+    """Host-side bound for a z-sharded registration's halo: the number of
+    neighbour z shards each shard must receive so its source window covers
+    the footprint of every valid sample of its own target rows
+    (:func:`_zspan_for_rows` over each shard's rows); n_shards - 1 (a full
+    gather) at most."""
+    m = np.asarray(tmx, np.float64).reshape(3, 4)
+    sz, sy, sx = shape_zyx
+    dz = sz // n_shards
+    hops = 0
+    for i in range(n_shards):
+        zlo, zhi = i * dz, (i + 1) * dz - 1
+        lo, hi_ex = _zspan_for_rows(m, zlo, zhi, sy, sx, sz)
+        hi = hi_ex - 1
+        need_lo_hops = -(-(i * dz - lo) // dz) if lo < i * dz else 0
+        need_hi_hops = -(-(hi - ((i + 1) * dz - 1)) // dz) if hi >= (i + 1) * dz else 0
+        hops = max(hops, need_lo_hops, need_hi_hops)
+    return min(hops, n_shards - 1)
 
 
 # --------------------------------------------------------------------------

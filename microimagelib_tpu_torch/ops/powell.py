@@ -1,5 +1,6 @@
 """Powell direction-set minimizer (host-side NumPy): a copy of the JAX
-package's ``ops/powell.py`` for the registration ladder's ``host`` engine.
+package's ``ops/powell.py`` for the registration ladder's ``host`` and
+``hybrid`` engines.
 
 A fresh implementation of the classic Numerical Recipes direction-set
 method with the reference's two custom escape hatches preserved
@@ -161,7 +162,7 @@ class EvalCounter:
         return float(self.func(x))
 
 
-def powell(p, func, ftol, it_limit, counter=None, xi=None):
+def powell(p, func, ftol, it_limit, counter=None, xi=None, linmin_fn=None):
     """Minimize ``func`` from start point ``p`` (1D array).
 
     Returns (p_min, f_min, n_powell_iters, counter). ``counter`` is an
@@ -169,12 +170,25 @@ def powell(p, func, ftol, it_limit, counter=None, xi=None):
     sub-iterations like the reference's ``*totalIt`` (reference:
     src/api_powell.c:331, 355). ``xi`` optionally carries direction set
     state between calls (the reference re-initializes per stage; we do
-    too unless given)."""
+    too unless given).
+
+    ``linmin_fn(p, xi) -> (p_new, xi_scaled, f_min, n_evals)`` optionally
+    replaces the host line minimization: the ``hybrid`` registration
+    engine passes the float32 mnbrak + brent of ``ops/powell_device.py``
+    over the device cost, and its evaluations count toward ``it_limit``."""
     p = np.asarray(p, dtype=np.float64).copy()
     n = p.size
     if counter is None:
         counter = EvalCounter(func)
     f = counter
+
+    def do_linmin(p_cur, xit_cur):
+        if linmin_fn is None:
+            return _linmin(p_cur, xit_cur, f)
+        p_new, xi_new, f_new, nev = linmin_fn(p_cur, xit_cur)
+        counter.count += int(nev)
+        return (np.asarray(p_new, np.float64), np.asarray(xi_new, np.float64),
+                float(f_new))
 
     if xi is None:
         xi = np.eye(n, dtype=np.float64)
@@ -189,7 +203,7 @@ def powell(p, func, ftol, it_limit, counter=None, xi=None):
         for i in range(n):
             xit = xi[:, i].copy()
             fptt = fret
-            p, xit, fret = _linmin(p, xit, f)
+            p, xit, fret = do_linmin(p, xit)
             xi[:, i] = xit
             if abs(fptt - fret) > delta:
                 delta = abs(fptt - fret)
@@ -212,7 +226,7 @@ def powell(p, func, ftol, it_limit, counter=None, xi=None):
                 - delta * (fp - fptt) ** 2
             )
             if t < 0.0:
-                p, xit, fret = _linmin(p, xit, f)
+                p, xit, fret = do_linmin(p, xit)
                 xi[:, ibig] = xi[:, n - 1]
                 xi[:, n - 1] = xit
                 if f.count >= it_limit:

@@ -158,11 +158,11 @@ def test_mem_modes_without_cuda(rng, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     img = _img(rng, (8, 8, 16))
     psf = gauss3((3, 3, 3), (1.0, 1.0, 1.0))
-    for mode in (1, -1):
+    # every mode but 0 defaults to the card and raises without one; none
+    # falls back to the CPU (mode 2 streams through the card)
+    for mode in (1, -1, 2):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             PD.decon_singleview(img, psf, n_iters=1, mem_mode=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PD.decon_singleview(img, psf, n_iters=1, mem_mode=2)
     with pytest.raises(ValueError):
         PD.decon_singleview(img, psf, n_iters=1, mem_mode=3)
 
@@ -288,11 +288,17 @@ def test_decon_dualview_size_mismatch_and_modes(rng, monkeypatch):
         PD.decon_dualview(_img(rng, (8, 8, 16)), _img(rng, (8, 8, 17)), psf,
                           psf, 1, mem_mode=0)
     a = _img(rng, (8, 8, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PD.decon_dualview(a, a, psf, psf, 1, mem_mode=2)
+    # mode 2 (the streamed RL) runs where it is asked to, here the CPU,
+    # and agrees with mode 0 (tests/test_decon_streamed.py's 2e-3)
+    rec = np.zeros(10)
+    streamed = PD.decon_dualview(a, a, psf, psf, 2, mem_mode=2, device="cpu",
+                                 records=rec)
+    assert rec[0] == 2
+    _close(streamed, PD.decon_dualview(a, a, psf, psf, 2, mem_mode=0), 2e-3)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        PD.decon_dualview(a, a, psf, psf, 1, mem_mode=-1)
+    for mode in (-1, 2):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PD.decon_dualview(a, a, psf, psf, 1, mem_mode=mode)
 
 
 def test_workingset_tiers():

@@ -213,7 +213,9 @@ def test_fusion_truth_on_dispim_views_matches_jax(monkeypatch):
 
 def test_fusion_checkmatrix_retry_and_mode_2(rng, monkeypatch):
     """A result the plausibility gate rejects is registered again with
-    plain choice 2; memory mode 2 raises as the other entries do."""
+    plain choice 2; memory mode 2 runs where it is asked to (the
+    registration's and the decon's memory-saving tiers) and, as the other
+    entries do, raises without the card it defaults to."""
     vol = blobs((16, 16, 16), n=6, seed=3)
     psf = gaussian_psf((5, 5, 5), 1.0)
     calls = []
@@ -229,7 +231,14 @@ def test_fusion_checkmatrix_retry_and_mode_2(rng, monkeypatch):
                        im_rotation=0, aff_method=1, it_limit=100, n_iters=1,
                        mem_mode=0)
     assert calls == [2, 2]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    rec = np.zeros(22)
+    _, _, reg_b, _ = PF.fusion_dualview(vol, vol, psf, psf, (1.0, 1.0, 1.0),
+                                        (1.0, 1.0, 1.0), im_rotation=0,
+                                        aff_method=1, it_limit=100, n_iters=1,
+                                        device="cpu", mem_mode=2, records=rec)
+    assert rec[11] == 2 and isinstance(reg_b, np.ndarray)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         PF.fusion_dualview(vol, vol, psf, psf, mem_mode=2)
 
 

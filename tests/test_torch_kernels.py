@@ -686,3 +686,58 @@ def test_pipe_copy_kernel_on_misaligned_volumes_equals_plain(cuda, geometry):
     out = K7.pipe_copy(v, aux, shift, geometry)
     ref = K7.pipe_copy_torch(v, aux, shift)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# the beyond-HBM tiers' device memory (no kernel of their own: the streamed
+# RL runs torch.fft, the streamed transform and NCC plain torch)
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_streamed_rl_peak_memory_stays_under_the_budget(cuda, monkeypatch):
+    from microimagelib_tpu_torch.models import deconvolution as D
+
+    rng = np.random.default_rng(18)
+    img = (rng.random((200, 256, 256), dtype=np.float32) * 100 + 1)
+    budget_mb = 64   # below the (256, 256, 256) grid's 6-volume working set
+    monkeypatch.setenv("MIL_HBM_BUDGET_MB", str(budget_mb))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    rec = np.zeros(10)
+    out = D.decon_singleview(img, _gauss((9, 9, 9), (1.5, 1.5, 1.5)), 2, device=cuda,
+                             mem_mode=-1, records=rec)
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    assert rec[0] == 2 and np.isfinite(out).all()
+    assert peak <= budget_mb * 1048576, peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["transform", "ncc"])
+@pytest.mark.parametrize("planes", [1, 4, 24])
+def test_streamed_block_peak_factor_under_the_constant(cuda, kind, planes):
+    from microimagelib_tpu_torch.ops import affine as AF
+
+    sz, sy, sx = 96, 512, 512
+    rng = np.random.default_rng(planes)
+    src = rng.random((sz, sy, sx), dtype=np.float32)
+    tgt = rng.random((sz, sy, sx), dtype=np.float32)
+    tmx = dof_to_matrix([1.5, -2.0, 3.0, 4.0, -3.0, 2.0, 1.02, 0.98, 1.0], 9)
+    z0 = 40
+    lo, hi = AF._zspan_for_rows(np.asarray(tmx, np.float64).reshape(3, 4), z0,
+                                z0 + planes - 1, sy, sx, sz)
+    raw = AF._block_bytes(planes, lo, hi, sy * sx, sy * sx)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    win = torch.from_numpy(src[lo:hi]).to(cuda)
+    if kind == "transform":
+        out = AF.affine_transform_3d_window(win, tmx, (planes, sy, sx), z0, lo, sz)
+    else:
+        out = AF.corr3d_partials_window(win, torch.from_numpy(tgt[z0:z0 + planes]).to(cuda),
+                                        tmx, z0, lo, sz)
+    torch.cuda.synchronize()
+    factor = (torch.cuda.max_memory_allocated(cuda) - base) / raw
+    assert out is not None and factor <= AF.STREAM_PEAK_FACTOR, factor

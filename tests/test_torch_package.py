@@ -1,6 +1,7 @@
 """Package hygiene of the PyTorch/CUDA port: it never imports JAX or the
 JAX package, and its kernel build targets Hopper from csrc/ sources only
-and happens at first use, never at import."""
+and happens at first use, never at import; so does the native TIFF
+codec's host build, from its own copy of the source."""
 
 import os
 import re
@@ -44,7 +45,9 @@ def test_every_module_imports_without_jax():
             "microimagelib_tpu_torch.models.projections",
             "microimagelib_tpu_torch.models.batch",
             "microimagelib_tpu_torch.cli.spim_fusion_batch",
-            "microimagelib_tpu_torch.tools.e2e_surrogate"} <= set(mods)
+            "microimagelib_tpu_torch.tools.e2e_surrogate",
+            "microimagelib_tpu_torch.models.decon_streamed",
+            "microimagelib_tpu_torch.native.build"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -111,3 +114,17 @@ def test_importing_kernels_builds_nothing():
     state = proc.stdout.split("STATE")[1].split()
     assert state[:11] == ["True", "True", "0", "True", "0", "True", "0", "0", "0",
                           "True", "0"]
+
+
+def test_native_codec_builds_at_first_use_from_its_own_source():
+    from microimagelib_tpu_torch.native import build as nb
+
+    assert nb.SOURCE == PKG / "native" / "miltiff.cpp" and nb.SOURCE.is_file()
+    assert nb.BUILD_ROOT == ROOT / "build" / "microimagelib_tpu_torch" / "native"
+    assert not list(PKG.rglob("*.so"))      # nothing prebuilt in the package
+    proc = _run(
+        "import microimagelib_tpu_torch.io.tiff as t\n"
+        "import microimagelib_tpu_torch.native.build as nb\n"
+        "print('STATE', nb._MODULE is None, sum(t.COUNTS.values()))\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("STATE")[1].split() == ["True", "0"]

@@ -92,13 +92,27 @@ def test_engine_auto_and_env(pair, monkeypatch):
     assert rec[5] == rec_g[5] and rec[3] == rec_g[3] and rec[5] <= 500
 
 
-def test_not_ported_raise(pair):
+def test_not_ported_raise(pair, monkeypatch):
+    """What raised before the memory tiers and the hybrid engine were ported
+    now runs where it is asked to, and raises only without the card it
+    defaults to."""
     vol, moved = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.reg3d_affine(vol, moved, aff_method=1, mem_mode=0, engine="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    _, tmx_h, rec_h = R.reg3d_affine(vol, moved, aff_method=1, mem_mode=0,
+                                     engine="hybrid")
+    assert R.checkmatrix(tmx_h, SHAPE[2], SHAPE[1], SHAPE[0]) and rec_h[5] > 0
+    # mode 2 on a pair that fits: mode 1's search, the final transform
+    # streamed in z blocks (host numpy, the same bits)
+    reg0, tmx0, _ = R.reg3d_affine(vol, moved, aff_method=1, mem_mode=0)
+    reg2, tmx2, _ = R.reg3d_affine(vol, moved, aff_method=1, mem_mode=2,
+                                   device="cpu")
+    np.testing.assert_array_equal(tmx2, tmx0)
+    np.testing.assert_array_equal(reg2, reg0)
+    assert (R.reg3d_phasor_lowmem(vol, moved, device="cpu")
+            == R.reg3d_phasor(vol, moved, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         R.reg3d_affine(vol, moved, aff_method=1, mem_mode=2)
-    with pytest.raises(NotImplementedError, match="queue 4"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         R.reg3d_phasor_lowmem(vol, moved)
 
 
