@@ -156,8 +156,38 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      ``grad`` engine (1e-3 NCC, 0.5 voxel); (d) the spimFusion CLI with -gm 2 on Phase 14's views against
      Phase 14 (b) (1e-3 NCC, 0.5 voxel, each within FUSION_TRUTH_VOXELS of
      the truth).
+ 19. the multi-device layer (``parallel/*``, ``ops/fft_sharded.py``) with
+     every mesh place on the card (``make_mesh(..., devices=[cuda:0] *
+     n)``; the shards run one after another there and every exchange is a
+     device-to-device copy); every shard the layer lays out or gathers and
+     every all-to-all must be on the card: (a) the pencil FFT at (320,
+     512, 512) on 4 shards: ``conv_spec_pencil`` within 2e-4 x max of the
+     resident ``torch.fft`` convolution, the round trip within 1e-5 x max,
+     the bytes and time of one all_to_all; (b) ``rl_decon_single_sharded``
+     at 512^3, bench PSF, 10 iterations, 8 shards (with and without
+     const_initial), ``rl_decon_dual_sharded`` at (320, 512, 512) with the
+     WB projectors, 2 iterations, 4 shards, and ``rl_decon_dual_batch_dp``
+     on a (2, 2) mesh, each within rtol 2e-4, atol 2e-4 x max of the
+     resident call on the torch.fft route; ms per iteration sharded and
+     resident, peak memory per call; (c) ``fusion_step_multichip`` on
+     Phase 14's isotropized views at (320, 512, 320), 2 timepoints on a
+     (2, 4) mesh, through the footprint window and through the
+     whole-source gather: ss, st within rtol 1e-5 of ``corr3d_partials``,
+     the estimates within 2e-4 x max of ``rl_decon_dual``, with the
+     one-place pencil's and K3's distance from torch.fft on the same views
+     printed beside the gate; (d) ``reg3d_affine_sharded`` method 1 on
+     Phase 10's beads moved by Phase 18 (c)'s whole-voxel translation (0.5
+     voxel of the truth, 1e-3 NCC of ``reg3d_affine``), method 7 at (128,
+     256, 256) on the REG_DOF pair (more than one window, NCC > 0.9); (e) the
+     spimFusionBatch CLI under MIL_MESH=2,2 on Phase 17 (b)'s TIFFs,
+     regMode 3: K4 and K5 launched, no K1/K3 launch (the decon runs on the
+     pencil FFT), each Decon_t within rtol 2e-4, atol 2e-3 x max of the
+     CLI without MIL_MESH; (f) two MIL_MULTIHOST=1 processes (gloo on a
+     local port) on the card with (e)'s inputs: disjoint timepoint sets
+     that cover the series, outputs within (e)'s gate of its one-process
+     run, ProcessingLog.p1.txt.
 
-The CLI phases (4, 8, 11, 15, 17, 18 (d)) must read and write their TIFFs
+The CLI phases (4, 8, 11, 15, 17, 18 (d), 19 (e)) must read and write their TIFFs
 through the native codec only (``io.tiff.COUNTS``); Phase 11 prints the
 reg3D CLI's TIFF seconds.
 
@@ -165,7 +195,8 @@ It prints the card's name and power limit beside every time, ms per RL
 iteration for the K1, K2, K3 and ``torch.fft`` routes, one JSON line
 describing each kernel (its time, its plain version's, the least time the
 card could take for the same work, the time of the nearest PyTorch
-library call and its launches in Phase 17 (a), ``batch_launches``), and
+library call, its launches in Phase 17 (a), ``batch_launches``, in
+Phase 18 (c), ``bhbm_launches``, and in Phase 19 (e), ``mesh_launches``), and
 as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 then nonzero and that line is not printed. Needs one CUDA device; there
@@ -178,6 +209,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -188,6 +220,7 @@ import torch
 
 from microimagelib_tpu_torch.cli import decon_dv, decon_sv, gen_bp, reg3d as reg3d_cli
 from microimagelib_tpu_torch.cli import spim_fusion as fusion_cli
+from microimagelib_tpu_torch.cli import spim_fusion_batch as PB_CLI
 from microimagelib_tpu_torch.io import tiff as TIFF
 from microimagelib_tpu_torch.io.tiff import readtifstack, readtifstack_16to16, writetifstack
 from microimagelib_tpu_torch.io.tmx import read_tmx
@@ -205,11 +238,19 @@ from microimagelib_tpu_torch.models import gen_backprojector
 from microimagelib_tpu_torch.models import projections as PP
 from microimagelib_tpu_torch.models import registration as R
 from microimagelib_tpu_torch.ops import affine as AF
+from microimagelib_tpu_torch.ops import fft_sharded as FS
 from microimagelib_tpu_torch.ops.affine import affine_transform_3d
-from microimagelib_tpu_torch.ops.basics import max3d_with_coords, rot_by_y_axis
+from microimagelib_tpu_torch.ops.basics import (
+    align_size_3d,
+    max3d_with_coords,
+    pad_stack_edge,
+    rot_by_y_axis,
+)
 from microimagelib_tpu_torch.ops.conv_sep import plan_rl_fused, plan_sep
 from microimagelib_tpu_torch.ops.matrix import dof_to_matrix
 from microimagelib_tpu_torch.ops.resample import resize3d_separable
+from microimagelib_tpu_torch.parallel import mesh as PM
+from microimagelib_tpu_torch.parallel import sharded as PS
 from microimagelib_tpu_torch.tools import conv_roofline
 from microimagelib_tpu_torch.tools import e2e_surrogate as E2E
 
@@ -222,6 +263,7 @@ REG_DOF = [2.0, -1.5, 1.0, 2.0, -1.0, 1.5, 1, 1, 1]   # bench_all.py:122
 FUSION_SHAPE = (320, 512, 320)   # isotropic grid of the diSPIM views
 FUSION_RAW = (52, 512, 320)      # raw views: 1.0 um steps, 0.1625 um pixels
 FUSION_PIXEL = (0.1625, 0.1625, 1.0)
+FUSION_OFFSET = 100.0            # the raw views' camera offset (counts)
 # the truth gate of Phase 14 (voxels from the true matrix over the central
 # half-box): on these views at a reduced geometry both the port and the
 # JAX package land 2.6-2.7 voxels off (tests/test_torch_fusion.py, CPU),
@@ -273,6 +315,7 @@ BHBM_DUAL_BUDGET_MB = 2048
 BHBM_REG_SHAPE = (768, 1024, 1024)
 BHBM_REG_SHIFT = (5, 9, 7)
 HYBRID_SHAPE = REG_SHAPE
+AF_IDENTITY = np.array([1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0], np.float32)
 
 
 def gauss3(p, s):
@@ -586,6 +629,8 @@ def main():
         batch = phase17_batch(dev, card, views)
     torch.cuda.synchronize()
     bhbm = phase18_beyond_hbm(dev, card, main14, views)
+    torch.cuda.synchronize()
+    mesh = phase19_mesh(dev, card, views)
     # K6 was held against K5 at every shape the fusion launched it at; its
     # JSON numbers are those of the largest such shape
     unchecked = set(main14["k6_shapes"]) - set(k6)
@@ -693,6 +738,8 @@ def main():
         k["batch_launches"] = batch[ids[k["name"]]]
         # and of Phase 18 (c), the low-memory registration's coarse ladder
         k["bhbm_launches"] = bhbm[ids[k["name"]]]
+        # and of Phase 19 (e), the batch CLI under MIL_MESH=2,2
+        k["mesh_launches"] = mesh[ids[k["name"]]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1556,7 +1603,7 @@ def fusion_views(dev):
     nz, ny, nx = FUSION_SHAPE
     b = rot_by_y_axis(resize3d_separable(blur(moved, pb), (nz, ny, FUSION_RAW[0])), 1)
     del moved
-    views = tuple((v * 2000 + 100).cpu().numpy() for v in (a, b))
+    views = tuple((v * 2000 + FUSION_OFFSET).cpu().numpy() for v in (a, b))
     torch.cuda.empty_cache()
     return views
 
@@ -2085,6 +2132,24 @@ def decon_launches(route, n_tp):
     return {"separable": (4 * N_ITERS * n_tp, 0), "K3": (0, 4 * N_ITERS * n_tp)}[route]
 
 
+def write_series(tmp, views, dev):
+    """Phase 14's raw views as a BATCH_TPS-timepoint series of 16-bit TIFFs
+    under ``tmp`` (SPIMA/SPIMA_t.tif, SPIMB/SPIMB_t.tif; view B moved by
+    BATCH_DRIFT from t = 1) and the fusion PSFs (pa.tif, pb.tif)."""
+    pa, pb = fusion_psfs()
+    for d in ("SPIMA", "SPIMB"):
+        os.makedirs(os.path.join(tmp, d))
+    a_raw, b_raw = views
+    drifted = affine_transform_3d(torch.from_numpy(b_raw).to(dev),
+                                  dof_to_matrix(BATCH_DRIFT, 6), b_raw.shape).cpu().numpy()
+    for t in range(BATCH_TPS):
+        writetifstack(os.path.join(tmp, "SPIMA", f"SPIMA_{t}.tif"), a_raw, 16)
+        writetifstack(os.path.join(tmp, "SPIMB", f"SPIMB_{t}.tif"),
+                      b_raw if t == 0 else drifted, 16)
+    writetifstack(os.path.join(tmp, "pa.tif"), pa, 32)
+    writetifstack(os.path.join(tmp, "pb.tif"), pb, 32)
+
+
 def phase17_batch(dev, card, views):
     """The time-lapse batch at full width: (a) the end-to-end surrogate
     in-process, (b) Phase 14's views as a two-timepoint series through
@@ -2147,18 +2212,7 @@ def phase17_batch(dev, card, views):
     inv_true = inverse12(dof_to_matrix(REG_DOF, 6))
     t0_mats = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for d in ("SPIMA", "SPIMB"):
-            os.makedirs(os.path.join(tmp, d))
-        a_raw, b_raw = views
-        drifted = affine_transform_3d(torch.from_numpy(b_raw).to(dev),
-                                      dof_to_matrix(BATCH_DRIFT, 6), b_raw.shape)
-        for t in range(BATCH_TPS):
-            writetifstack(os.path.join(tmp, "SPIMA", f"SPIMA_{t}.tif"), a_raw, 16)
-            writetifstack(os.path.join(tmp, "SPIMB", f"SPIMB_{t}.tif"),
-                          b_raw if t == 0 else drifted.cpu().numpy(), 16)
-        del drifted
-        writetifstack(os.path.join(tmp, "pa.tif"), pa, 32)
-        writetifstack(os.path.join(tmp, "pb.tif"), pb, 32)
+        write_series(tmp, views, dev)
         # the registration's own cost on the u16 views the batch reads
         views_iso = FU.preprocess_views(
             readtifstack(os.path.join(tmp, "SPIMA", "SPIMA_0.tif"))[0],
@@ -2543,6 +2597,415 @@ def phase18_fusion_cli(dev, card, main14, views):
             or n["K1"] or n["K2"] or n["K3"] or n["plain"]):
         raise AssertionError("(d) the -gm 2 fusion missed its gates")
     torch.cuda.empty_cache()
+
+
+# Phase 19: the multi-device layer on one card. Every mesh place is cuda:0:
+# the shards run one after another there, and each exchange is a
+# device-to-device copy.
+MESH_FFT_SP = 4
+MESH_SINGLE_SHAPE = (512, 512, 512)
+MESH_SINGLE_SP = 8
+MESH_DUAL_SP = 4
+MESH_BATCH = (2, 2)        # (n_dp, n_sp)
+MESH_FUSION = (2, 4)
+MESH_FUSION_ITERS = 2
+MESH_REG_SP = 4
+MESH_REG7_SHAPE = (128, 256, 256)
+MULTIHOST_TIMEOUT_S = 300
+MULTIHOST_CHILD = ("import sys\n"
+                   "from microimagelib_tpu_torch.cli import spim_fusion_batch as cli\n"
+                   "sys.exit(cli.main(sys.argv[1:]))\n")
+
+
+class ShardsOnCard:
+    """While entered, record every shard the sharded layer lays out
+    (``parallel.sharded``'s split and gather) and every all-to-all of the
+    pencil FFT, with the bytes each moves; fail on a shard off the card."""
+
+    def __init__(self):
+        self.n_shards = 0
+        self.a2a = []   # bytes of each all_to_all
+        self._orig = []
+
+    def _check(self, shards):
+        bad = [tuple(t.shape) for t in shards if not t.is_cuda]
+        if bad:
+            raise AssertionError(f"shards off the card: {bad}")
+        self.n_shards += len(shards)
+
+    def __enter__(self):
+        def split(x, axis, devices, _orig=PS.split):
+            out = _orig(x, axis, devices)
+            self._check(out)
+            return out
+
+        def gather(shards, axis, device=None, _orig=PS.gather):
+            self._check(shards)
+            return _orig(shards, axis, device)
+
+        def all_to_all(shards, split_axis, concat_axis, _orig=FS.all_to_all):
+            self._check(shards)
+            self.a2a.append(sum(t.numel() * t.element_size() for t in shards))
+            return _orig(shards, split_axis, concat_axis)
+
+        for mod, name, fn in ((PS, "split", split), (PS, "gather", gather),
+                              (FS, "all_to_all", all_to_all)):
+            self._orig.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+
+
+def card_mesh(dev, n_sp, n_dp=1):
+    """A (n_dp, n_sp) mesh whose every place is ``dev``."""
+    return PM.make_mesh(n_sp, n_dp, devices=[dev] * (n_sp * n_dp))
+
+
+def peak_gb(dev, fn):
+    """(result of ``fn()``, its peak device memory above the memory in use
+    before it, GB)."""
+    base = fresh_peak(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, peak_since(dev, base) / 1e9
+
+
+def phase19_mesh(dev, card, views):
+    """The multi-device layer (parallel/*, ops/fft_sharded.py) with every
+    mesh place on the card. Returns the kernel launches of (e), the batch
+    CLI under MIL_MESH: its main path."""
+    print(f"Phase 19: the multi-device layer, every mesh place on {dev} [{card}]")
+    with ShardsOnCard() as sc:
+        mesh_fft(dev, card, sc)
+        mesh_rl(dev, card)
+        mesh_fusion_step(dev, card, views)
+        mesh_registration(dev, card)
+        with tempfile.TemporaryDirectory() as tmp:
+            write_series(tmp, views, dev)
+            launches, ref_out = mesh_batch_cli(dev, card, tmp)
+            multihost_children(card, tmp, ref_out)
+    print(f"  {sc.n_shards} shard tensors laid out or gathered, every one on the card")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def batch_argv(tmp, out):
+    """spimFusionBatch's 34 arguments for write_series' TIFFs: regMode 3 from
+    the 2-D MIP start (choice 4), MP_ZProj, 16-bit."""
+    return [out, os.path.join(tmp, "SPIMA"), os.path.join(tmp, "SPIMB"), "SPIMA_", "SPIMB_",
+            "0", str(BATCH_TPS - 1), "1", "0", *map(str, FUSION_PIXEL * 2), "3", "-1", "3",
+            "none", "0.0001", "3000", "0", "0", os.path.join(tmp, "pa.tif"),
+            os.path.join(tmp, "pb.tif"), str(N_ITERS), "0", "0", "1", "0", "0", "16", "0",
+            "0"]
+
+
+def mesh_fft(dev, card, sc):
+    """(a) The pencil FFT at DUAL_SHAPE on MESH_FFT_SP shards."""
+    nx = DUAL_SHAPE[2]
+    rng = np.random.default_rng(SEED + 19)
+    x = torch.from_numpy(rng.random(DUAL_SHAPE, dtype=np.float32) * 100 + 1).to(dev)
+    otf = D.gen_otf(dual_psfs()[0], DUAL_SHAPE, device=dev)
+    row = card_mesh(dev, MESH_FFT_SP).row(0)
+    xs, otfs = PS.split(x, 0, row), PS.split(otf, 1, row)
+    ref = torch.fft.irfftn(torch.fft.rfftn(x) * otf, s=DUAL_SHAPE)
+    got = PS.gather(FS.conv_spec_pencil(xs, otfs, nx), 0)
+    check_close(f"(a) conv_spec_pencil on {MESH_FFT_SP} shards vs resident torch.fft",
+                got.cpu(), ref.cpu(), 0.0, 2e-4)
+    back = PS.gather(FS.irfft3_pencil(FS.rfft3_pencil(xs), nx), 0)
+    check_close("(a) irfft3_pencil(rfft3_pencil(x)) vs x", back.cpu(), x.cpu(), 0.0, 1e-5)
+    del got, back
+    pencils = [torch.fft.fft(torch.fft.rfft(t, dim=-1), dim=-2) for t in xs]
+    n_a2a = len(sc.a2a)
+    a2a_ms = cuda_ms(lambda: FS.all_to_all(pencils, -2, -3), 5)
+    nbytes = sc.a2a[n_a2a]
+    conv_ms = cuda_ms(lambda: FS.conv_spec_pencil(xs, otfs, nx), 3)
+    res_ms = cuda_ms(lambda: torch.fft.irfftn(torch.fft.rfftn(x) * otf, s=DUAL_SHAPE), 3)
+    print(f"  (a) one all_to_all of the forward spectrum moves {nbytes / 1e6:.1f} MB in "
+          f"{a2a_ms:.3f} ms ({2 * nbytes / a2a_ms / 1e6:.1f} GB/s read + written); one "
+          f"pencil convolution {conv_ms:.3f} ms (two all_to_alls) against the resident "
+          f"torch.fft convolution's {res_ms:.3f} ms [{card}]")
+    del x, otf, xs, otfs, pencils, ref
+    torch.cuda.empty_cache()
+
+
+def mesh_rl(dev, card):
+    """(b) The sharded RL entries against the resident ones on the torch.fft
+    route (the same FFT), rtol 2e-4, atol 2e-4 x max."""
+    rng = np.random.default_rng(SEED + 191)
+    psf = bench_psf()
+    shape = MESH_SINGLE_SHAPE
+    img = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100 + 1).to(dev)
+    otf, bp = (D.gen_otf(p, shape, device=dev) for p in (psf, flip(psf)))
+    mesh = card_mesh(dev, MESH_SINGLE_SP)
+    for ci in (False, True):
+        t = time.time()
+        out, peak = peak_gb(dev, lambda: PS.rl_decon_single_sharded(img, otf, bp, N_ITERS,
+                                                                    mesh, ci))
+        wall = time.time() - t
+        with env(MIL_CONV_SEP="0", MIL_FFT_IMPL="xla"):
+            ref, peak_r = peak_gb(dev, lambda: D.rl_decon_single(img, otf, bp, N_ITERS, ci))
+        print(f"  (b) rl_decon_single_sharded {shape}, bench 9^3 PSF, {N_ITERS} iterations, "
+              f"{MESH_SINGLE_SP} shards, const_initial={ci}: {wall:.3f} s, peak "
+              f"{peak:.3f} GB ({peak / MESH_SINGLE_SP:.3f} a shard) against the resident "
+              f"call's {peak_r:.3f} GB [{card}]")
+        check_close(f"(b) single sharded vs resident, const_initial={ci}", out.cpu(),
+                    ref.cpu(), 2e-4, 2e-4)
+        del out, ref
+    row = mesh.row(0)
+    sh = (PS._vol_shards(img, row), PS._spec_shards(otf, row), PS._spec_shards(bp, row))
+    sh_ms = cuda_ms(lambda: PS._rl_single_local(*sh, 2, False, shape[2]), 2) / 2
+    res_ms = cuda_ms(lambda: D._rl_single(img, otf, bp, 2, False, "torch"), 2) / 2
+    print(f"  (b) ms per single-view iteration at {shape}: {MESH_SINGLE_SP} shards "
+          f"{sh_ms:.3f}, resident torch.fft {res_ms:.3f} [{card}]")
+    del img, otf, bp, sh
+    torch.cuda.empty_cache()
+
+    pa, pb, wa, wb = dual_psfs()
+    a, b = (torch.from_numpy(rng.random(DUAL_SHAPE, dtype=np.float32) * 100 + 1).to(dev)
+            for _ in range(2))
+    otfs = [D.gen_otf(p, DUAL_SHAPE, device=dev) for p in (pa, pb, wa, wb)]
+    mesh = card_mesh(dev, MESH_DUAL_SP)
+    t = time.time()
+    out, peak = peak_gb(dev, lambda: PS.rl_decon_dual_sharded(a, b, *otfs, WB_ITERS, mesh))
+    wall = time.time() - t
+    with env(MIL_FFT_IMPL="xla"):
+        ref, peak_r = peak_gb(dev, lambda: D.rl_decon_dual(a, b, *otfs, WB_ITERS))
+    print(f"  (b) rl_decon_dual_sharded {DUAL_SHAPE}, WB back projectors, {WB_ITERS} "
+          f"iterations, {MESH_DUAL_SP} shards: {wall:.3f} s, peak {peak:.3f} GB against "
+          f"{peak_r:.3f} GB resident [{card}]")
+    check_close("(b) dual sharded vs resident", out.cpu(), ref.cpu(), 2e-4, 2e-4)
+    del out
+    row = mesh.row(0)
+    sh = [PS._vol_shards(v, row) for v in (a, b)] + [PS._spec_shards(o, row) for o in otfs]
+    sh_ms = cuda_ms(lambda: PS._rl_dual_local(*sh, 1, False, DUAL_SHAPE[2]), 2)
+    res_ms = cuda_ms(lambda: D._rl_dual(a, b, *otfs, 1, False, "torch"), 2)
+    print(f"  (b) ms per dual-view iteration at {DUAL_SHAPE}: {MESH_DUAL_SP} shards "
+          f"{sh_ms:.3f}, resident torch.fft {res_ms:.3f} [{card}]")
+    del sh
+    n_dp, n_sp = MESH_BATCH
+    imgs_a, imgs_b = torch.stack([a, b]), torch.stack([b, a * 0.5 + 1])
+    t = time.time()
+    out, peak = peak_gb(dev, lambda: PS.rl_decon_dual_batch_dp(
+        imgs_a, imgs_b, *otfs, WB_ITERS, card_mesh(dev, n_sp, n_dp)))
+    print(f"  (b) rl_decon_dual_batch_dp, 2 timepoints on a (dp {n_dp}, sp {n_sp}) mesh: "
+          f"{time.time() - t:.3f} s, peak {peak:.3f} GB [{card}]")
+    for i in range(2):
+        with env(MIL_FFT_IMPL="xla"):
+            ref = D.rl_decon_dual(imgs_a[i], imgs_b[i], *otfs, WB_ITERS)
+        check_close(f"(b) batch_dp timepoint {i} vs its resident decon", out[i].cpu(),
+                    ref.cpu(), 2e-4, 2e-4)
+    del a, b, otfs, out, ref, imgs_a, imgs_b
+    torch.cuda.empty_cache()
+
+
+def mesh_fusion_step(dev, card, views):
+    """(c) fusion_step_multichip on Phase 14's views, 2 timepoints on a
+    MESH_FUSION mesh: once within the footprint's window, once with a z
+    shift that forces the whole-source gather."""
+    pa, pb = fusion_psfs()
+    a_iso, b_iso = FU.preprocess_views(*views, FUSION_PIXEL, FUSION_PIXEL, -1, dev,
+                                       as_device=True)
+    if tuple(b_iso.shape) != tuple(a_iso.shape):
+        b_iso = align_size_3d(b_iso, tuple(a_iso.shape))
+    # on the FFT grid, as the batch pads them (FUSION_SHAPE is one)
+    grid = D._fft_grid(tuple(a_iso.shape))
+    a_iso, b_iso = (v if tuple(v.shape) == grid else pad_stack_edge(v, grid)
+                    for v in (a_iso, b_iso))
+    otfs = [D.gen_otf(p, grid, device=dev) for p in (pa, pb, flip(pa), flip(pb))]
+    n_dp, n_sp = MESH_FUSION
+    mesh = card_mesh(dev, n_sp, n_dp)
+    truth = inverse12(dof_to_matrix(REG_DOF, 6)).astype(np.float32)
+    factorization_readings(dev, a_iso, b_iso, otfs)
+    far = truth.copy()
+    far[11] += 0.8 * grid[0]
+    imgs_a, imgs_b = torch.stack([a_iso, a_iso]), torch.stack([b_iso, b_iso])
+    with env(MIL_FFT_IMPL="xla"):
+        ref = D.rl_decon_dual(a_iso, b_iso, *otfs, MESH_FUSION_ITERS)
+    for label, mats in (("footprint window", [truth, AF_IDENTITY]),
+                        ("whole-source gather", [far, truth])):
+        hops = max(AF.zslab_footprint_hops(m, grid, n_sp) for m in mats)
+        branch = "all_gather" if hops >= n_sp - 1 else f"{hops}-hop window"
+        t = time.time()
+        est, ss, st = PS.fusion_step_multichip(mesh, imgs_a, imgs_b, *otfs, np.stack(mats),
+                                               n_iters=MESH_FUSION_ITERS)
+        torch.cuda.synchronize()
+        print(f"  (c) fusion_step_multichip {grid}, 2 timepoints on a (dp {n_dp}, "
+              f"sp {n_sp}) mesh, {MESH_FUSION_ITERS} iterations, {label}: the {branch} "
+              f"branch ran, {time.time() - t:.3f} s [{card}]")
+        if (label == "footprint window") == (hops >= n_sp - 1):
+            raise AssertionError(f"(c) {label}: hops {hops} took the wrong branch")
+        for i, m in enumerate(mats):
+            ss0, st0 = (float(v) for v in AF.corr3d_partials(b_iso, a_iso, m))
+            for name, v, v0 in (("ss", float(ss[i]), ss0), ("st", float(st[i]), st0)):
+                if abs(v - v0) > 1e-5 * abs(v0):
+                    raise AssertionError(f"(c) {label} t{i} {name} {v} vs {v0}")
+            check_close(f"(c) {label} t{i} estimate vs rl_decon_dual", est[i].cpu(),
+                        ref.cpu(), 0.0, 2e-4)
+        print(f"  (c) {label}: ss, st within rtol 1e-5 of corr3d_partials on both "
+              f"timepoints")
+    del a_iso, b_iso, otfs, imgs_a, imgs_b, est, ref
+    torch.cuda.empty_cache()
+
+
+def factorization_readings(dev, a, b, otfs):
+    """(c)'s views, zeros where isotropizing filled them, through
+    MESH_FUSION_ITERS joint iterations on two other FFT factorizations, the
+    one-place pencil FFT and the resident K3 route, each against the
+    resident torch.fft (rfftn) route that (c) gates the fusion step on.
+    Printed, not gated: how far RL's ratio on these views lets two
+    factorizations' rounding drift apart."""
+    with env(MIL_FFT_IMPL="xla"):
+        ref = D.rl_decon_dual(a, b, *otfs, MESH_FUSION_ITERS)
+        pencil = PS.rl_decon_dual_sharded(a, b, *otfs, MESH_FUSION_ITERS, card_mesh(dev, 1))
+    with env(MIL_FFT_IMPL="pallas"):
+        ct = D.rl_decon_dual(a, b, *otfs, MESH_FUSION_ITERS)
+    m = float(ref.abs().max())
+    print(f"  (c) the views hold zeros in {float((a == 0).float().mean()):.4f} (A) and "
+          f"{float((b == 0).float().mean()):.4f} (B) of their voxels")
+    for name, out in (("one-place pencil", pencil), ("resident K3", ct)):
+        err = float((out - ref).abs().max())
+        print(f"  (c) {name} vs resident torch.fft on the views, {MESH_FUSION_ITERS} "
+              f"iterations: max|diff| {err:.6g} = {err / m:.3g} x max|ref| (reading, not "
+              f"gated)")
+    del ref, pencil, ct
+    torch.cuda.empty_cache()
+
+
+def mesh_registration(dev, card):
+    """(d) reg3d_affine_sharded: method 1 on Phase 10's beads moved by Phase
+    18 (c)'s whole-voxel translation; method 7 at MESH_REG7_SHAPE on the
+    REG_DOF pair, whose search must use more than one window."""
+    dz, dy, dx = BHBM_REG_SHIFT
+    truth = dof_to_matrix([dx, dy, dz, 0, 0, 0, 1, 1, 1], 3)
+    vol = beads(REG_SHAPE, SEED, dev)
+    moved = torch.roll(vol, BHBM_REG_SHIFT, dims=(0, 1, 2))
+    mesh = card_mesh(dev, MESH_REG_SP)
+    stats = {}
+    t = time.time()
+    reg, tmx, rec = PS.reg3d_affine_sharded(mesh, vol, moved, aff_method=1, stats=stats)
+    wall = time.time() - t
+    _, tmx1, rec1 = R.reg3d_affine(vol, moved, aff_method=1, device=dev, mem_mode=1,
+                                   want_reg=False)
+    err = box_error(tmx, truth, REG_SHAPE)
+    print(f"  (d) reg3d_affine_sharded {REG_SHAPE}, method 1, {MESH_REG_SP} shards: "
+          f"{wall:.3f} s, NCC {rec[3]:.6f} (reg3d_affine {rec1[3]:.6f}), {err:.4f} voxel "
+          f"from the truth, {int(rec[5])} evaluations, {rec[6] / rec[5] * 1e3:.3f} ms an "
+          f"evaluation, windows {sorted(stats['cost_fn_keys'])} [{card}]")
+    if err > 0.5 or abs(rec[3] - rec1[3]) > 1e-3 or reg.shape != REG_SHAPE:
+        raise AssertionError("(d) method 1 missed its gates")
+    del vol, moved, reg
+    torch.cuda.empty_cache()
+    vol = beads(MESH_REG7_SHAPE, SEED + 7, dev)
+    m_true = dof_to_matrix(REG_DOF, 6)
+    moved = affine_transform_3d(vol, m_true, MESH_REG7_SHAPE)
+    stats = {}
+    t = time.time()
+    _, tmx, rec = PS.reg3d_affine_sharded(mesh, vol, moved, aff_method=7, ftol=5e-3,
+                                          it_limit=500, stats=stats)
+    wall = time.time() - t
+    err = box_error(tmx, inverse12(m_true), MESH_REG7_SHAPE)
+    keys = sorted(stats["cost_fn_keys"])
+    print(f"  (d) reg3d_affine_sharded {MESH_REG7_SHAPE}, method 7, ftol 5e-3, it_limit "
+          f"500: {wall:.3f} s, NCC {rec[3]:.6f}, {err:.4f} voxel from the truth, "
+          f"{int(rec[5])} evaluations, {rec[6] / rec[5] * 1e3:.3f} ms an evaluation, "
+          f"windows (hops, whole source) {keys} [{card}]")
+    if len(keys) < 2 or rec[3] < 0.9:
+        raise AssertionError(f"(d) method 7: windows {keys}, NCC {rec[3]}")
+    del vol, moved
+    torch.cuda.empty_cache()
+
+
+def mesh_batch_cli(dev, card, tmp):
+    """(e) The batch CLI under MIL_MESH=2,2 against the same CLI without it.
+    Returns the mesh run's launches and the reference run's output tree."""
+    ref_out, out = os.path.join(tmp, "ref"), os.path.join(tmp, "mesh")
+    runs = {}
+    with native_tiff("Phase 19 (e)"):
+        for label, out_dir, mesh_env in (("without MIL_MESH", ref_out, None),
+                                         ("MIL_MESH=2,2", out, "2,2")):
+            timings = {}
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            zero_counts()
+            t = time.time()
+            with (env(MIL_MESH=mesh_env) if mesh_env else contextlib.nullcontext()), \
+                    TimepointCounts() as tc, LaunchShapes() as shapes, \
+                    contextlib.redirect_stdout(buf):
+                rc = PB_CLI.main(batch_argv(tmp, out_dir), timings=timings)
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            n = counts()
+            if rc != 0:
+                raise AssertionError(f"(e) {label}: the CLI returned {rc}")
+            print(f"  (e) spimFusionBatch CLI {label}, regMode 3, {BATCH_TPS} timepoints: "
+                  f"{wall:.3f} s, launches {n} [{card}]")
+            print_timepoints(f"e, {label}", timings, tc.per_timepoint(n), card)
+            shapes.check(f"(e) {label}")
+            runs[label] = n
+    with open(os.path.join(out, "ProcessingLog.txt")) as f:
+        log = f.read()
+    want = f"Device mesh (dp 2, sp 2): {', '.join([str(dev)] * 4)}"
+    n = runs["MIL_MESH=2,2"]
+    if want not in log or n["K4"] < 1 or n["K5"] < 1 or n["K1"] or n["K3"] or n["plain"]:
+        raise AssertionError(f"(e) the mesh run took the wrong path: launches {n}")
+    for t in range(BATCH_TPS):
+        got = readtifstack(os.path.join(out, "Decon", f"Decon_{t}.tif"))[0]
+        ref = readtifstack(os.path.join(ref_out, "Decon", f"Decon_{t}.tif"))[0]
+        check_close(f"(e) Decon_{t} MIL_MESH=2,2 vs without", got, ref, 2e-4, 2e-3)
+    return n, ref_out
+
+
+def multihost_children(card, tmp, ref_out):
+    """(f) Two processes with MIL_MULTIHOST=1 on the card, regMode 3, on (e)'s
+    TIFFs: disjoint timepoint sets that cover the series, outputs equal to
+    (e)'s one-process run, ProcessingLog.p1.txt."""
+    out = os.path.join(tmp, "multihost")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "MIL_MESH"))}
+    base["PYTHONPATH"] = os.pathsep.join([root, base.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    procs, logs = [], [os.path.join(tmp, f"process{pid}.log") for pid in range(2)]
+    t = time.time()
+    try:
+        for pid in range(2):
+            env_p = dict(base, MIL_MULTIHOST="1", JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                         JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid))
+            # output to files: a full pipe would stall a child
+            with open(logs[pid], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", MULTIHOST_CHILD, *batch_argv(tmp, out)],
+                    env=env_p, cwd=root, stdout=f, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=MULTIHOST_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t
+    for pid, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(logs[pid]) as f:
+                raise AssertionError(f"(f) process {pid} returned {p.returncode}:\n"
+                                     f"{f.read()[-3000:]}")
+    sets = []
+    for log in ("ProcessingLog.txt", "ProcessingLog.p1.txt"):
+        with open(os.path.join(out, log)) as f:
+            sets.append({int(v) for v in re.findall(r"Image time point number: (\d+)",
+                                                     f.read())})
+    print(f"  (f) two MIL_MULTIHOST=1 processes on the card: {wall:.3f} s, timepoints "
+          f"{sorted(sets[0])} and {sorted(sets[1])} [{card}]")
+    if sets[0] & sets[1] or sets[0] | sets[1] != set(range(BATCH_TPS)):
+        raise AssertionError(f"(f) timepoint sets {sets} are not a split of the series")
+    for t in range(BATCH_TPS):
+        got = readtifstack(os.path.join(out, "Decon", f"Decon_{t}.tif"))[0]
+        ref = readtifstack(os.path.join(ref_out, "Decon", f"Decon_{t}.tif"))[0]
+        check_close(f"(f) Decon_{t} two processes vs one", got, ref, 2e-4, 2e-3)
 
 
 

@@ -4,8 +4,11 @@ positional-argument protocol of the ImageJ diSPIMFusion plugin
 34>``; ``MIL_PLATFORM=cpu`` runs it on the CPU. Argument 2 set to "1"
 makes argument 3 the main folder of a multicolor layout
 (<color>/SPIMA|SPIMB); ``MIL_BATCH_BG1``/``MIL_BATCH_BG2`` subtract a
-camera background from view A / B. ``MIL_MESH`` (the mesh-sharded decon)
-is not ported and raises NotImplementedError.
+camera background from view A / B. ``MIL_MESH="n_dp,n_sp"`` deconvolves
+over a device mesh of the visible CUDA devices (round-robin when the mesh
+has more places than devices; a CPU mesh under ``MIL_PLATFORM=cpu``);
+``MIL_MULTIHOST=1`` with JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+JAX_PROCESS_ID splits the timepoints over processes.
 
     python -m microimagelib_tpu_torch.cli.spim_fusion_batch out SPIMA SPIMB SPIMA_ SPIMB_ 0 4 1 0 ...
 """
@@ -100,16 +103,21 @@ def main(argv=None, *, timings=None):
         spim_fusion_batch,
         spim_fusion_batch_multicolor,
     )
-    from microimagelib_tpu_torch.models.registration import _not_ported
+    from microimagelib_tpu_torch.parallel.mesh import make_mesh
     from microimagelib_tpu_torch.utils.device import query_device
 
-    if os.environ.get("MIL_MESH"):
-        raise _not_ported("the mesh-sharded batch decon (MIL_MESH)",
-                          "queue 4 (memory tiers and multi-device)")
     cfg = config_from_args(argv)
     device = "cpu" if os.environ.get("MIL_PLATFORM") == "cpu" else None
     if cfg.query_device and device is None:
         query_device(verbose=True)
+    # MIL_MESH="n_dp,n_sp" runs the deconvolution stage over a device mesh
+    # (an extension of the JAX package; the reference is single-GPU)
+    mesh = None
+    mesh_env = os.environ.get("MIL_MESH")
+    if mesh_env:
+        n_dp, n_sp = (int(v) for v in mesh_env.split(","))
+        mesh = make_mesh(n_sp=n_sp, n_dp=n_dp,
+                         devices=None if device is None else [device] * (n_dp * n_sp))
     if argv[1].strip() == "1":
         # multicolor protocol: argument 3 is the main folder holding
         # <color>/SPIMA|SPIMB (reference:src/spim_fusion_batch.cpp:215-241,
@@ -118,7 +126,7 @@ def main(argv=None, *, timings=None):
         total = sum(len(v) for v in results.values())
         print(f"Processed {total} timepoint(s) across {len(results)} color(s)")
     else:
-        processed = spim_fusion_batch(cfg, device=device, timings=timings)
+        processed = spim_fusion_batch(cfg, mesh, device=device, timings=timings)
         print(f"Processed {len(processed)} timepoint(s)")
     return 0
 

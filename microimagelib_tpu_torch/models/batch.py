@@ -22,7 +22,14 @@ The deconvolution takes the route ``rl_decon_dual`` picks for the batch's
 PSFs and grid (K1 or the FFT route, K3 or ``torch.fft``); registration
 runs on K4/K5. ``MIL_BATCH_GROUP`` > 1 buffers registered timepoints and
 deconvolves each group in one batched RL loop
-(``decon_dualview_prepared_batch``, ``torch.fft``).
+(``decon_dualview_prepared_batch``, ``torch.fft``). With a device mesh
+(``mesh=``, ``parallel/mesh.py``) the groups are ``mesh.shape["dp"]``
+timepoints, deconvolved by ``rl_decon_dual_batch_dp``: timepoints across
+'dp', each volume z-sharded across 'sp' (registration and I/O stay per
+timepoint on the batch's device). ``MIL_MULTIHOST=1`` splits the
+timepoints round-robin over the processes of a gloo group
+(``parallel/distributed.py``); a process of rank r > 0 logs to
+``ProcessingLog.p{r}.txt``.
 
 Output tree (reference:src/spim_fusion_batch.cpp:244-319):
   out/Decon/Decon_<t>.tif, out/TMX/Matrix_<t>.tmx, out/RegA, out/RegB,
@@ -53,10 +60,16 @@ from microimagelib_tpu_torch.models.deconvolution import (
 )
 from microimagelib_tpu_torch.models.fusion import fusion_sizes, preprocess_views
 from microimagelib_tpu_torch.models.projections import _mp2d_flat, _split_mp2d, mip3d_frames
-from microimagelib_tpu_torch.models.registration import _not_ported, checkmatrix, reg3d
+from microimagelib_tpu_torch.models.registration import checkmatrix, reg3d
 from microimagelib_tpu_torch.ops.affine import affine_transform_3d
 from microimagelib_tpu_torch.ops.basics import align_size_3d, crop_center, pad_stack_edge
 from microimagelib_tpu_torch.ops.matrix import identity_tmx
+from microimagelib_tpu_torch.parallel.distributed import (
+    init_distributed,
+    process_index,
+    shard_timepoints,
+)
+from microimagelib_tpu_torch.parallel.sharded import rl_decon_dual_batch_dp
 from microimagelib_tpu_torch.utils.device import require_cuda
 from microimagelib_tpu_torch.utils.envflags import env_on
 
@@ -64,8 +77,6 @@ __all__ = ["BatchConfig", "spim_fusion_batch", "spim_fusion_batch_multicolor",
            "find_color_folders", "COST_VALUE_BAR"]
 
 COST_VALUE_BAR = 0.1  # reference:src/spim_fusion_batch.cpp:563
-
-_MULTI_DEVICE = "queue 4 (memory tiers and multi-device)"
 
 
 def _warm_method(aff_method):
@@ -208,7 +219,11 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
     runs it on the CPU, on the kernels' plain versions). Returns the list
     of processed timepoints.
 
-    ``mesh`` (multi-device decon) and ``MIL_MULTIHOST`` are not ported.
+    ``mesh``: an optional ('dp', 'sp') mesh (``parallel.mesh.make_mesh``):
+    timepoints are deconvolved in dp-sized groups with volumes z-sharded
+    over 'sp'; a final partial group is padded with its last timepoint.
+    ``MIL_MULTIHOST=1`` runs this process's round-robin share of the
+    timepoints (regMode 2 chains timepoints and raises ValueError).
     ``timings``, when given a dict, receives per timepoint the seconds of
     each stage (the card is synchronized between stages): 'read' (the
     reader's file reads), 'wait' (the main thread's wait for them),
@@ -216,11 +231,11 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
     MIPs), 'fetch' (copies to the host) and 'write' (the writer pool's
     TIFF writes), and for regMode 1 at the test timepoint 'test
     registration' (its read, preprocess and registration)."""
-    if mesh is not None:
-        raise _not_ported("the mesh-sharded batch decon (mesh=)", _MULTI_DEVICE)
-    if env_on("MIL_MULTIHOST"):
-        raise _not_ported("multi-host timepoint sharding (MIL_MULTIHOST)",
-                          _MULTI_DEVICE)
+    multihost = env_on("MIL_MULTIHOST")
+    if multihost and cfg.reg_mode == 2:
+        raise ValueError(
+            "MIL_MULTIHOST=1 cannot shard regMode 2 (dependent "
+            "registration chains timepoints); use regMode 0, 1 or 3")
     dev = (torch.device("cpu") if device is not None and torch.device(device).type == "cpu"
            else require_cuda(device if device is not None
                              else torch.device("cuda", cfg.device_num)))
@@ -250,8 +265,19 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
     aff_method = 6  # reference default for batch (src/spim_fusion_batch.cpp:561)
 
     timepoints = _timepoint_list(cfg)
-    log_path = os.path.join(cfg.out_dir, "ProcessingLog.txt")
+    # multi-host timepoint data parallelism: each process takes a round-robin
+    # share; outputs are keyed by timepoint in the shared tree
+    process_tag = ""
+    if multihost:
+        init_distributed()
+        timepoints = shard_timepoints(timepoints)
+        if process_index() > 0:
+            process_tag = f".p{process_index()}"
+    log_path = os.path.join(cfg.out_dir, f"ProcessingLog{process_tag}.txt")
     _write_header(log_path, cfg, timepoints, psf1, unmatch)
+    if mesh is not None:
+        _log(log_path, f"...Device mesh (dp {mesh.shape['dp']}, sp {mesh.shape['sp']}): "
+                       f"{', '.join(str(d) for d in mesh.devices.ravel())}\n\n")
 
     def img_paths(t):
         return (os.path.join(cfg.in_dir1, f"{cfg.name1}{t}.tif"),
@@ -399,14 +425,17 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
             reader_thread = threading.Thread(target=reader, args=(timepoints,), daemon=True)
             reader_thread.start()
 
-        # MIL_BATCH_GROUP timepoints per batched decon (1 = per timepoint)
-        group_size = max(1, int(os.environ.get("MIL_BATCH_GROUP", "1")))
+        # timepoints per batched decon: the mesh's dp extent, else
+        # MIL_BATCH_GROUP (1 = per timepoint)
+        group_size = (mesh.shape["dp"] if mesh is not None
+                      else max(1, int(os.environ.get("MIL_BATCH_GROUP", "1"))))
+        grouped = mesh is not None or group_size > 1
         # the JAX package logs a registering or matrix-applying timepoint of the
         # per-timepoint chain as its one fused program, and the time-cost line
         # of timepoint t after the registration of t+1 (its outputs are
         # collected one timepoint late); an identity-matrix regMode 0 and
         # grouped decon keep the stage-by-stage lines
-        chained = group_size == 1 and (reg_mode in (2, 3) or tmx_apply is not None)
+        chained = not grouped and (reg_mode in (2, 3) or tmx_apply is not None)
         processed = []
         group = []
         in_flight = None
@@ -416,9 +445,19 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
             ts = [g[0] for g in group]
             out_shape = group[0][3]
             otfs = get_otfs(group[0][4])
-            est = decon_dualview_prepared_batch(
-                torch.stack([g[1] for g in group]), torch.stack([g[2] for g in group]),
-                *otfs, cfg.it_num_decon, False, out_shape)
+            if mesh is None:
+                est = decon_dualview_prepared_batch(
+                    torch.stack([g[1] for g in group]), torch.stack([g[2] for g in group]),
+                    *otfs, cfg.it_num_decon, False, out_shape)
+            else:
+                # a final partial group is padded with its last timepoint
+                entries = group + [group[-1]] * (-len(group) % group_size)
+                est = rl_decon_dual_batch_dp(
+                    torch.stack([g[1] for g in entries]),
+                    torch.stack([g[2] for g in entries]), *otfs, cfg.it_num_decon,
+                    mesh).to(dev)
+                if tuple(est.shape[1:]) != tuple(out_shape):
+                    est = crop_center(est, out_shape)
             stage(ts[0], "decon", t_dec)
             for i, t_out in enumerate(ts):
                 collect(t_out, outputs(t_out, est[i], time.time()), 0.0, log_time=False)
@@ -495,7 +534,7 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
             if cfg.save_reg_b:
                 extra["reg_b"] = reg_b
 
-            if group_size > 1:
+            if grouped:
                 # grouped decon: the registered views are written now, the
                 # group's decon and outputs when it is full
                 _log(log_path, "... Deconvolution...\n")

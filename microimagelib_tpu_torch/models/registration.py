@@ -85,10 +85,6 @@ from microimagelib_tpu_torch.utils.device import (
 from microimagelib_tpu_torch.utils.envflags import env_on
 
 
-def _not_ported(what, where):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md, {where}")
-
-
 # --------------------------------------------------------------------------
 # Plausibility gate
 # --------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from microimagelib_tpu_torch.io.tmx import read_tmx
 from microimagelib_tpu_torch.models import batch as PB
 from microimagelib_tpu_torch.models import deconvolution as PD
 from microimagelib_tpu_torch.models import fusion as PF
+from microimagelib_tpu_torch.parallel.mesh import make_mesh
 from test_fusion_batch import _write_drift_inputs, gaussian_psf
 
 torch.set_num_threads(1)
@@ -260,12 +261,35 @@ def test_batch_multicolor_and_background(tmp_path, monkeypatch):
 
 
 def test_not_ported_and_no_cuda_raise(inputs, tmp_path, monkeypatch):
-    cfg = PB.BatchConfig(**_cfg(inputs, tmp_path / "o"))
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        PB.spim_fusion_batch(cfg, mesh=object(), device="cpu")
+    """The mesh-sharded decon (mesh=) and MIL_MULTIHOST, which raised
+    before they were ported, now run and match the JAX package's
+    MIL_MULTIHOST=1 run with no coordinator (one process, every
+    timepoint): a (1, 2) CPU mesh and the port's MIL_MULTIHOST=1 run give
+    its tree and its outputs at the batch bound; MIL_MULTIHOST=1 refuses
+    regMode 2 before any set-up."""
+    cfg = PB.BatchConfig(**_cfg(inputs, tmp_path / "o", save_3d_x=False))
+    mesh = make_mesh(2, 1, devices=["cpu"] * 2)
+    assert PB.spim_fusion_batch(cfg, mesh=mesh, device="cpu") == list(range(N_T))
+    assert "Device mesh (dp 1, sp 2): cpu, cpu" in (tmp_path / "o" / "ProcessingLog.txt").read_text()
     monkeypatch.setenv("MIL_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        PB.spim_fusion_batch(cfg, device="cpu")
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    one = dataclasses.replace(cfg, out_dir=str(tmp_path / "one"))
+    assert PB.spim_fusion_batch(one, device="cpu") == list(range(N_T))
+    assert JB.spim_fusion_batch(JB.BatchConfig(**_cfg(inputs, tmp_path / "ref",
+                                                      save_3d_x=False))) == list(range(N_T))
+    for out in (tmp_path / "o", tmp_path / "one"):
+        assert _tree(out) == _tree(tmp_path / "ref")
+        for t in range(N_T):
+            for d, name in RELS:
+                if "Xaxis" not in d:
+                    f = name.format(t=t)
+                    _close(readtifstack(str(out / d / f))[0],
+                           readtifstack(str(tmp_path / "ref" / d / f))[0])
+    with pytest.raises(ValueError, match="regMode 2"):
+        PB.spim_fusion_batch(dataclasses.replace(cfg, reg_mode=2,
+                                                 out_dir=str(tmp_path / "r2")),
+                             device="cpu")
+    assert not (tmp_path / "r2").exists()
     monkeypatch.delenv("MIL_MULTIHOST")
     # without CUDA every entry that defaults to the card raises; none falls
     # back to the CPU

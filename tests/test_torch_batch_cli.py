@@ -60,10 +60,26 @@ def test_batch_cli_matches_jax(tmp_path, monkeypatch, n_args):
 
 
 def test_batch_cli_usage_and_mesh(tmp_path, monkeypatch, capsys):
+    """Usage and argument count; MIL_MESH (which raised before the mesh was
+    ported) runs the decon over a (2, 1) CPU mesh under MIL_PLATFORM=cpu,
+    with the outputs of the run without it at the batch bound."""
     assert pcli.main([]) == 0
     assert pcli.main(["-h"]) == 0
     assert "34 or 36" in capsys.readouterr().out
     assert pcli.main(["a"] * 35) == 1
+    _write_drift_inputs(tmp_path, n_t=2)
+    jwrite_tmx(str(tmp_path / "init.tmx"),
+               np.asarray(dof_to_matrix([0.5, 0, 0, 0.4, -0.3, 0, 1, 1, 1], 6),
+                          np.float32))
+    monkeypatch.setenv("MIL_PLATFORM", "cpu")
+    assert pcli.main(_argv(tmp_path, tmp_path / "ref", 34)) == 0
     monkeypatch.setenv("MIL_MESH", "2,1")
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        pcli.main(_argv(tmp_path, tmp_path / "o", 34))
+    assert pcli.main(_argv(tmp_path, tmp_path / "o", 34)) == 0
+    assert "Device mesh (dp 2, sp 1): cpu, cpu" in (tmp_path / "o" / "ProcessingLog.txt").read_text()
+    assert _tree(tmp_path / "o") == _tree(tmp_path / "ref")
+    for t in range(2):
+        for rel in (f"Decon/Decon_{t}.tif", f"Decon/MP_ZProj/MP_XY_{t}.tif"):
+            got, _ = readtifstack(str(tmp_path / "o" / rel))
+            ref, _ = readtifstack(str(tmp_path / "ref" / rel))
+            np.testing.assert_allclose(got, ref, rtol=2e-4,
+                                       atol=2e-4 * np.abs(ref).max() + 1)

@@ -47,7 +47,13 @@ def test_every_module_imports_without_jax():
             "microimagelib_tpu_torch.cli.spim_fusion_batch",
             "microimagelib_tpu_torch.tools.e2e_surrogate",
             "microimagelib_tpu_torch.models.decon_streamed",
-            "microimagelib_tpu_torch.native.build"} <= set(mods)
+            "microimagelib_tpu_torch.native.build",
+            "microimagelib_tpu_torch.parallel",
+            "microimagelib_tpu_torch.parallel.mesh",
+            "microimagelib_tpu_torch.parallel.collectives",
+            "microimagelib_tpu_torch.parallel.sharded",
+            "microimagelib_tpu_torch.parallel.distributed",
+            "microimagelib_tpu_torch.ops.fft_sharded"} <= set(mods)
     proc = _run(
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
