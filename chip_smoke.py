@@ -25,16 +25,20 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
   4. runs the deconSingleView CLI on a 200 x 512 x 512 16-bit TIFF (on
      the route auto takes);
   5. compares the FFT-convolution kernel (K3) with complex128
-     ``torch.fft`` and with its fp32 plain version at ten grids, odd
-     factors 3 and 5 among them and 128, 256, 320 and 512 on every axis
+     ``torch.fft`` and with its fp32 plain version at 23 grids, odd
+     factors 3 and 5 among them and every specialised length (64, 128,
+     192, 256, 320, 384, 512, 576, 640, 704, 768, 1024) on every axis
      (max|diff| <= 1e-4 * max|ref|), checking that the kernel's radix
      plans and spectrum pitch are the host's and which axes took the
-     length-specialised transforms; at (320, 512, 512) the five launches'
-     device times (torch.profiler), each against the bytes it must move
-     and the z-shaped K7 copy's rate, and each kernel's registers, shared
-     bytes and resident blocks; then K3 against ``torch.fft`` on a ladder
-     of eleven grids and the voxel count from which K3 wins on those whose
-     every axis takes the specialised transform;
+     length-specialised transforms, and printing each length's five
+     instantiations' registers, spills, shared bytes and resident blocks;
+     at (320, 512, 512) and (384, 512, 512) the five launches' device
+     times (torch.profiler), each against the bytes it must move and the
+     z-shaped K7 copy's rate; then K3 against ``torch.fft`` on a ladder
+     of 22 grids, the voxel count from which K3 wins on those whose every
+     axis takes the specialised transform, and a gate: from 2^21 voxels
+     on, auto's route within 10% of the faster one, and K3 wherever it
+     wins on such a grid;
   6. runs ``decon_dualview`` on two (320, 512, 512) views with
      anisotropic 25^3 PSFs and Wiener-Butterworth back projectors, 2
      iterations, MIL_FFT_IMPL=pallas: exactly 8 K3 calls, no K1 launch,
@@ -186,6 +190,17 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      local port) on the card with (e)'s inputs: disjoint timepoint sets
      that cover the series, outputs within (e)'s gate of its one-process
      run, ProcessingLog.p1.txt.
+ 20. the decon entries on grids of the lengths specialised in K3 after
+     128, 256, 320 and 512, on the route ``auto`` takes (K3 on x, y and
+     z, the counts set to 0 just before each run): (a) ``decon_dualview``
+     of two (360, 600, 600) views (grid (384, 640, 640)), the WB back
+     projectors of Phase 6, 2 iterations, default memory mode (1): 8 K3
+     calls; (b) ``decon_singleview`` of a (150, 600, 600) volume (grid
+     (192, 640, 640)) with the tilted PSF of Phase 3, 10 iterations, on
+     the FFT route (MIL_CONV_SEP pinned to 0 if auto took the separable
+     one): 20 K3 calls; each within 2e-4 x max of the same call under
+     MIL_FFT_IMPL=xla, with its peak device memory and ms per iteration
+     on both routes.
 
 The CLI phases (4, 8, 11, 15, 17, 18 (d), 19 (e)) must read and write their TIFFs
 through the native codec only (``io.tiff.COUNTS``); Phase 11 prints the
@@ -631,6 +646,8 @@ def main():
     bhbm = phase18_beyond_hbm(dev, card, main14, views)
     torch.cuda.synchronize()
     mesh = phase19_mesh(dev, card, views)
+    torch.cuda.synchronize()
+    phase20_new_lengths(dev, card)
     # K6 was held against K5 at every shape the fusion launched it at; its
     # JSON numbers are those of the largest such shape
     unchecked = set(main14["k6_shapes"]) - set(k6)
@@ -750,19 +767,32 @@ def main():
 
 # Phase 5's gate grids: the first four, then the card test's grids that put
 # 128, 256, 320 and 512 on each axis (and an odd row count), then the decon
-# grids of Phase 17's (a) and (b)
+# grids of Phase 17's (a) and (b), then grids that put each length
+# specialised after those four on each axis (every row of the Latin square
+# below holds three of them), an odd row count with x 704, and Phase 20's
+# padded grids
 K3_GRIDS = ((32, 32, 128), (64, 96, 128), DUAL_SHAPE, (256, 512, 512),
             (128, 256, 128), (320, 48, 512), (64, 512, 320), (256, 40, 256), (5, 3, 512),
-            (512, 24, 64), (E2E_XY,) * 3, FUSION_SHAPE)
-# grids, by voxel count, on which K3 is timed against torch.fft. Among those
-# whose every axis takes the length-specialised transform, the smallest
-# count from which K3 wins at that grid and every larger one is the FFT
-# route's auto threshold (models/deconvolution.py CT_MIN_VOXELS); the rest
-# (z 64 in the first, generic lengths snap_fft_size gives in the last three)
-# show what the generic path costs, where auto takes torch.fft
+            (512, 24, 64), (E2E_XY,) * 3, FUSION_SHAPE,
+            (64, 768, 1024), (192, 704, 576), (384, 384, 640), (576, 576, 384),
+            (640, 640, 192), (704, 64, 768), (768, 192, 704), (1024, 1024, 64),
+            (5, 3, 704), (384, 640, 640), (192, 640, 640))
+# grids, by voxel count, on which K3 is timed against torch.fft: the first
+# version's eleven, one for each length specialised after 128, 256, 320
+# and 512 on z with a 512^2 plane, and wide planes. Among those whose every
+# axis takes the length-specialised transform, the smallest count from
+# which K3 wins at that grid and every larger one is the FFT route's auto
+# threshold (models/deconvolution.py CT_MIN_VOXELS)
 K3_LADDER = ((128, 128, 128), (128, 128, 256), (64, 256, 256), (128, 256, 256),
              (128, 256, 512), (128, 512, 512), (256, 512, 512), DUAL_SHAPE,
-             (64, 384, 384), (192, 384, 384), (384, 512, 512))
+             (64, 384, 384), (192, 384, 384), (384, 512, 512),
+             (64, 512, 512), (192, 512, 512), (576, 512, 512), (640, 512, 512),
+             (704, 512, 512), (768, 512, 512), (1024, 512, 512),
+             (384, 384, 384), (256, 640, 640), (256, 768, 768), (128, 1024, 1024))
+# Phase 5's ladder gate, from this many voxels on: auto's route within 10%
+# of the faster one, and K3 wherever it wins on an all-specialised grid
+K3_GATE_VOXELS = 2 ** 21
+K3_GATE_SLACK = 1.10
 
 
 def k3_inputs(shape, rng, dev):
@@ -788,6 +818,13 @@ def phase5_k3(dev, rng, card):
             raise AssertionError(f"K3 length {n}: kernel plan {F.kernel_plan(n)}, "
                                  f"host {want}")
     print(f"  kernel plans and pitches match the host's at lengths {lengths}")
+    # each specialised length's five instantiations, in launch order
+    for n in (n for n in range(64, F.MAX_LEN + 1, 64) if F.radix_plan(n)):
+        attrs = F.kernel_attrs((n, n, n))
+        print(f"    length {n} {F.radix_plan(n)}: " + "; ".join(
+            f"{a['registers']} reg {a['spill_bytes']} B spilled {a['threads']} thr "
+            f"{a['static_smem'] + a['dynamic_smem']} B smem {a['blocks_per_sm']} blk/SM"
+            for a in attrs))
     # the grids added after the first four draw from their own generator, so
     # the later phases' data stay as they were
     own = np.random.default_rng(SEED + 5)
@@ -816,21 +853,27 @@ def phase5_k3(dev, rng, card):
         torch.cuda.empty_cache()
     split, timed = k3_split(dev, card)
     res.update(ms=timed["ms"], plain_ms=timed["plain_ms"], split=split)
+    k3_split(dev, card, (384, 512, 512))
 
     print(f"  K3 against torch.fft by grid (CUDA events, 10 calls) [{card}]:")
-    ladder = []
+    ladder, faults = [], []
     for shape in K3_LADDER:
         v, otf = k3_inputs(shape, own, dev)
         k_ms = cuda_ms(lambda: F.conv3_ct(v, otf), 10)
         t_ms = cuda_ms(lambda: F.conv3_ct_torch(v, otf), 10)
-        full = F.ct_specialised(shape)
+        vox, full, auto = int(np.prod(shape)), F.ct_specialised(shape), D._fft_impl(shape, v)
         if full:
-            ladder.append((int(np.prod(shape)), k_ms, t_ms))
+            ladder.append((vox, k_ms, t_ms))
         generic = "".join(a for a, n in zip("zyx", shape) if not F.radix_plan(n))
-        print(f"    {shape} ({int(np.prod(shape))} voxels, generic axes "
+        print(f"    {shape} ({vox} voxels, generic axes "
               f"{generic or '-'}): K3 {k_ms:.3f} ms, torch.fft {t_ms:.3f} ms "
-              f"({'K3' if k_ms < t_ms else 'torch.fft'} wins; auto takes "
-              f"{D._fft_impl(shape, v)})")
+              f"({'K3' if k_ms < t_ms else 'torch.fft'} wins; auto takes {auto})")
+        taken, other = (k_ms, t_ms) if auto == "ct" else (t_ms, k_ms)
+        if vox >= K3_GATE_VOXELS and taken > K3_GATE_SLACK * other:
+            faults.append(f"{shape}: auto's {auto} route {taken:.3f} ms against {other:.3f}")
+        if vox >= K3_GATE_VOXELS and full and k_ms < t_ms and auto != "ct":
+            faults.append(f"{shape}: K3 wins ({k_ms:.3f} against {t_ms:.3f} ms), "
+                          "auto takes torch.fft")
         del v, otf
         torch.cuda.empty_cache()
     ladder.sort()
@@ -838,6 +881,10 @@ def phase5_k3(dev, rng, card):
                              if all(k < t for _v, k, t in ladder[i:])), None)
     print(f"  on the all-specialised grids K3 wins from {res['threshold']} voxels on "
           f"(None: nowhere); the FFT route's auto default is {D.CT_MIN_VOXELS}")
+    if faults:
+        raise AssertionError("K3 ladder: " + "; ".join(faults))
+    print(f"  from {K3_GATE_VOXELS} voxels on, auto takes a route within "
+          f"{K3_GATE_SLACK:.2f}x the faster one, and K3 wherever it wins")
     return res
 
 
@@ -3007,6 +3054,98 @@ def multihost_children(card, tmp, ref_out):
         ref = readtifstack(os.path.join(ref_out, "Decon", f"Decon_{t}.tif"))[0]
         check_close(f"(f) Decon_{t} two processes vs one", got, ref, 2e-4, 2e-3)
 
+
+# Phase 20: raw shapes that the FFT size policy pads to grids of the lengths
+# specialised after 128, 256, 320 and 512
+P20_DUAL_RAW = (360, 600, 600)      # -> (384, 640, 640)
+P20_SINGLE_RAW = (150, 600, 600)    # -> (192, 640, 640)
+
+
+def phase20_new_lengths(dev, card):
+    """The decon entries on grids of the new lengths, on the route auto
+    takes (K3, every axis specialised), against MIL_FFT_IMPL=xla: (a) dual
+    view with WB back projectors, (b) single view with the tilted PSF.
+    Returns K3's calls in (a) and (b)."""
+    print(f"Phase 20: the decon entries on the new lengths' grids [{card}]")
+    pa, pb, wa, wb = dual_psfs()
+    rng = np.random.default_rng(SEED + 20)
+    a = rng.random(P20_DUAL_RAW, dtype=np.float32) * 100 + 1
+    b = rng.random(P20_DUAL_RAW, dtype=np.float32) * 100 + 1
+    grid = D._fft_grid(P20_DUAL_RAW)
+    if D._sep_plans(pa, wa, grid) is not None:
+        raise AssertionError("the planner accepted a WB back projector")
+
+    def dual(rec):
+        return D.decon_dualview(a, b, pa, pb, n_iters=WB_ITERS, psf_bp_a=wa,
+                                psf_bp_b=wb, device=dev, records=rec)
+
+    def dual_iters(impl):
+        a_d, b_d = (pad_stack_edge(torch.from_numpy(x).to(dev), grid) for x in (a, b))
+        otfs = [D.gen_otf(p, grid, device=dev) for p in (pa, pb, wa, wb)]
+        return cuda_ms(lambda: D._rl_dual(a_d, b_d, *otfs, WB_ITERS, False, impl),
+                       2) / WB_ITERS
+
+    n_a = decon_on_both_routes(dev, card, f"(a) decon_dualview {P20_DUAL_RAW} -> {grid}, "
+                               f"WB, {WB_ITERS} iterations", dual, grid, 4 * WB_ITERS,
+                               dual_iters)
+    del a, b
+    tpsf = tilted_psf()
+    img = rng.random(P20_SINGLE_RAW, dtype=np.float32) * 100 + 1
+    grid = D._fft_grid(P20_SINGLE_RAW)
+    sep = D._sep_plans(tpsf, flip(tpsf), grid, torch.empty(0, device=dev))
+    print(f"  (b) MIL_CONV_SEP=auto on the tilted PSF at {grid}: "
+          f"{'the separable route: pinned to 0' if sep else 'the FFT route'}")
+
+    def single(rec):
+        with env(**({"MIL_CONV_SEP": "0"} if sep else {})):
+            return D.decon_singleview(img, tpsf, n_iters=N_ITERS, device=dev, records=rec)
+
+    def single_iters(impl):
+        img_d = pad_stack_edge(torch.from_numpy(img).to(dev), grid)
+        otf = D.gen_otf(tpsf, grid, device=dev)
+        otf_bp = D.gen_otf(flip(tpsf), grid, device=dev)
+        return cuda_ms(lambda: D._rl_single(img_d, otf, otf_bp, N_ITERS, False, impl),
+                       2) / N_ITERS
+
+    n_b = decon_on_both_routes(dev, card, f"(b) decon_singleview {P20_SINGLE_RAW} -> "
+                               f"{grid}, tilted PSF, {N_ITERS} iterations", single, grid,
+                               2 * N_ITERS, single_iters)
+    return n_a, n_b
+
+
+def decon_on_both_routes(dev, card, label, run, grid, calls, iter_ms):
+    """``run(records)`` on auto's route, which must be K3 with every axis
+    specialised and ``calls`` K3 calls (the counts set to 0 just before),
+    then under MIL_FFT_IMPL=xla (no K3 call), within 2e-4 x max of each
+    other; the peak device memory of the first and ms per iteration of
+    both routes (``iter_ms(impl)``). Returns the K3 calls."""
+    if D._fft_impl(grid, torch.empty(0, device=dev)) != "ct" or not F.ct_specialised(grid):
+        raise AssertionError(f"{label}: auto does not take K3 on {grid}")
+    base = fresh_peak(dev)
+    zero_counts()
+    rec = np.zeros(10)
+    out_k = run(rec)
+    torch.cuda.synchronize()
+    got, spec = counts(), dict(F.LAUNCHES_SPECIALISED)
+    peak = peak_since(dev, base) / 1e9
+    print(f"  {label}: memory mode {rec[0]:.0f}, decon {rec[8]:.3f} s, peak "
+          f"{peak:.3f} GB; launches {got}, specialised {spec} [{card}]")
+    if rec[0] != 1:
+        raise AssertionError(f"{label}: memory mode {rec[0]}, expected 1")
+    if got["K3"] != calls or spec != dict.fromkeys("xyz", calls) or got["K1"] or got["K2"]:
+        raise AssertionError(f"{label}: expected {calls} K3 calls specialised on x, y "
+                             f"and z, got {got}, {spec}")
+    with env(MIL_FFT_IMPL="xla"):
+        out_x = run(np.zeros(10))
+    if F.LAUNCHES != calls:
+        raise AssertionError(f"{label}: the torch.fft route launched K3")
+    check_close(f"{label}: K3 route vs torch.fft route", out_k, out_x, 0.0, 2e-4)
+    del out_k, out_x
+    ms = {impl: iter_ms(impl) for impl in ("ct", "torch")}
+    torch.cuda.empty_cache()
+    print(f"  {label}: ms per iteration K3 route {ms['ct']:.3f}, torch.fft route "
+          f"{ms['torch']:.3f} [{card}]")
+    return calls
 
 
 if __name__ == "__main__":

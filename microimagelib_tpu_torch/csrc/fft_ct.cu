@@ -30,42 +30,54 @@
 //     128-byte segment a row, with 16-byte loads and stores, and mask the
 //     padding columns so that no byte outside the valid spectrum moves. The
 //     OTF keeps its natural layout (8-byte accesses).
-//  2. Runtime / and % in the inner loop. For the lengths the main grids use,
-//     N in {128, 256, 320, 512}, the transform is a template on N: every
-//     index, stride and radix is a compile-time constant.
+//  2. Runtime / and % in the inner loop. For every length the FFT size
+//     policy (snap_fft_size) gives from 64 to 1024 -- N in {64, 128, 192,
+//     256, 320, 384, 512, 576, 640, 704, 768, 1024} -- the transform is a
+//     template on N: every index, stride and radix is a compile-time
+//     constant.
 //  3. Radix-4 passes through two shared buffers with strided stores (4- to
 //     8-way bank conflicts). Here each thread takes whole radix-R
-//     butterflies (R = 8, 4, 5) into registers, multiplies the twiddles and
-//     runs the butterfly there, and the pass exchanges through one shared
-//     buffer: load, barrier, store, barrier. 512 = 8 x 8 x 8 is 3 passes,
-//     320 = 8 x 8 x 5 (the 5 a register butterfly), 256 = 8 x 8 x 4,
-//     128 = 8 x 4 x 4. The shared tile is element-major, 16 lines wide: the
-//     element e of line p sits at e * 16 + slot, and the 16 threads of a
-//     half-warp are the 16 lines of one butterfly, so every butterfly load
-//     and store touches 16 distinct 8-byte slots of one 128-byte row: no
-//     bank conflict, whatever the stride in e. The x launches move rows of v
-//     with float4 (4 elements of one line per thread) and spectrum rows
-//     with 8-byte accesses over consecutive k; there the slot is
-//     p ^ ((e ^ (e >> 2)) & 15), which is a permutation of the 16 slots both
-//     over 16 aligned consecutive e (the spectrum) and over e = 4 q + i for
-//     16 aligned consecutive q (the float4 rows), so those are conflict-free
-//     too (the mirror read Z[N - k] may pair two threads on one bank).
-//  4. Occupancy and loads in flight. One shared buffer of 16 lines is 64 KB
-//     at N = 512; blocks of 16 x 32 threads (16 x 16 at N = 128) hold at
-//     most 16 points each in registers, bounded to 64 registers a thread,
-//     so two blocks (32 warps) stay resident per SM. With two blocks an SM,
-//     a block's load phase must not wait on one load at a time: the y, z
+//     butterflies (R = 8, 4, 3, 5, 11) into registers, multiplies the
+//     twiddles and runs the butterfly there, and the pass exchanges through
+//     one shared buffer: load, barrier, store, barrier. The plans (Len<N>)
+//     are 8 x 8 x 8 at 512, 8 x 8 x 5 at 320, 8 x 8 x 11 at 704, and so on:
+//     eights first, the odd factor last, which is a register butterfly too
+//     (3 and 5 short ones, 11 a dense DFT over its five symmetric pairs), in
+//     place of the generic path's O(m^2) dense pass through shared memory. The
+//     shared tile is element-major, 16 lines wide: the element e of line p
+//     sits at e * 16 + slot, and the 16 threads of a half-warp are the 16
+//     lines of one butterfly, so every butterfly load and store touches 16
+//     distinct 8-byte slots of one 128-byte row: no bank conflict, whatever
+//     the stride in e (the radix-3 and radix-11 strides N/3, N/11 too). The
+//     x launches move rows of v with float4 (4 elements of one line per
+//     thread) and spectrum rows with 8-byte accesses over consecutive k;
+//     there the slot is p ^ ((e ^ (e >> 2)) & 15), which is a permutation
+//     of the 16 slots both over 16 aligned consecutive e (the spectrum) and
+//     over e = 4 q + i for 16 aligned consecutive q (the float4 rows: every
+//     N is a multiple of 64, so 16 aligned q never cross a line), so those
+//     are conflict-free too (the mirror read Z[N - k] may pair two threads
+//     on one bank).
+//  4. Occupancy and loads in flight. One shared buffer of 16 lines is
+//     128 N bytes (64 KB at N = 512, 128 KB at 1024). A line has tpl
+//     threads (8 at 64, 16 up to 192, 32 up to 512, 64 above), so that a
+//     thread holds at most 16 points in registers, bounded to 64 registers
+//     a thread: 32 warps stay resident per SM, as two blocks of 512 threads
+//     up to N = 512 (four of 256, eight of 128 below) and one block of 1024
+//     threads above, where two 16-line tiles no longer fit an SM's 228 KB.
+//     A block's load phase must not wait on one load at a time: the y, z
 //     and x inverse launches issue all of a thread's loads (16-byte where
 //     the layout allows) before storing any to shared memory, and the z
 //     launch fetches its OTF tile into shared memory with cp.async while
-//     the forward z transform runs (N <= 320, where two blocks still fit).
-// Every other length runs the first version's path (fft_lines below:
-// mixed-radix Stockham with radix-4/2 passes and one dense pass for the odd
-// factor, any length up to 8192), which is part of this kernel, with the
-// same pitched spectrum. The host picks the path per axis
-// (kernels/fft_ct.py radix_plan). The plans (Len<N>::plan) and the pitch
-// (spec_pitch) are reported by mil_conv3_ct_plan, and the card tests hold
-// them to the host's radix_plan and spec_pitch.
+//     the forward z transform runs (every length but 512 and 1024, where
+//     the resident blocks' two tiles would not fit; stage_otf).
+// Every other length (1088, 1280, ... up to 8192, and any length off the
+// policy's grid) runs the first version's path (fft_lines below:
+// mixed-radix Stockham with radix-4/2 passes and one dense pass for the
+// odd factor), which is part of this kernel, with the same pitched
+// spectrum. The host picks the path per axis (kernels/fft_ct.py
+// radix_plan). The plans (Len<N>::plan) and the pitch (spec_pitch) are
+// reported by mil_conv3_ct_plan, and the card tests hold them to the
+// host's radix_plan and spec_pitch.
 //
 // Keeping a whole plane on chip across the x and y transforms (a thread
 // block cluster's distributed shared memory holds 1 MB) would cut the
@@ -76,8 +88,9 @@
 // Twiddles between passes are exp(+-2 pi i t / n) from a table of n values
 // that the host built in float64 and rounded to float32 (the JAX package
 // builds its constants the same way, fft_pallas.py:72-135); the constants
-// inside the radix-8 and radix-5 butterflies are float32 roundings of
-// cos/sin of multiples of 2 pi / 8 and 2 pi / 5. All arithmetic is fp32.
+// inside the register butterflies are float32 roundings of
+// cos/sin of multiples of 2 pi / 8, 2 pi / 3, 2 pi / 5 and 2 pi / 11. All
+// arithmetic is fp32.
 // The TPU's bf16 hi/lo matmul splitting existed only because Mosaic has no
 // fp32 matmul precision and is not carried over.
 //
@@ -326,26 +339,38 @@ x_inverse_kernel(const float2* __restrict__ spec, float* __restrict__ out,
   }
 }
 
-// ---- length-specialised path: N in {128, 256, 320, 512} -----------------
+// ---- length-specialised path: every length snap_fft_size gives, 64-1024 --
 
 template <int... R> struct Radices {};
 
 // Threads per line (a block is kLines lines of tpl threads) and the radix
-// plan, in pass order.
+// plan, in pass order. tpl keeps a thread's points (N / tpl) at 16 or
+// fewer, so that a thread's butterflies fit the 64 registers two blocks
+// (32 warps) an SM leave: 16 threads a line up to 192 points, 32 up to
+// 512, 64 (one block of 1024 threads an SM) above.
 template <int N> struct Len;
+template <> struct Len<64> { static constexpr int tpl = 8; using plan = Radices<8, 8>; };
 template <> struct Len<128> { static constexpr int tpl = 16; using plan = Radices<8, 4, 4>; };
+template <> struct Len<192> { static constexpr int tpl = 16; using plan = Radices<8, 8, 3>; };
 template <> struct Len<256> { static constexpr int tpl = 32; using plan = Radices<8, 8, 4>; };
 template <> struct Len<320> { static constexpr int tpl = 32; using plan = Radices<8, 8, 5>; };
+template <> struct Len<384> { static constexpr int tpl = 32; using plan = Radices<8, 4, 4, 3>; };
 template <> struct Len<512> { static constexpr int tpl = 32; using plan = Radices<8, 8, 8>; };
+template <> struct Len<576> { static constexpr int tpl = 64; using plan = Radices<8, 8, 3, 3>; };
+template <> struct Len<640> { static constexpr int tpl = 64; using plan = Radices<8, 4, 4, 5>; };
+template <> struct Len<704> { static constexpr int tpl = 64; using plan = Radices<8, 8, 11>; };
+template <> struct Len<768> { static constexpr int tpl = 64; using plan = Radices<8, 8, 4, 3>; };
+template <> struct Len<1024> { static constexpr int tpl = 64; using plan = Radices<8, 8, 4, 4>; };
 
 // Calls f(std::integral_constant<int, N>) for a specialised length n;
 // false for any other length.
 template <class F> bool with_len(int n, F&& f) {
   switch (n) {
-    case 128: f(std::integral_constant<int, 128>{}); return true;
-    case 256: f(std::integral_constant<int, 256>{}); return true;
-    case 320: f(std::integral_constant<int, 320>{}); return true;
-    case 512: f(std::integral_constant<int, 512>{}); return true;
+#define MIL_LEN(N) \
+  case N: f(std::integral_constant<int, N>{}); return true;
+    MIL_LEN(64) MIL_LEN(128) MIL_LEN(192) MIL_LEN(256) MIL_LEN(320) MIL_LEN(384)
+    MIL_LEN(512) MIL_LEN(576) MIL_LEN(640) MIL_LEN(704) MIL_LEN(768) MIL_LEN(1024)
+#undef MIL_LEN
     default: return false;
   }
 }
@@ -413,13 +438,72 @@ template <int S> __device__ __forceinline__ void dft5(float2* a) {
   a[3] = csub(p2, q2);
 }
 
+template <int S> __device__ __forceinline__ void dft3(float2* a) {
+  constexpr float s3 = 0.86602540378443865f;  // sin 2pi/3
+  const float2 t = cadd(a[1], a[2]);
+  const float2 m = make_float2(a[0].x - 0.5f * t.x, a[0].y - 0.5f * t.y);
+  const float2 d = mul_i<S>(csub(a[1], a[2]));
+  const float2 q = make_float2(s3 * d.x, s3 * d.y);
+  a[0] = cadd(a[0], t);
+  a[1] = cadd(m, q);
+  a[2] = csub(m, q);
+}
+
+// cos and sin of 2 pi m / 11, m = 1..5
+__host__ __device__ constexpr float cos11(int m) {
+  return m == 1 ? 0.84125353283118117f : m == 2 ? 0.41541501300188644f
+       : m == 3 ? -0.14231483827328500f : m == 4 ? -0.65486073394528500f
+       : -0.95949297361449740f;
+}
+__host__ __device__ constexpr float sin11(int m) {
+  return m == 1 ? 0.54064081745559760f : m == 2 ? 0.90963199535451830f
+       : m == 3 ? 0.98982144188093280f : m == 4 ? 0.75574957435425830f
+       : 0.28173255684142967f;
+}
+
+// The dense 11-point DFT over the symmetric pairs t_k = a_k + a_(11-k),
+// u_k = a_k - a_(11-k): y_q = a_0 + sum_k cos(2 pi k q / 11) t_k and
+// y_(11-q) its mirror, +-S i sum_k sin(2 pi k q / 11) u_k.
+template <int S> __device__ __forceinline__ void dft11(float2* a) {
+  float2 t[5], u[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    t[k] = cadd(a[k + 1], a[10 - k]);
+    u[k] = csub(a[k + 1], a[10 - k]);
+  }
+  const float2 x0 = a[0];
+  float2 sum = x0;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) sum = cadd(sum, t[k]);
+#pragma unroll
+  for (int q = 1; q <= 5; ++q) {
+    float2 p = x0, r = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 1; k <= 5; ++k) {
+      const int m = k * q % 11;
+      const float c = cos11(m <= 5 ? m : 11 - m);
+      const float s = m <= 5 ? sin11(m) : -sin11(11 - m);
+      p = make_float2(fmaf(c, t[k - 1].x, p.x), fmaf(c, t[k - 1].y, p.y));
+      r = make_float2(fmaf(s, u[k - 1].x, r.x), fmaf(s, u[k - 1].y, r.y));
+    }
+    const float2 iq = mul_i<S>(r);
+    a[q] = cadd(p, iq);
+    a[11 - q] = csub(p, iq);
+  }
+  a[0] = sum;
+}
+
 template <int R, int S> __device__ __forceinline__ void dft(float2* a) {
-  if constexpr (R == 4) {
+  if constexpr (R == 3) {
+    dft3<S>(a);
+  } else if constexpr (R == 4) {
     dft4<S>(a[0], a[1], a[2], a[3]);
   } else if constexpr (R == 5) {
     dft5<S>(a);
+  } else if constexpr (R == 11) {
+    dft11<S>(a);
   } else {
-    static_assert(R == 8, "radix 4, 5 or 8");
+    static_assert(R == 8, "radix 3, 4, 5, 8 or 11");
     dft8<S>(a);
   }
 }
@@ -615,14 +699,15 @@ x_inverse_len(const float2* __restrict__ spec, float* __restrict__ out,
 template <int N>
 __device__ __forceinline__ void load_tile(float2* sm, const float2* g, size_t stride,
                                           int valid) {
-  constexpr int NT = block_threads<N>(), C2 = kLines / 2, IT = N * C2 / NT;
-  static_assert(N * C2 % NT == 0, "whole rounds");
+  constexpr int NT = block_threads<N>(), C2 = kLines / 2, IT = (N * C2 + NT - 1) / NT;
+  constexpr bool WHOLE = N * C2 % NT == 0;  // else the last round is partial
   float4 w[IT];
 #pragma unroll
   for (int u = 0; u < IT; ++u) {
     const int i = threadIdx.x + u * NT, j = i / C2, c = 2 * (i % C2);
     const float2* src = g + j * stride + c;
     w[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (!WHOLE && i >= N * C2) continue;
     if (c + 1 < valid) {
       w[u] = *reinterpret_cast<const float4*>(src);
     } else if (c < valid) {
@@ -634,7 +719,7 @@ __device__ __forceinline__ void load_tile(float2* sm, const float2* g, size_t st
 #pragma unroll
   for (int u = 0; u < IT; ++u) {
     const int i = threadIdx.x + u * NT, j = i / C2, c = 2 * (i % C2);
-    *reinterpret_cast<float4*>(sm + at<false>(j, c)) = w[u];
+    if (WHOLE || i < N * C2) *reinterpret_cast<float4*>(sm + at<false>(j, c)) = w[u];
   }
 }
 
@@ -683,11 +768,13 @@ y_inverse_len(float2* __restrict__ spec, const float2* __restrict__ tab, int kx,
 }
 
 // The z launch stages the tile's OTF in shared memory beside the spectrum
-// tile, fetched with cp.async while the forward transform runs, where two
-// blocks with both tiles still fit an SM (N <= 320); at N = 512 the inverse
-// transform's first pass reads it from device memory (OtfPre).
+// tile, fetched with cp.async while the forward transform runs, where the
+// min_blocks<N>() resident blocks with both tiles (and the 1 KB the card
+// reserves for each block) still fit an SM's 228 KB: every length but 512
+// (two blocks of 128 KB) and 1024 (one of 256 KB), whose inverse
+// transform's first pass reads the OTF from device memory (OtfPre).
 template <int N> __host__ __device__ constexpr bool stage_otf() {
-  return 2 * tile_bytes<N>() <= 113 * 1024;
+  return min_blocks<N>() * (2 * tile_bytes<N>() + 1024) <= 228 * 1024;
 }
 
 // times the staged OTF of this thread's column

@@ -35,7 +35,9 @@ LAUNCHES_SPECIALISED = {"x": 0, "y": 0, "z": 0}
 # the radices of the length-specialised transforms, in pass order; the
 # kernel's own table (csrc/fft_ct.cu Len<N>::plan) is held to this one on
 # the card through kernel_plan
-_PLANS = {128: (8, 4, 4), 256: (8, 8, 4), 320: (8, 8, 5), 512: (8, 8, 8)}
+_PLANS = {64: (8, 8), 128: (8, 4, 4), 192: (8, 8, 3), 256: (8, 8, 4), 320: (8, 8, 5),
+          384: (8, 4, 4, 3), 512: (8, 8, 8), 576: (8, 8, 3, 3), 640: (8, 4, 4, 5),
+          704: (8, 8, 11), 768: (8, 8, 4, 3), 1024: (8, 8, 4, 4)}
 # spectrum rows are padded to a multiple of this many complex64 (128 bytes)
 PITCH_QUANTUM = 16
 

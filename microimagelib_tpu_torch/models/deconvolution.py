@@ -123,7 +123,8 @@ def _on_cuda(arr):
 # beats torch.fft at that grid and every larger one among the grids of
 # chip_smoke.py's Phase 5 ladder whose three axes all take K3's
 # length-specialised transform, on an NVIDIA H100 (PERF.md section 6):
-# 128^3, the smallest such grid.
+# 128^3, the smallest such grid, with all twelve specialised lengths on
+# the ladder (22 grids up to (1024, 512, 512) and (128, 1024, 1024)).
 CT_MIN_VOXELS = 2 ** 21
 
 
@@ -135,9 +136,13 @@ def _fft_impl(shape, arr=None):
     version on a CPU tensor); ``auto`` (default) runs K3 on a CUDA
     ``arr`` of at least ``MIL_FFT_CT_MIN_VOXELS`` voxels (default
     :data:`CT_MIN_VOXELS`) whose every axis takes K3's length-specialised
-    transform (:func:`ct_specialised`), else ``torch.fft``: with 384 on
-    every axis the generic path ran 1.6-1.7x slower than ``torch.fft`` on
-    an H100."""
+    transform (:func:`ct_specialised`: every length the FFT size policy
+    gives from 64 to 1024), else ``torch.fft``: K3's generic path, which
+    any other length takes, ran 1.6-1.7x slower than ``torch.fft`` on an
+    H100 (at 384, before 384 had a plan). No specialised length is routed
+    to ``torch.fft`` by name: on the H100's Phase 5 ladder K3 beat
+    ``torch.fft`` on every grid of specialised lengths from 2^21 voxels
+    on."""
     impl = os.environ.get("MIL_FFT_IMPL", "auto")
     if impl in ("xla", "matmul"):
         return "torch"

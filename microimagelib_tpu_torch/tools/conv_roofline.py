@@ -113,17 +113,22 @@ def kernel_device_ms(fn, names, reps=CHAIN):
     """Device ms per launch of each kernel in ``names`` (matched as a
     substring of the profiler's key) over ``reps`` calls of ``fn``, from
     ``torch.profiler``: its device time over the launches the trace holds
-    (a trace can miss some). Raises when the trace holds none of one."""
+    (a trace can miss some, and one late in a long process can come back
+    empty: up to three traces are taken). Raises when the traces hold none
+    of one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
-            if e.device_time_total > 0 and e.count]
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
+                if e.device_time_total > 0 and e.count]
+        if all(any(name in key for key, _t, _n in rows) for name in names):
+            break
     out = {}
     for name in names:
         hit = [(t, n) for key, t, n in rows if name in key]

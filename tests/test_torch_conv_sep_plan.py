@@ -159,7 +159,7 @@ def test_sep_plans_applies_the_rule_only_on_cuda_and_under_auto(monkeypatch):
     # fusion grid, torch.fft with an axis K3 has no specialised length for
     assert D._fft_impl((320, 512, 320), np.empty(0)) == "ct"
     assert D._sep_plans(g, gb, (320, 512, 320)) is None
-    assert D._fft_impl((320, 512, 384), np.empty(0)) == "torch"
-    assert D._sep_plans(g, gb, (320, 512, 384))[0] == "pair"
+    assert D._fft_impl((320, 512, 1088), np.empty(0)) == "torch"
+    assert D._sep_plans(g, gb, (320, 512, 1088))[0] == "pair"
     monkeypatch.setenv("MIL_CONV_SEP_FUSED", "1")               # opting into K2 opts in
     assert D._sep_plans(g, gb, shape)[0] == "fused"

@@ -34,7 +34,9 @@ def _make(shape, seed=0):
     return v, otf, ref
 
 
-@pytest.mark.parametrize("shape", [(32, 32, 128), (64, 32, 128), (32, 96, 128)])
+@pytest.mark.parametrize("shape", [(32, 32, 128), (64, 32, 128), (32, 96, 128),
+                                   (32, 64, 384),     # x 384 = 8 x 4 x 4 x 3
+                                   (32, 192, 128)])   # y 192 = 8 x 8 x 3
 def test_conv3_ct_matches_jax_and_f64(shape):
     v, otf, ref = _make(shape)
     assert ct_supported(shape) and JF.ct_supported(shape)
@@ -158,6 +160,12 @@ def test_kernel_algorithm_transliteration_matches_f64(shape):
 _C8 = np.float32(0.70710678118654752)
 _C1, _C2 = np.float32(0.30901699437494742), np.float32(-0.80901699437494742)
 _S1, _S2 = np.float32(0.95105651629515357), np.float32(0.58778525229247313)
+_S3 = np.float32(0.86602540378443865)
+# csrc/fft_ct.cu cos11 / sin11: cos and sin of 2 pi m / 11, m = 1..5
+_COS11 = np.float32([0.84125353283118117, 0.41541501300188644, -0.14231483827328500,
+                     -0.65486073394528500, -0.95949297361449740])
+_SIN11 = np.float32([0.54064081745559760, 0.90963199535451830, 0.98982144188093280,
+                     0.75574957435425830, 0.28173255684142967])
 
 
 def _mul_i(a, s):
@@ -186,7 +194,33 @@ def _dft5(a, s):
     return [a[0] + (t1 + t2), p1 + q1, p2 + q2, p2 - q2, p1 - q1]
 
 
-_DFT = {4: lambda a, s: _dft4(*a, s), 5: _dft5, 8: _dft8}
+def _dft3(a, s):
+    t = a[1] + a[2]
+    m = a[0] - np.float32(0.5) * t
+    q = _S3 * _mul_i(a[1] - a[2], s)
+    return [a[0] + t, m + q, m - q]
+
+
+def _dft11(a, s):
+    """The dense 11-point DFT over the pairs t_k = a_k + a_(11-k), u_k =
+    a_k - a_(11-k), with the kernel's float32 constants."""
+    t = [a[k] + a[11 - k] for k in range(1, 6)]
+    u = [a[k] - a[11 - k] for k in range(1, 6)]
+    out = [None] * 11
+    out[0] = a[0] + sum(t[1:], t[0])
+    for q in range(1, 6):
+        p, r = a[0], np.zeros_like(a[0])
+        for k in range(1, 6):
+            m = k * q % 11
+            c = _COS11[min(m, 11 - m) - 1]
+            sn = _SIN11[m - 1] if m <= 5 else -_SIN11[10 - m]
+            p, r = p + c * t[k - 1], r + sn * u[k - 1]
+        iq = _mul_i(r, s)
+        out[q], out[11 - q] = p + iq, p - iq
+    return out
+
+
+_DFT = {3: _dft3, 4: lambda a, s: _dft4(*a, s), 5: _dft5, 8: _dft8, 11: _dft11}
 
 
 def _specialised(x, sign, tab):
@@ -277,7 +311,11 @@ def _pitched_transliteration(v, otf):
     return out[:nz * ny].reshape(nz, ny, nx) / (nz * ny * nx)
 
 
-@pytest.mark.parametrize("n", [128, 256, 320, 512])
+# every length snap_fft_size gives from 64 to 1024 (csrc/fft_ct.cu Len<N>)
+SPECIALISED = (64, 128, 192, 256, 320, 384, 512, 576, 640, 704, 768, 1024)
+
+
+@pytest.mark.parametrize("n", SPECIALISED)
 @pytest.mark.parametrize("sign", [-1, 1])
 def test_specialised_transform_matches_f64(n, sign):
     rng = np.random.default_rng(n)
@@ -294,6 +332,8 @@ def test_specialised_transform_matches_f64(n, sign):
     (6, 256, 256),    # y and x specialised, z generic
     (320, 4, 320),    # kx = 161 in a pitch of 176
     (3, 512, 512),    # 1536 rows; y 512
+    (64, 6, 192),     # z 8 x 8, x 8 x 8 x 3: kx = 97 in a pitch of 112
+    (3, 704, 576),    # y 8 x 8 x 11, x 8 x 8 x 3 x 3
 ])
 def test_pitched_transliteration_matches_f64(shape):
     v, otf, ref = _make(shape, seed=2)
@@ -303,19 +343,27 @@ def test_pitched_transliteration_matches_f64(shape):
 
 
 def test_radix_plan_covers_the_main_grids():
-    for shape in ((320, 512, 512), (256, 512, 512), (320, 512, 320)):
-        for n in shape:
-            plan = K.radix_plan(n)
-            assert plan is not None and int(np.prod(plan)) == n, (shape, n)
-            assert set(plan) <= {4, 5, 8}
-    for n in (6, 40, 48, 64, 96, 100, 384, 1024):
+    """Every length the FFT size policy gives from 64 to 1024 has a plan
+    whose radices multiply to it; lengths beyond take the generic path."""
+    from microimagelib_tpu_torch.ops.basics import snap_fft_size
+
+    snapped = {snap_fft_size(k) for k in range(1, 1025)}
+    assert {n for n in snapped if n >= 64} == set(SPECIALISED)
+    for n in SPECIALISED:
+        plan = K.radix_plan(n)
+        assert plan is not None and int(np.prod(plan)) == n, n
+        assert set(plan) <= {3, 4, 5, 8, 11} and len(plan) <= 7
+    for n in (6, 16, 32, 40, 48, 96, 100, 1088, 1280):
         assert K.radix_plan(n) is None
     assert K.ct_specialised((320, 512, 512)) and K.ct_specialised((128, 128, 256))
-    assert not K.ct_specialised((64, 256, 256))            # z generic
-    assert not K.ct_specialised((320, 384, 512))           # y generic
-    assert not K.ct_specialised((320, 512, 384))           # x generic
+    assert K.ct_specialised((64, 256, 256)) and K.ct_specialised((384, 640, 640))
+    assert K.ct_specialised((704, 1024, 1024)) and K.ct_specialised((192, 384, 576))
+    assert not K.ct_specialised((32, 256, 256))            # z generic
+    assert not K.ct_specialised((320, 1088, 512))          # y generic
+    assert not K.ct_specialised((320, 512, 1280))          # x generic
     assert K.spec_pitch(512) == 272 and K.spec_pitch(320) == 176
     assert K.spec_pitch(40) == 32 and K.spec_pitch(128) == 80
+    assert K.spec_pitch(64) == 48 and K.spec_pitch(1024) == 528
 
 
 def _slot(e, p, swz):
@@ -323,18 +371,39 @@ def _slot(e, p, swz):
     return e * 16 + ((p ^ ((e ^ (e >> 2)) & 15)) if swz else p)
 
 
-@pytest.mark.parametrize("n", [128, 256, 320, 512])
+def _pass_elements(n):
+    """Per pass of radix_plan(n): the elements each butterfly j loads (j +
+    r n/R) and stores ((j // ns) ns R + j % ns + q ns) (csrc/fft_ct.cu
+    pass). The 16 threads of a half-warp run butterfly j of 16 lines."""
+    ns = 1
+    for r_ in K.radix_plan(n):
+        span = n // r_
+        loads, stores = [], []
+        for j in range(span):
+            o = (j // ns) * ns * r_ + j % ns
+            loads += [j + r * span for r in range(r_)]
+            stores += [o + q * ns for q in range(r_)]
+        yield loads, stores
+        ns *= r_
+
+
+@pytest.mark.parametrize("n", SPECIALISED)
 def test_shared_tile_is_bank_conflict_free(n):
     """Every 16-thread half-warp of 8-byte accesses the kernel makes hits 16
     distinct 8-byte slots of a 128-byte row group (32 banks): the butterfly
-    loads and stores (16 lines, one element), and in the x launches the
-    float4 rows (element 4q + i, 16 aligned q) and the spectrum rows (16
-    aligned k). The layout is a permutation of the tile."""
+    loads and stores of every pass (16 lines, one element each: radix 3 and
+    11 with their strides n/3 and n/11 as much as 4, 5 and 8), and in the x
+    launches the float4 rows (element 4q + i, 16 aligned q) and the
+    spectrum rows (16 aligned k). The layout is a permutation of the tile,
+    and each pass loads and stores every element of a line once."""
     for swz in (False, True):
         slots = {_slot(e, p, swz) for e in range(n) for p in range(16)}
         assert slots == set(range(16 * n))
         for e in range(n):
             assert len({_slot(e, p, swz) % 16 for p in range(16)}) == 16
+    for loads, stores in _pass_elements(n):
+        assert sorted(loads) == sorted(stores) == list(range(n))
+    assert n % 64 == 0 and (n // 4) % 16 == 0        # 16 aligned q stay in a line
     for p in range(16):
         for q0 in range(0, n // 4, 16):
             for i in range(4):
@@ -394,13 +463,19 @@ def test_fft_impl_policy(monkeypatch):
     assert PD._fft_impl((128, 128, 128), cpu) == "ct"      # exactly 2^21
     assert PD._fft_impl((128, 128, 256), cpu) == "ct"
     assert PD._fft_impl((128, 512, 512), cpu) == "ct"
-    # a generic length on any axis: torch.fft, whatever the size
-    assert PD._fft_impl((64, 256, 256), cpu) == "torch"
-    assert PD._fft_impl((64, 384, 384), cpu) == "torch"
-    assert PD._fft_impl((384, 512, 512), cpu) == "torch"
-    assert PD._fft_impl((512, 512, 1024), cpu) == "torch"
+    # every length the FFT size policy gives from 64 to 1024 has a plan
+    assert PD._fft_impl((64, 256, 256), cpu) == "ct"
+    assert PD._fft_impl((64, 384, 384), cpu) == "ct"
+    assert PD._fft_impl((384, 512, 512), cpu) == "ct"
+    assert PD._fft_impl((512, 512, 1024), cpu) == "ct"
+    assert PD._fft_impl((384, 640, 640), cpu) == "ct"
+    # a length without a plan on any axis: torch.fft, whatever the size
+    assert PD._fft_impl((512, 512, 1088), cpu) == "torch"
+    assert PD._fft_impl((32, 512, 512), cpu) == "torch"
+    assert PD._fft_impl((1280, 512, 512), cpu) == "torch"
     monkeypatch.setenv("MIL_FFT_CT_MIN_VOXELS", str(2 ** 18))
-    assert PD._fft_impl((64, 64, 64), cpu) == "torch"      # 64 is a generic length
+    assert PD._fft_impl((64, 64, 64), cpu) == "ct"         # 2^18, 64 has a plan
+    assert PD._fft_impl((32, 128, 128), cpu) == "torch"    # 32 has none
     monkeypatch.setenv("MIL_FFT_CT_MIN_VOXELS", str(2 ** 25))
     assert PD._fft_impl((128, 256, 512), cpu) == "torch"   # the knob keeps its meaning
     assert PD._fft_impl((128, 512, 512), cpu) == "ct"      # exactly 2^25
@@ -447,3 +522,59 @@ def test_convolver_relays_otfs_only_for_k3():
     assert o.is_contiguous() and torch.equal(o, otf)
     conv, (o,) = PD._convolver("torch", (5, 6, 8), (otf,))
     assert o is otf
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_decon_dualview_on_new_lengths_matches_jax(monkeypatch, impl):
+    """The slice end to end on a grid of the new lengths: (40, 24, 180)
+    pads to (64, 32, 192), dual view with Wiener-Butterworth back
+    projectors, 2 iterations, against the JAX package on the same numpy
+    inputs; the port on its torch.fft route and (``pallas``) through
+    conv3_ct's wrapper. Tolerance rtol = atol/max = 2e-4, the dual-view
+    parity test's (tests/test_torch_deconvolution.py)."""
+    from microimagelib_tpu.models import deconvolution as JD
+    from microimagelib_tpu_torch.models import gen_backprojector
+    from test_conv_sep import gauss3
+
+    shape = (40, 24, 180)
+    assert PD._fft_grid(shape) == (64, 32, 192)
+    rng = np.random.default_rng(14)
+    a = (rng.random(shape) * 100 + 5).astype(np.float32)
+    b = (rng.random(shape) * 100 + 5).astype(np.float32)
+    psf_a = gauss3((7, 7, 7), (1.6, 1.0, 1.1))
+    psf_b = gauss3((7, 7, 7), (1.1, 1.0, 1.6))
+    bp_a, bp_b = gen_backprojector(psf_a), gen_backprojector(psf_b)
+    ref = JD.decon_dualview(a, b, psf_a, psf_b, n_iters=2, psf_bp_a=bp_a,
+                            psf_bp_b=bp_b, mem_mode=0)
+    monkeypatch.setenv("MIL_FFT_IMPL", impl)
+    calls = []
+
+    def counting(v, otf):
+        calls.append(tuple(v.shape))
+        return conv3_ct(v, otf)
+
+    monkeypatch.setattr(PD, "conv3_ct", counting)
+    out = PD.decon_dualview(a, b, psf_a, psf_b, n_iters=2, psf_bp_a=bp_a,
+                            psf_bp_b=bp_b, mem_mode=0)
+    assert calls == ([(64, 32, 192)] * 8 if impl == "pallas" else [])
+    assert out.shape == shape and out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-4 * np.abs(ref).max())
+
+
+def test_k3_times_tool_maps_launches_and_needs_a_card(monkeypatch):
+    """tools/k3_times.py reads K3's five launches off a trace on either
+    path (the generic path's two y launches share one kernel name) and
+    refuses to run without a card."""
+    from microimagelib_tpu_torch.tools import k3_times as T
+
+    rows = [("void x_forward_len<512>", 0.25, 10), ("void y_forward_len<512>", 0.24, 10),
+            ("void z_kernel_len<384>", 0.75, 10), ("void y_inverse_len<512>", 0.23, 10),
+            ("void x_inverse_len<512>", 0.22, 10)]
+    assert T.launch_ms(rows) == {"x forward": 0.25, "y forward": 0.24, "z x OTF": 0.75,
+                                 "y inverse": 0.23, "x inverse": 0.22}
+    generic = [("x_forward_kernel", 1.0, 10), ("y_kernel", 2.0, 20), ("z_kernel", 3.0, 10),
+               ("x_inverse_kernel", 4.0, 10)]
+    assert T.launch_ms(generic) == {"x forward": 1.0, "y forward": 2.0, "z x OTF": 3.0,
+                                    "y inverse": 2.0, "x inverse": 4.0}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert T.main(["--grids", "8x8x16"]) == 1

@@ -165,6 +165,10 @@ def test_conv3_sep_allocates_only_out(cuda, case):
     assert torch.cuda.max_memory_allocated(cuda) - base == nbytes
 
 
+# the lengths specialised after 128, 256, 320 and 512
+NEW_LENGTHS = (64, 192, 384, 576, 640, 704, 768, 1024)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [
     (32, 32, 128),
@@ -177,6 +181,11 @@ def test_conv3_sep_allocates_only_out(cuda, case):
     (256, 40, 256),
     (5, 3, 512),      # 15 rows: the last x pair has no partner, one partial block
     (512, 24, 64),    # z 512: the OTF read from device memory, not staged
+    # every other length the FFT size policy gives from 64 to 1024 on each
+    # axis: z with y generic, y with x generic, x with 15 rows (odd)
+    *((n, 24, 128) for n in NEW_LENGTHS),
+    *((8, n, 96) for n in NEW_LENGTHS),
+    *((5, 3, n) for n in NEW_LENGTHS),
 ])
 def test_conv3_ct_kernel_matches_references(cuda, shape):
     rng = np.random.default_rng(0)
@@ -200,7 +209,7 @@ def test_conv3_ct_kernel_matches_references(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [40, 64, 128, 256, 320, 384, 512])
+@pytest.mark.parametrize("n", [40, 128, 256, 320, 512, *NEW_LENGTHS, 1088])
 def test_conv3_ct_kernel_plan_is_the_hosts(cuda, n):
     """The compiled kernel's radix plan and spectrum pitch are the ones the
     host dispatches on and allocates for."""
