@@ -19,7 +19,10 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      prints the route MIL_CONV_SEP=auto takes there, K1's launch plan,
      registers and resident blocks, the peak device memory of one K1 call,
      its time against the z-shaped K7 copy at 512^3 and the time of each
-     measurement switch;
+     measurement switch; the route ladder: ms per RL iteration of the K1
+     route for rank-1 Gaussians of tap costs 9 to 55 against the K3 and
+     ``torch.fft`` routes, at 512^3 and at (192, 640, 640), failing where
+     SEP_MAX_TAP_COST picks a route slower than ROUTE_GATE x the faster;
   3. the same for a 45-degree tilted (17, 9, 25) PSF on a (256, 512, 512)
      volume (rank > 1 with per-tap rolls; rtol/atol 5e-4);
   4. runs the deconSingleView CLI on a 200 x 512 x 512 16-bit TIFF (on
@@ -125,8 +128,9 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      10 iterations, 16-bit MP_ZProj and MP_3D_Yaxis: the tool's checks
      (output tree, every final NCC > 0.5), K4 and K5 launched, the decon's
      kernel (auto's route for the surrogate's PSF) launched 40 times a
-     timepoint, no plain-version call; tp/min; the rotating MIP about y
-     alone at 320^3. (b) Phase 14's raw views as 16-bit TIFFs for 2
+     timepoint, K8 launched once per rotating MIP and no plain MIP route
+     called, no plain-version call; tp/min; the rotating MIP about y alone
+     at 320^3 on auto's route (K8) and on the gather route. (b) Phase 14's raw views as 16-bit TIFFs for 2
      timepoints (t1: view B moved by BATCH_DRIFT) through regMode 3 from
      the 2-D MIP start (choice 4) and regMode 1 from the phasor start
      (choice 3, test image 0): each run's t0 matrix within
@@ -201,6 +205,16 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      one): 20 K3 calls; each within 2e-4 x max of the same call under
      MIL_FFT_IMPL=xla, with its peak device memory and ms per iteration
      on both routes.
+ 21. the rotating MIP's routes (``models/projections.py``): K8
+     (``csrc/mip_rot.cu``) against its plain version (the factored
+     einsums over the tap tables) at (128, 128, 128), and against the
+     gather route at (320, 320, 320) and (320, 512, 320), about both axes,
+     36 frames, within 1e-5 x max; two launches bit for bit; K8's
+     registers and spills (``kernel_attrs`` and ``nvcc -Xptxas -v``), its
+     bound from the run's matrices, the times of K8, the gather route and
+     (at (128, 128, 128), where W fits) the one-hot matmul route, and the
+     plain version once at (320, 320, 320); ``mip3d_params``' CUDA
+     ``auto`` (K8) must be the fastest route timed at each shape.
 
 The CLI phases (4, 8, 11, 15, 17, 18 (d), 19 (e)) must read and write their TIFFs
 through the native codec only (``io.tiff.COUNTS``); Phase 11 prints the
@@ -210,7 +224,8 @@ It prints the card's name and power limit beside every time, ms per RL
 iteration for the K1, K2, K3 and ``torch.fft`` routes, one JSON line
 describing each kernel (its time, its plain version's, the least time the
 card could take for the same work, the time of the nearest PyTorch
-library call, its launches in Phase 17 (a), ``batch_launches``, in
+library call (K8: also the gather route's time, ``gather_route_ms``),
+its launches in Phase 17 (a), ``batch_launches``, in
 Phase 18 (c), ``bhbm_launches``, and in Phase 19 (e), ``mesh_launches``), and
 as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -243,6 +258,7 @@ from microimagelib_tpu_torch.kernels import build
 from microimagelib_tpu_torch.kernels import conv_sep as K
 from microimagelib_tpu_torch.kernels import corr as C
 from microimagelib_tpu_torch.kernels import fft_ct as F
+from microimagelib_tpu_torch.kernels import mip_rot as MR
 from microimagelib_tpu_torch.kernels import pipe_copy as P
 from microimagelib_tpu_torch.kernels import rl_fused as KF
 from microimagelib_tpu_torch.models import batch as PB
@@ -292,6 +308,7 @@ PHASOR_SHIFTS = ((7, -12, 5), (150, 9, -4))
 # the drift (dof_to_matrix, 6 DOF) of view B at (b)'s second timepoint
 E2E_XY = 320
 E2E_TPS = 3
+E2E_MIP_AXES = 1        # the surrogate saves the rotating MIP about y alone
 BATCH_TPS = 2
 BATCH_DRIFT = (0.6, -0.4, 0.1, 0.05, -0.03, 0.04, 1, 1, 1)
 # the two (b) runs' first-timepoint matrices, voxels apart over the
@@ -555,8 +572,11 @@ def main():
     iter_ms = rl_iteration_ms(img_d, psf, fwd, bp, card, "512^3")
     check_auto_route(route2, img.shape, dev, iter_ms["kernel_route"], iter_ms["k3_route"],
                      iter_ms["torch_fft_route"], "512^3")
-    route_ladder(img_d, iter_ms, card)
+    route_ladder(img_d, {"ct": iter_ms["k3_route"], "torch": iter_ms["torch_fft_route"]},
+                 card, [gauss3(*c) for c in ROUTE_LADDER])
     del img_d, imgc
+    torch.cuda.empty_cache()
+    route_ladder_grid2(dev, card)
 
     # ---- Phase 3: the measured-PSF class -------------------------------
     print(f"Phase 3: decon_singleview (256, 512, 512), tilted PSF, {N_ITERS} iterations")
@@ -648,6 +668,8 @@ def main():
     mesh = phase19_mesh(dev, card, views)
     torch.cuda.synchronize()
     phase20_new_lengths(dev, card)
+    torch.cuda.synchronize()
+    k8 = phase21_mip(dev, card)
     # K6 was held against K5 at every shape the fusion launched it at; its
     # JSON numbers are those of the largest such shape
     unchecked = set(main14["k6_shapes"]) - set(k6)
@@ -746,11 +768,26 @@ def main():
         "bound_by": k7["bound"][1],
         "library_ms": k7["library_ms"],
     })
+    kernels.append({
+        "name": "mip_rot",
+        "route": "cuda",
+        "source": "microimagelib_tpu_torch/csrc/mip_rot.cu",
+        # not a Pallas kernel: the JAX package's XLA factored route
+        "replaces": "microimagelib_tpu/models/projections.py:277",
+        "launches": batch["K8"],
+        "max_abs_err": k8["max_abs_err"],
+        "ms": k8["ms"],
+        "plain_ms": k8["plain_ms"],
+        "bound_ms": k8["bound"][0],
+        "bound_by": k8["bound"][1],
+        "library_ms": None,   # no single PyTorch call computes a rotating MIP
+        "gather_route_ms": k8["gather_ms"],
+    })
     # the launches of Phase 17 (a), the batch's own path, beside each entry's
     # main-path count
     ids = {"conv3_sep": "K1", "rl_iter_fused": "K2", "conv3_ct": "K3",
            "corr3d_partials": "K5", "corr3d_grad": "K4",
-           "corr3d_partials_nprobe": "K6", "pipe_copy": "K7"}
+           "corr3d_partials_nprobe": "K6", "pipe_copy": "K7", "mip_rot": "K8"}
     for k in kernels:
         k["batch_launches"] = batch[ids[k["name"]]]
         # and of Phase 18 (c), the low-memory registration's coarse ladder
@@ -1665,7 +1702,7 @@ def reg_ncc(target, source, m):
 
 
 def zero_counts():
-    K.LAUNCHES = KF.LAUNCHES = F.LAUNCHES = P.LAUNCHES = 0
+    K.LAUNCHES = KF.LAUNCHES = F.LAUNCHES = P.LAUNCHES = MR.LAUNCHES = 0
     F.LAUNCHES_SPECIALISED = dict.fromkeys("xyz", 0)
     C.K4_LAUNCHES = C.K5_LAUNCHES = C.K6_LAUNCHES = C.PLAIN_CALLS = 0
 
@@ -1673,7 +1710,7 @@ def zero_counts():
 def counts():
     return {"K1": K.LAUNCHES, "K2": KF.LAUNCHES, "K3": F.LAUNCHES,
             "K4": C.K4_LAUNCHES, "K5": C.K5_LAUNCHES, "K6": C.K6_LAUNCHES,
-            "K7": P.LAUNCHES, "plain": C.PLAIN_CALLS}
+            "K7": P.LAUNCHES, "K8": MR.LAUNCHES, "plain": C.PLAIN_CALLS}
 
 
 FUSED_ON = {"MIL_CONV_SEP_FUSED": "1", "MIL_REG_BATCH_LS": "1"}
@@ -1997,36 +2034,71 @@ def check_auto_route(route, shape, dev, k1_ms, k3_ms, torch_ms, label):
                              f"ran faster")
 
 
-# Phase 2's route ladder at 512^3: rank-1 Gaussians (size, sigmas) whose
-# plans run K1's generic instantiation at tap costs 9 to 45 (the points
-# that set SEP_MAX_TAP_COST's generic ceilings), and the dual-view PSF of
-# view A (cost 55) on its specialised one
+# Phase 2's route ladder: rank-1 Gaussians (size, sigmas) whose plans run
+# K1's generic instantiation at tap costs 9 to 45 (the points that set
+# SEP_MAX_TAP_COST's generic ceilings), and the dual-view PSF of view A
+# (cost 55) on its specialised one; at 512^3 all of them, at LADDER_GRID2
+# (Phase 20 (b)'s grid, of K3's length 640) the generic costs 9, 15, 21 and
+# 33 and the specialised 27 (the bench PSF) and 55
 ROUTE_LADDER = (((3, 3, 3), (0.6,) * 3), ((5, 5, 5), (0.8,) * 3),
                 ((7, 7, 7), (1.1,) * 3), ((11, 11, 11), (1.6,) * 3),
                 ((17, 9, 9), (2.5, 1.5, 1.5)), ((13, 13, 13), (2.0,) * 3),
                 ((15, 15, 15), (2.2,) * 3), ((25, 25, 25), (3.5, 1.2, 1.2)))
+LADDER_GRID2 = (192, 640, 640)
+# the ladder's gate: the route the rule picks within this factor of the
+# faster of K1 and each FFT route (routes within a few percent of each
+# other swap between runs; Phase 5's ladder gate is the same 10%)
+ROUTE_GATE = 1.10
 
 
-def route_ladder(img_d, iter_ms, card):
-    """ms per RL iteration of the K1 route for each ROUTE_LADDER PSF on the
-    512^3 image, beside the K3 and torch.fft routes (PSF-independent, from
-    Phase 2's iter_ms), with the route sep_auto_takes picks against each.
-    A printed mismatch is a finding for SEP_MAX_TAP_COST, not a failure:
-    routes within a few percent of each other swap between runs."""
-    fft_ms = {"ct": iter_ms["k3_route"], "torch": iter_ms["torch_fft_route"]}
-    for size, sigma in ROUTE_LADDER:
-        psf = gauss3(size, sigma)
+def route_ladder(img_d, fft_ms, card, psfs):
+    """ms per RL iteration of the K1 route for each PSF on the device image
+    ``img_d``, beside the K3 and torch.fft routes' (``fft_ms``, keyed 'ct'
+    and 'torch': PSF-independent), with the route sep_auto_takes picks
+    against each FFT route. Fails where the pick is slower than ROUTE_GATE
+    x the faster of the two (the rule's ceilings must then move)."""
+    shape = tuple(img_d.shape)
+    bad = []
+    for psf in psfs:
         with env(MIL_CONV_SEP="1"):
-            pair = D._sep_plans(psf, flip(psf), tuple(img_d.shape))[1]
+            pair = D._sep_plans(psf, flip(psf), shape)[1]
         k1 = cuda_ms(lambda: D._rl_single_sep(img_d, *pair, 2, False), 2) / 2
         spec = all(D.k1_specialised(p) for p in pair)
         picks = {impl: D.sep_auto_takes(pair, impl) for impl in fft_ms}
         right = {impl: picks[impl] == (k1 < fft_ms[impl]) for impl in fft_ms}
-        print(f"  route ladder {size} sigma {sigma}: tap cost {D.tap_cost(pair[0])}, "
+        print(f"  route ladder {shape} {psf.shape}: tap cost {D.tap_cost(pair[0])}, "
               f"{'specialised' if spec else 'generic'}; K1 route {k1:.3f} ms an iteration "
               f"(K3 {fft_ms['ct']:.3f}, torch.fft {fft_ms['torch']:.3f}); auto takes K1 "
               f"against K3 {picks['ct']}, against torch.fft {picks['torch']}; "
               f"agrees with the times {right} [{card}]")
+        for impl, pick in picks.items():
+            taken = k1 if pick else fft_ms[impl]
+            if taken > ROUTE_GATE * min(k1, fft_ms[impl]):
+                bad.append((shape, psf.shape, D.tap_cost(pair[0]), impl))
+    if bad:
+        raise AssertionError(f"SEP_MAX_TAP_COST {D.SEP_MAX_TAP_COST} picks a route slower "
+                             f"than {ROUTE_GATE} x the faster at {bad}")
+
+
+def route_ladder_grid2(dev, card):
+    """Phase 2's route ladder on LADDER_GRID2: the K3 and torch.fft routes'
+    ms per iteration there, then route_ladder on the generic costs 9, 15,
+    21 and 33 and the specialised 27 and 55."""
+    rng = np.random.default_rng(SEED + 2)
+    img_d = torch.from_numpy(rng.random(LADDER_GRID2, dtype=np.float32) * 100 + 1).to(dev)
+    psf = bench_psf()
+    otf = D.gen_otf(psf, LADDER_GRID2, device=dev)
+    otf_bp = D.gen_otf(flip(psf), LADDER_GRID2, device=dev)
+    fft_ms = {impl: cuda_ms(lambda: D._rl_single(img_d, otf, otf_bp, N_ITERS, False, impl),
+                            2) / N_ITERS for impl in ("ct", "torch")}
+    del otf, otf_bp
+    route = D._fft_impl(LADDER_GRID2, img_d)
+    print(f"  route ladder at {LADDER_GRID2}: the FFT route takes {route}; ms per RL "
+          f"iteration K3 {fft_ms['ct']:.3f}, torch.fft {fft_ms['torch']:.3f} [{card}]")
+    psfs = [gauss3(*c) for c in ROUTE_LADDER[:4]] + [psf, gauss3(*ROUTE_LADDER[-1])]
+    route_ladder(img_d, fft_ms, card, psfs)
+    del img_d
+    torch.cuda.empty_cache()
 
 
 def k1_report(v, plan, aux, k_ms, card, label):
@@ -2158,6 +2230,30 @@ class LaunchShapes:
               f", each held against its plain version in Phase 1, 5 or 9")
 
 
+class PlainMips:
+    """Counts the rotating MIP's plain routes (gather, one-hot matmul, the
+    factored contraction) while it is entered."""
+
+    def __init__(self):
+        self.calls = 0
+        self._orig = []
+
+    def __enter__(self):
+        for mod, name in ((PP, "_rotate_and_mip_all"), (PP, "_rotate_and_mip_all_matmul"),
+                          (MR, "mip_rot_torch")):
+            def counted(*args, _orig=getattr(mod, name), **kw):
+                self.calls += 1
+                return _orig(*args, **kw)
+
+            self._orig.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self._orig:
+            setattr(mod, name, orig)
+
+
 def print_timepoints(label, timings, launches, card):
     """Per timepoint the stage seconds of spim_fusion_batch's ``timings`` and
     the launches of TimepointCounts; regMode 1's test registration first."""
@@ -2216,7 +2312,7 @@ def phase17_batch(dev, card, views):
     torch.cuda.synchronize()
     zero_counts()
     buf = io.StringIO()
-    with TimepointCounts() as tc, LaunchShapes() as shapes_a, \
+    with TimepointCounts() as tc, LaunchShapes() as shapes_a, PlainMips() as plain_mips, \
             contextlib.redirect_stdout(buf):
         res = E2E.run(E2E_TPS, E2E_XY, device=dev, timings=timings)
     torch.cuda.synchronize()
@@ -2234,6 +2330,11 @@ def phase17_batch(dev, card, views):
     if (total["K4"] < 1 or total["K5"] < 1 or total["plain"] or total["K1"] != k1
             or total["K3"] != k3 or len(per_tp) != E2E_TPS):
         raise AssertionError(f"(a) took the wrong kernels for the {route} route: {total}")
+    # one K8 launch per rotating MIP: the surrogate saves MP_3D_Yaxis alone
+    if total["K8"] != E2E_TPS * E2E_MIP_AXES or plain_mips.calls:
+        raise AssertionError(f"(a) rotating MIPs: {total['K8']} K8 launches for "
+                             f"{E2E_TPS * E2E_MIP_AXES} MIPs, plain MIP calls "
+                             f"{plain_mips.calls}")
     shapes_a.check("(a)")
     # the same run with no timings, no counter snapshots and no shape
     # records: the batch's own throughput
@@ -2244,12 +2345,13 @@ def phase17_batch(dev, card, views):
           f"NCCs {[round(v, 6) for v in res_own['nccs']]} [{card}]")
     est = torch.rand(grid, device=dev) * 100
     frames = PP.mip3d_frames(est, 2, 36)
-    mip_ms = alone_cuda_ms(lambda: PP.mip3d_frames(est, 2, 36), 2)
+    mip_ms = alone_cuda_ms(lambda: PP.mip3d_frames(est, 2, 36), 5)
+    gather_ms = alone_cuda_ms(lambda: PP.mip3d_frames(est, 2, 36, impl="gather"), 1)
     tp_s = res_own["wall_s"] / E2E_TPS
     print(f"  rotating MIP about y alone at {grid}: 36 frames {tuple(frames.shape[1:])} "
           f"of the ({frames.shape[2]}, {frames.shape[1]}, {frames.shape[2]}) rotated grid, "
-          f"{mip_ms:.3f} ms, {mip_ms / 1e3 / tp_s:.3f} of a timepoint's {tp_s:.3f} s "
-          f"[{card}]")
+          f"{mip_ms:.3f} ms on auto's route (K8), {mip_ms / 1e3 / tp_s:.4f} of a "
+          f"timepoint's {tp_s:.3f} s; the gather route {gather_ms:.3f} ms [{card}]")
     del est, frames
     torch.cuda.empty_cache()
 
@@ -3146,6 +3248,139 @@ def decon_on_both_routes(dev, card, label, run, grid, calls, iter_ms):
     print(f"  {label}: ms per iteration K3 route {ms['ct']:.3f}, torch.fft route "
           f"{ms['torch']:.3f} [{card}]")
     return calls
+
+
+# Phase 21: the rotating MIP's routes. K8 against its plain version (the
+# factored einsums) at a shape where the tap tables fit; against the gather
+# route at the batch's grid and the fusion grid; the one-hot matmul route
+# where its W fits the cap
+MIP_PLAIN_SHAPE = (128, 128, 128)
+MIP_SHAPES = ((E2E_XY,) * 3, FUSION_SHAPE)
+MIP_FRAMES = 36
+# operations a sample inside the joint validity box: three 2-tap lerps of
+# three each and the max
+MIP_OPS = 10
+
+
+def mip_bound(shape, p, r_axis):
+    """K8's bound at ``shape``: the volume read once and the frames written
+    once, against MIP_OPS for every (frame, row, z', q) sample inside the
+    joint validity box, counted from this run's matrices. Returns the bound
+    and the sample count."""
+    rows, na, nb, zo, po = MR.extents(shape, p["out_shape"], r_axis)
+    z, q = np.arange(zo)[:, None], np.arange(po)[None, :]
+    inside = 0
+    for kb, kbz, kb0, ka, kaz, ka0 in MR.coefficients(p["mats"], r_axis).astype(np.float64):
+        cb, ca = kb * q + kbz * z + kb0, ka * q + kaz * z + ka0
+        inside += int(((cb >= -0.5) & (cb < nb - 0.5) & (ca >= -0.5) & (ca < na - 0.5)).sum())
+    n = len(p["mats"])
+    return bound(4 * (rows * na * nb + n * rows * po), MIP_OPS * inside * rows), inside * rows
+
+
+def k8_ptxas():
+    """What ``nvcc -Xptxas -v`` says of K8: its registers and spill lines."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                              str(build.CSRC_DIR / "mip_rot.cu"), "-o",
+                              os.path.join(tmp, "mip_rot.o")],
+                             capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        raise AssertionError("nvcc -Xptxas -v failed on mip_rot.cu:\n" + out.stderr)
+    return [ln.split("info    :")[-1].strip() for ln in (out.stdout + out.stderr).splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def phase21_mip(dev, card):
+    """The rotating MIP's routes at full width: K8 against its plain version
+    at MIP_PLAIN_SHAPE and against the gather route at MIP_SHAPES, about
+    both axes, within 1e-5 x max; each route's time, K8's bound, registers
+    and spills; auto's CUDA route (K8) the fastest of the routes timed at
+    each shape. Returns K8's numbers for the kernels line, at the batch's
+    grid about y (the batch's own MIP)."""
+    print(f"Phase 21: the rotating MIP's routes [{card}]")
+    print(f"  K8 compiled to {MR.kernel_attrs()}; nvcc -Xptxas -v: {k8_ptxas()}")
+    rng = np.random.default_rng(SEED + 21)
+    res = {"max_abs_err": 0.0}
+
+    def times(img, r_axis, routes):
+        out = {}
+        for route in routes:
+            reps = 10 if route == "factored" else 1
+            out[route] = alone_cuda_ms(
+                lambda: PP.mip3d_frames(img, r_axis, MIP_FRAMES, impl=route), reps)
+        return out
+
+    def check_rule(shape, r_axis, ms):
+        p = PP.mip3d_params(shape, r_axis, MIP_FRAMES, device=dev)
+        fastest = min(ms, key=ms.get)
+        print(f"  {shape} about {'xy'[r_axis - 1]}: ms {json.dumps(ms)}; auto takes "
+              f"{p['impl']}, the fastest is {fastest} [{card}]")
+        if p["impl"] != "factored" or fastest != "factored":
+            raise AssertionError(f"{shape} r_axis {r_axis}: auto takes {p['impl']}, the "
+                                 f"fastest route is {fastest}")
+
+    shape = MIP_PLAIN_SHAPE
+    img = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100).to(dev)
+    for r_axis in (1, 2):
+        p = PP.mip3d_params(shape, r_axis, MIP_FRAMES, "factored", device=dev)
+        _rows, na, nb, zo, po = MR.extents(shape, p["out_shape"], r_axis)
+        before = MR.LAUNCHES
+        out = MR.mip_rot(img, p["mats"], p["out_shape"], r_axis)
+        torch.cuda.synchronize()
+        if MR.LAUNCHES != before + 1:
+            raise AssertionError("K8: a call did not launch the kernel once")
+        was, wbs = MR.tap_tables(p["mats"], zo, na, nb, po, p["chunk"], r_axis, dev)
+        ref = MR.mip_rot_torch(img, was, wbs, r_axis, p["fgroup"])
+        check_close(f"K8 vs mip_rot_torch at {shape} about {'xy'[r_axis - 1]} (chunk "
+                    f"{p['chunk']}, fgroup {p['fgroup']})", out.cpu(), ref.cpu(), 0.0, 1e-5)
+        res["max_abs_err"] = max(res["max_abs_err"], float((out - ref).abs().max()))
+        if not torch.equal(out.view(torch.int32), MR.mip_rot(
+                img, p["mats"], p["out_shape"], r_axis).view(torch.int32)):
+            raise AssertionError("K8: two launches gave different bits")
+        plain_ms = alone_cuda_ms(lambda: MR.mip_rot_torch(img, was, wbs, r_axis, p["fgroup"]),
+                                 1)
+        del was, wbs, ref
+        w_bytes = na * nb * zo * po * 4
+        ms = times(img, r_axis, ("factored", "gather", "matmul"))
+        print(f"  {shape} about {'xy'[r_axis - 1]}: K8's plain version {plain_ms:.3f} ms; "
+              f"the matmul route's W {w_bytes / 1e9:.3f} GB a frame [{card}]")
+        check_rule(shape, r_axis, ms)
+    del img
+    torch.cuda.empty_cache()
+    for shape in MIP_SHAPES:
+        img = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100).to(dev)
+        for r_axis in (1, 2):
+            p = PP.mip3d_params(shape, r_axis, MIP_FRAMES, "factored", device=dev)
+            rows, na, nb, zo, po = MR.extents(shape, p["out_shape"], r_axis)
+            out = MR.mip_rot(img, p["mats"], p["out_shape"], r_axis)
+            ref = PP._rotate_and_mip_all(img, p["mats"], p["out_shape"])
+            check_close(f"K8 vs the gather route at {shape} about {'xy'[r_axis - 1]}",
+                        out.cpu(), ref.cpu(), 0.0, 1e-5)
+            del out, ref
+            ms = times(img, r_axis, ("factored", "gather"))
+            (b_ms, b_by), inside = mip_bound(shape, p, r_axis)
+            print(f"  {shape} about {'xy'[r_axis - 1]}: K8 {ms['factored']:.3f} ms against "
+                  f"a bound of {b_ms:.4f} ms ({b_by}; {inside} samples inside the box, "
+                  f"{inside / (MIP_FRAMES * rows * zo * po):.3f} of all); the matmul "
+                  f"route, whose W would be {na * nb * zo * po * 4 / 1e9:.1f} GB a frame, "
+                  f"is not timed [{card}]")
+            check_rule(shape, r_axis, ms)
+            if shape == (E2E_XY,) * 3 and r_axis == 2:
+                res.update(ms=ms["factored"], gather_ms=ms["gather"], bound=(b_ms, b_by))
+                was, wbs = MR.tap_tables(p["mats"], zo, na, nb, po, p["chunk"], r_axis, dev)
+                torch.cuda.synchronize()
+                t = time.time()
+                MR.mip_rot_torch(img, was, wbs, r_axis, p["fgroup"])
+                torch.cuda.synchronize()
+                res["plain_ms"] = (time.time() - t) * 1e3
+                print(f"  {shape} about y: K8's plain version {res['plain_ms']:.3f} ms "
+                      f"(one call, host clock; chunk {p['chunk']}, fgroup {p['fgroup']}) "
+                      f"[{card}]")
+                del was, wbs
+                torch.cuda.empty_cache()
+        del img
+        torch.cuda.empty_cache()
+    return res
 
 
 if __name__ == "__main__":

@@ -170,14 +170,16 @@ def _convolver(fft_impl, shape, otfs):
 # MIL_CONV_SEP=auto on a CUDA volume, per FFT route that _fft_impl takes:
 # the largest tap cost, rank x (z + y + x taps), of a plan for which the K1
 # route ran faster per RL iteration than that FFT route, on an NVIDIA H100
-# (chip_smoke.py Phases 2, 3, 7 and 14 and Phase 2's route ladder at 512^3;
-# PERF.md section 6), as (plans that run one of K1's specialised
-# instantiations, plans that run its generic one). Specialised: the bench
-# 9^3 PSF (cost 27) beat K3 and torch.fft; the 25^3 dual-view and fusion
-# PSFs (55) lost to K3 and matched or beat torch.fft; the tilted rank-4
-# class (172) lost to both. Generic: cost 9 beat K3 and 15 lost to it;
-# cost 21 beat torch.fft and 33 and above lost to it.
-SEP_MAX_TAP_COST = {"ct": (27, 9), "torch": (55, 21)}
+# (chip_smoke.py Phases 2, 3, 7 and 14 and Phase 2's route ladder at 512^3
+# and at (192, 640, 640); PERF.md section 6), as (plans that run one of
+# K1's specialised instantiations, plans that run its generic one).
+# Specialised: the bench 9^3 PSF (cost 27) beat K3 and torch.fft on both
+# ladder grids; the 25^3 dual-view and fusion PSFs (55) lost to K3 on
+# both, and to torch.fft at (192, 640, 640) (6.404 against 5.554 ms an
+# iteration; at 512^3 they won by 2.6%, 9.427 against 9.673); the tilted
+# rank-4 class (172) lost to both. Generic, on both grids: cost 9 beat K3
+# and 15 lost to it; cost 21 beat torch.fft and 33 and above lost to it.
+SEP_MAX_TAP_COST = {"ct": (27, 9), "torch": (27, 21)}
 
 
 def tap_cost(plan):

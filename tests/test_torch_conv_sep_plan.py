@@ -110,15 +110,27 @@ ROUTE_CASES = [
     ("tilted rank 4", tilted(), (256, 512, 512), dict(align=True, tol=1e-4), True,
      (False, False)),
     ("fusion A", gauss3((25, 25, 25), (3.5, 1.2, 1.2)), (320, 512, 320), {}, True,
-     (False, True)),
+     (False, False)),
     ("fusion B", gauss3((25, 25, 25), (1.2, 1.2, 3.5)), (320, 512, 320), {}, True,
-     (False, True)),
+     (False, False)),
     ("generic 3^3", gauss3((3, 3, 3), (0.6,) * 3), (512, 512, 512), {}, False,
      (True, True)),
     ("generic 5^3", gauss3((5, 5, 5), (0.8,) * 3), (512, 512, 512), {}, False,
      (False, True)),
     ("generic 13^3", gauss3((13, 13, 13), (2.0,) * 3), (512, 512, 512), {}, False,
      (False, False)),
+    # Phase 2's second ladder grid, of K3's length 640
+    ("bench (192, 640, 640)", bench_psf(), (192, 640, 640), {}, True, (True, True)),
+    ("dual 25^3 (192, 640, 640)", gauss3((25, 25, 25), (3.5, 1.2, 1.2)), (192, 640, 640),
+     {}, True, (False, False)),
+    ("generic 3^3 (192, 640, 640)", gauss3((3, 3, 3), (0.6,) * 3), (192, 640, 640), {},
+     False, (True, True)),
+    ("generic 5^3 (192, 640, 640)", gauss3((5, 5, 5), (0.8,) * 3), (192, 640, 640), {},
+     False, (False, True)),
+    ("generic 7^3 (192, 640, 640)", gauss3((7, 7, 7), (1.1,) * 3), (192, 640, 640), {},
+     False, (False, True)),
+    ("generic 11^3 (192, 640, 640)", gauss3((11, 11, 11), (1.6,) * 3), (192, 640, 640), {},
+     False, (False, False)),
 ]
 
 
@@ -155,11 +167,16 @@ def test_sep_plans_applies_the_rule_only_on_cuda_and_under_auto(monkeypatch):
     monkeypatch.setenv("MIL_CONV_SEP", "auto")
     g = gauss3((25, 25, 25), (3.5, 1.2, 1.2))
     gb = np.ascontiguousarray(g[::-1, ::-1, ::-1])
-    # the fusion PSF against the FFT route the grid takes: K3 on the
-    # fusion grid, torch.fft with an axis K3 has no specialised length for
+    # the fusion PSF (cost 55) against the FFT route the grid takes: K3 on
+    # the fusion grid, torch.fft with an axis K3 has no specialised length
+    # for; both ran faster than K1 on the card. The bench PSF (cost 27)
+    # takes K1 against either
     assert D._fft_impl((320, 512, 320), np.empty(0)) == "ct"
     assert D._sep_plans(g, gb, (320, 512, 320)) is None
     assert D._fft_impl((320, 512, 1088), np.empty(0)) == "torch"
-    assert D._sep_plans(g, gb, (320, 512, 1088))[0] == "pair"
+    assert D._sep_plans(g, gb, (320, 512, 1088)) is None
+    b = bench_psf()
+    assert D._sep_plans(b, b, (320, 512, 320))[0] == "pair"
+    assert D._sep_plans(b, b, (320, 512, 1088))[0] == "pair"
     monkeypatch.setenv("MIL_CONV_SEP_FUSED", "1")               # opting into K2 opts in
     assert D._sep_plans(g, gb, shape)[0] == "fused"
