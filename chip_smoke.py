@@ -206,12 +206,17 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      MIL_FFT_IMPL=xla, with its peak device memory and ms per iteration
      on both routes.
  21. the rotating MIP's routes (``models/projections.py``): K8
-     (``csrc/mip_rot.cu``) against its plain version (the factored
-     einsums over the tap tables) at (128, 128, 128), and against the
+     (``csrc/mip_rot.cu``: one warp a (frame, column, 32 rows) on a
+     rows-last source, only the valid z' interval walked) against its
+     plain version (the factored einsums over the tap tables) at (128,
+     128, 128) and at (96, 100, 90), whose row counts (100 about y, 90
+     about x) leave a partial warp, and against the
      gather route at (320, 320, 320) and (320, 512, 320), about both axes,
      36 frames, within 1e-5 x max; two launches bit for bit; K8's
      registers and spills (``kernel_attrs`` and ``nvcc -Xptxas -v``), its
-     bound from the run's matrices, the times of K8, the gather route and
+     bound from the run's matrices, K8's time a call back to back, the
+     times of each route's call alone (K8's with ``mip3d_params``' host
+     work), the gather route and
      (at (128, 128, 128), where W fits) the one-hot matmul route, and the
      plain version once at (320, 320, 320); ``mip3d_params``' CUDA
      ``auto`` (K8) must be the fastest route timed at each shape.
@@ -224,7 +229,9 @@ It prints the card's name and power limit beside every time, ms per RL
 iteration for the K1, K2, K3 and ``torch.fft`` routes, one JSON line
 describing each kernel (its time, its plain version's, the least time the
 card could take for the same work, the time of the nearest PyTorch
-library call (K8: also the gather route's time, ``gather_route_ms``),
+library call (K8: its time is the factored route's call alone,
+``mip3d_params``' host work included; also the gather route's time,
+``gather_route_ms``, and K8's wrapper called back to back, ``kernel_ms``),
 its launches in Phase 17 (a), ``batch_launches``, in
 Phase 18 (c), ``bhbm_launches``, and in Phase 19 (e), ``mesh_launches``), and
 as its last line
@@ -782,6 +789,10 @@ def main():
         "bound_by": k8["bound"][1],
         "library_ms": None,   # no single PyTorch call computes a rotating MIP
         "gather_route_ms": k8["gather_ms"],
+        # "ms" is the factored route's call alone (mip3d_params' host work
+        # and K8), as before the redesign; K8's wrapper back to back:
+        "kernel_ms": k8["kernel_ms"],
+        "redesigned": "PR 16",
     })
     # the launches of Phase 17 (a), the batch's own path, beside each entry's
     # main-path count
@@ -3255,26 +3266,22 @@ def decon_on_both_routes(dev, card, label, run, grid, calls, iter_ms):
 # route at the batch's grid and the fusion grid; the one-hot matmul route
 # where its W fits the cap
 MIP_PLAIN_SHAPE = (128, 128, 128)
+# row counts that are not a multiple of a warp: 100 about y, 90 about x
+MIP_PARTIAL_WARP_SHAPES = ((96, 100, 90),)
 MIP_SHAPES = ((E2E_XY,) * 3, FUSION_SHAPE)
 MIP_FRAMES = 36
-# operations a sample inside the joint validity box: three 2-tap lerps of
-# three each and the max
-MIP_OPS = 10
 
 
 def mip_bound(shape, p, r_axis):
     """K8's bound at ``shape``: the volume read once and the frames written
-    once, against MIP_OPS for every (frame, row, z', q) sample inside the
-    joint validity box, counted from this run's matrices. Returns the bound
-    and the sample count."""
+    once, against ``MR.OPS_PER_SAMPLE`` for every (frame, row, z', q)
+    sample inside the joint validity box, counted from this run's matrices.
+    Returns the bound and the sample count."""
     rows, na, nb, zo, po = MR.extents(shape, p["out_shape"], r_axis)
-    z, q = np.arange(zo)[:, None], np.arange(po)[None, :]
-    inside = 0
-    for kb, kbz, kb0, ka, kaz, ka0 in MR.coefficients(p["mats"], r_axis).astype(np.float64):
-        cb, ca = kb * q + kbz * z + kb0, ka * q + kaz * z + ka0
-        inside += int(((cb >= -0.5) & (cb < nb - 0.5) & (ca >= -0.5) & (ca < na - 0.5)).sum())
+    inside = MR.samples_inside(MR.coefficients(p["mats"], r_axis), na, nb, zo, po)
     n = len(p["mats"])
-    return bound(4 * (rows * na * nb + n * rows * po), MIP_OPS * inside * rows), inside * rows
+    return (bound(4 * (rows * na * nb + n * rows * po), MR.OPS_PER_SAMPLE * inside * rows),
+            inside * rows)
 
 
 def k8_ptxas():
@@ -3292,7 +3299,8 @@ def k8_ptxas():
 
 def phase21_mip(dev, card):
     """The rotating MIP's routes at full width: K8 against its plain version
-    at MIP_PLAIN_SHAPE and against the gather route at MIP_SHAPES, about
+    at MIP_PARTIAL_WARP_SHAPES and MIP_PLAIN_SHAPE and against the gather
+    route at MIP_SHAPES, about
     both axes, within 1e-5 x max; each route's time, K8's bound, registers
     and spills; auto's CUDA route (K8) the fastest of the routes timed at
     each shape. Returns K8's numbers for the kernels line, at the batch's
@@ -3319,6 +3327,19 @@ def phase21_mip(dev, card):
             raise AssertionError(f"{shape} r_axis {r_axis}: auto takes {p['impl']}, the "
                                  f"fastest route is {fastest}")
 
+    for shape in MIP_PARTIAL_WARP_SHAPES:
+        img = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100).to(dev)
+        for r_axis in (1, 2):
+            p = PP.mip3d_params(shape, r_axis, MIP_FRAMES, "factored", device=dev)
+            rows, na, nb, zo, po = MR.extents(shape, p["out_shape"], r_axis)
+            out = MR.mip_rot(img, p["mats"], p["out_shape"], r_axis)
+            was, wbs = MR.tap_tables(p["mats"], zo, na, nb, po, p["chunk"], r_axis, dev)
+            ref = MR.mip_rot_torch(img, was, wbs, r_axis, p["fgroup"])
+            check_close(f"K8 vs mip_rot_torch at {shape} about {'xy'[r_axis - 1]} ({rows} "
+                        f"rows: {rows % 32} in the last warp)", out.cpu(), ref.cpu(), 0.0, 1e-5)
+            res["max_abs_err"] = max(res["max_abs_err"], float((out - ref).abs().max()))
+            del out, ref, was, wbs
+        del img
     shape = MIP_PLAIN_SHAPE
     img = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100).to(dev)
     for r_axis in (1, 2):
@@ -3358,15 +3379,19 @@ def phase21_mip(dev, card):
                         out.cpu(), ref.cpu(), 0.0, 1e-5)
             del out, ref
             ms = times(img, r_axis, ("factored", "gather"))
+            k8_ms = cuda_ms(lambda: MR.mip_rot(img, p["mats"], p["out_shape"], r_axis), 10)
             (b_ms, b_by), inside = mip_bound(shape, p, r_axis)
-            print(f"  {shape} about {'xy'[r_axis - 1]}: K8 {ms['factored']:.3f} ms against "
+            print(f"  {shape} about {'xy'[r_axis - 1]}: K8 {k8_ms:.3f} ms a call back to back "
+                  f"(the route alone, mip3d_params' host work included, "
+                  f"{ms['factored']:.3f} ms) against "
                   f"a bound of {b_ms:.4f} ms ({b_by}; {inside} samples inside the box, "
                   f"{inside / (MIP_FRAMES * rows * zo * po):.3f} of all); the matmul "
                   f"route, whose W would be {na * nb * zo * po * 4 / 1e9:.1f} GB a frame, "
                   f"is not timed [{card}]")
             check_rule(shape, r_axis, ms)
             if shape == (E2E_XY,) * 3 and r_axis == 2:
-                res.update(ms=ms["factored"], gather_ms=ms["gather"], bound=(b_ms, b_by))
+                res.update(ms=ms["factored"], kernel_ms=k8_ms, gather_ms=ms["gather"],
+                           bound=(b_ms, b_by))
                 was, wbs = MR.tap_tables(p["mats"], zo, na, nb, po, p["chunk"], r_axis, dev)
                 torch.cuda.synchronize()
                 t = time.time()

@@ -26,10 +26,17 @@ uncompressed, one strip a page, u16 or f32 — and through NumPy otherwise
 (big-endian, compressed, multi-strip, other depths). A failed build
 raises. ``MIL_NO_NATIVE_TIFF`` set to any value keeps every call on NumPy.
 :data:`COUNTS` counts the calls each codec served.
+
+A truncated or corrupt file raises :class:`TiffError` on either codec: the
+native one bounds every read and refuses such a file (a page past the end,
+a strip byte count short of its page, an IFD chain that loops), which then
+goes to NumPy, whose reads past the end and loops raise. (The JAX package's
+codecs stop silently at a loop, and its native one reads past the end.)
 """
 
 from __future__ import annotations
 
+import contextlib
 import mmap
 import os
 import struct
@@ -70,6 +77,18 @@ _COUNTS_LOCK = threading.Lock()
 def _count(key):
     with _COUNTS_LOCK:
         COUNTS[key] += 1
+
+
+@contextlib.contextmanager
+def _reads(path):
+    """Turn a read of the mapped file that runs past its end (``struct.error``,
+    the ``ValueError`` of ``np.frombuffer``, ``mmap`` or a reshape of a short
+    buffer) into :class:`TiffError`. Only the file's reads run inside it, so
+    a caller's own error passes through unchanged."""
+    try:
+        yield
+    except (struct.error, ValueError, OverflowError) as e:
+        raise TiffError(f"Truncated or corrupt TIFF ({e}): {path}") from e
 
 
 def _native():
@@ -157,7 +176,8 @@ def _open_tiff(path):
         raise TiffError(f"*** File does not exist: {path}")
     f = open(path, "rb")
     try:
-        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        with _reads(path):
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
     finally:
         f.close()
     magic = mm[:2]
@@ -168,23 +188,31 @@ def _open_tiff(path):
     else:
         mm.close()
         raise TiffError(f"Not a TIFF file: {path}")
-    (version,) = struct.unpack_from(bo + "H", mm, 2)
-    if version == 42:
-        (first,) = struct.unpack_from(bo + "I", mm, 4)
-        return mm, bo, False, first
-    if version == 43:
-        (first,) = struct.unpack_from(bo + "Q", mm, 8)
-        return mm, bo, True, first
+    try:
+        with _reads(path):
+            (version,) = struct.unpack_from(bo + "H", mm, 2)
+            if version == 42:
+                (first,) = struct.unpack_from(bo + "I", mm, 4)
+                return mm, bo, False, first
+            if version == 43:
+                (first,) = struct.unpack_from(bo + "Q", mm, 8)
+                return mm, bo, True, first
+    except TiffError:
+        mm.close()
+        raise
     mm.close()
     raise TiffError(f"Unsupported TIFF version {version}: {path}")
 
 
-def _iter_ifds(mm, bo, big, first):
+def _iter_ifds(mm, bo, big, first, path):
     off = first
     seen = set()
-    while off != 0 and off not in seen:
+    while off != 0:
+        if off in seen:
+            raise TiffError(f"The TIFF's IFD chain loops at offset {off}")
         seen.add(off)
-        tags, off_next = _read_ifd_entries(mm, off, bo, big)
+        with _reads(path):
+            tags, off_next = _read_ifd_entries(mm, off, bo, big)
         yield tags
         off = off_next
 
@@ -215,7 +243,7 @@ def gettifinfo(path):
         width = height = bits = None
         n = 0
         first_tags = None
-        for tags in _iter_ifds(mm, bo, big, first):
+        for tags in _iter_ifds(mm, bo, big, first, path):
             if n == 0:
                 first_tags = tags
                 width = tags[_T_WIDTH][0]
@@ -258,14 +286,16 @@ def _page_array(mm, bo, tags, path):
     if counts is None:
         counts = [width * height * dt.itemsize]
     nbytes_needed = width * height * dt.itemsize
-    if len(offsets) == 1:
-        buf = np.frombuffer(mm, dtype=dt, count=width * height, offset=offsets[0])
-    else:
-        parts = [np.frombuffer(mm, dtype=np.uint8, count=c, offset=o) for o, c in zip(offsets, counts)]
-        raw = np.concatenate(parts)[:nbytes_needed]
-        buf = raw.view(dt)
-    # copy so the returned array does not pin the mmap open
-    return buf.reshape(height, width).copy()
+    with _reads(path):
+        if len(offsets) == 1:
+            buf = np.frombuffer(mm, dtype=dt, count=width * height, offset=offsets[0])
+        else:
+            parts = [np.frombuffer(mm, dtype=np.uint8, count=c, offset=o)
+                     for o, c in zip(offsets, counts)]
+            raw = np.concatenate(parts)[:nbytes_needed]
+            buf = raw.view(dt)
+        # copy so the returned array does not pin the mmap open
+        return buf.reshape(height, width).copy()
 
 
 def readtifstack(path, dtype=np.float32):
@@ -281,7 +311,7 @@ def readtifstack(path, dtype=np.float32):
     _count("numpy_read")
     mm, bo, big, first = _open_tiff(path)
     try:
-        all_tags = list(_iter_ifds(mm, bo, big, first))
+        all_tags = list(_iter_ifds(mm, bo, big, first, path))
         if not all_tags:
             raise TiffError(f"No images found in TIFF: {path}")
         if len(all_tags) == 1:
@@ -316,8 +346,10 @@ def _read_imagej_contiguous(mm, bo, tags, n_images, dtype, path):
         raise TiffError(f"Unsupported bit depth {bits}: {path}")
     offset = tags[_T_STRIPOFFSETS][0]
     count = width * height * n_images
-    buf = np.frombuffer(mm, dtype=dt, count=count, offset=offset)
-    stack = np.asarray(buf.reshape(n_images, height, width), dtype=dtype).copy()
+    with _reads(path):
+        buf = np.frombuffer(mm, dtype=dt, count=count, offset=offset).reshape(
+            n_images, height, width)
+    stack = np.asarray(buf, dtype=dtype).copy()
     return stack, (int(width), int(height), int(n_images))
 
 
@@ -333,7 +365,7 @@ def readtifstack_16to16(path):
     mm, bo, big, first = _open_tiff(path)
     try:
         pages = []
-        for tags in _iter_ifds(mm, bo, big, first):
+        for tags in _iter_ifds(mm, bo, big, first, path):
             bits = tags.get(_T_BITSPERSAMPLE, [1])[0]
             if bits != 16:
                 raise TiffError("Image bit per sample is not supported, please set input image as 16 bit")

@@ -12,7 +12,10 @@ chunk (``microimagelib_tpu/models/projections.py:152-297``).
 float32 (the plain version); :func:`mip_rot` runs it on a CPU tensor and
 the hand-written kernel ``csrc/mip_rot.cu`` on a CUDA tensor, which takes
 the 2 x 2 taps of each sample straight from the matrices instead of
-contracting the tables' zeros, or the call raises.
+contracting the tables' zeros, or the call raises. The kernel reads the
+volume rows innermost (:func:`rows_last`), one warp a (frame, column, 32
+rows), and walks only the z' inside the validity box
+(:func:`valid_z_interval`).
 """
 
 from __future__ import annotations
@@ -26,10 +29,14 @@ import torch
 from microimagelib_tpu_torch.kernels import build
 
 __all__ = ["mip_rot", "mip_rot_torch", "tap_tables", "coefficients", "coordinate",
-           "extents", "rows_first", "fp32_matmul", "kernel_attrs", "LAUNCHES"]
+           "extents", "rows_first", "rows_last", "valid_z_interval", "samples_inside",
+           "fp32_matmul", "kernel_attrs", "LAUNCHES", "OPS_PER_SAMPLE"]
 
 # kernel launches made by mip_rot (one per call on a CUDA tensor)
 LAUNCHES = 0
+# operations a sample inside the joint validity box: three 2-tap lerps of
+# three each and the max
+OPS_PER_SAMPLE = 10
 _lib = None
 
 
@@ -87,6 +94,13 @@ def rows_first(img, r_axis):
     return (img.permute(1, 0, 2) if r_axis == 2 else img.permute(2, 0, 1)).contiguous()
 
 
+def rows_last(img, r_axis):
+    """The volume as (a, b, rows), C-contiguous: K8's source. About x
+    (``r_axis=1``) that is the (z, y, x) volume itself; about y a (z, x, y)
+    copy."""
+    return (img.permute(0, 2, 1) if r_axis == 2 else img).contiguous()
+
+
 def coefficients(mats, r_axis):
     """Per frame the (b, a) coordinates' factors, (n, 6) float32: cb = kb * q
     + kbz * z' + kb0 and ca = ka * q + kaz * z' + ka0 (the matrix's x or y
@@ -105,6 +119,58 @@ def coordinate(k, kz, k0, bs, zs):
     the same points. XLA contracts the JAX package's tables' ``k * q + kz
     * z'`` into one FMA in some compiles: a difference of a few ulps."""
     return (k * bs + kz * zs) + k0
+
+
+def _first_true(zo, shape, pred):
+    """The first z in [0, zo] at which ``pred(z)`` holds, for a ``pred``
+    that is false and then true in z, elementwise over columns of
+    ``shape``: bisection, as K8 runs it."""
+    lo, hi = np.zeros(shape, np.int64), np.full(shape, int(zo), np.int64)
+    while (active := lo < hi).any():
+        mid = (lo + hi) >> 1
+        p = pred(mid)
+        hi = np.where(active & p, mid, hi)
+        lo = np.where(active & ~p, mid + 1, lo)
+    return lo
+
+
+def valid_z_interval(coef_row, q, na, nb, zo):
+    """(lo, hi), the z' in [lo, hi) at which a frame's sample of column
+    ``q`` (an int or an array of them) lies inside the joint validity box,
+    ``-0.5 <= c < n - 0.5`` on both axes, for the float32 :func:`coordinate`
+    of the frame's ``coef_row`` (kb, kbz, kb0, ka, kaz, ka0). Each rounded
+    coordinate is monotone in z' (non-decreasing for kz >= 0), so each
+    bound is the partition point of a monotone predicate, found by
+    bisection on the rounded coordinate itself: K8's computation, exact
+    where a float solve of the linear inequalities is not (where kz * z'
+    is near an ulp of k * q). lo >= hi where no z' is inside."""
+    kb, kbz, kb0, ka, kaz, ka0 = (np.float32(v) for v in coef_row)
+    qf = np.asarray(q, np.float32)
+
+    def axis(k, kz, k0, n):
+        h = np.float32(n - 0.5)
+
+        def c(z):
+            return coordinate(k, kz, k0, qf, np.asarray(z, np.float32))
+
+        lo_bound = np.float32(-0.5)
+        if kz >= 0:
+            return (_first_true(zo, qf.shape, lambda z: c(z) >= lo_bound),
+                    _first_true(zo, qf.shape, lambda z: c(z) >= h))
+        return (_first_true(zo, qf.shape, lambda z: c(z) < h),
+                _first_true(zo, qf.shape, lambda z: c(z) < lo_bound))
+
+    lob, hib = axis(kb, kbz, kb0, nb)
+    loa, hia = axis(ka, kaz, ka0, na)
+    return np.maximum(lob, loa), np.minimum(hib, hia)
+
+
+def samples_inside(coef, na, nb, zo, po):
+    """The (frame, z', q) samples inside the joint validity box, for the
+    frames' ``coef`` rows: the lengths of their :func:`valid_z_interval`."""
+    q = np.arange(po)
+    return int(sum(np.maximum(hi - lo, 0).sum()
+                   for lo, hi in (valid_z_interval(c, q, na, nb, zo) for c in coef)))
 
 
 def _tap_table(c, n, zpad):
@@ -208,7 +274,7 @@ def mip_rot(img, mats, out_shape, r_axis, *, chunk=32, fgroup=1, plan=None):
 def _launch(img, mats, r_axis, rows, na, nb, zo, po):
     global LAUNCHES
     lib = _library()
-    src = rows_first(img, r_axis)
+    src = rows_last(img, r_axis)
     coef = torch.from_numpy(coefficients(mats, r_axis)).to(img.device)
     n = coef.shape[0]
     shape = (n, rows, po) if r_axis == 2 else (n, po, rows)

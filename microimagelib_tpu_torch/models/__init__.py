@@ -1,4 +1,5 @@
 from microimagelib_tpu_torch.models.backprojector import gen_backprojector
+from microimagelib_tpu_torch.models.batch import BatchConfig, spim_fusion_batch
 from microimagelib_tpu_torch.models.deconvolution import (
     decon_dualview,
     decon_dualview_prepared,
@@ -62,4 +63,6 @@ __all__ = [
     "mip3d",
     "mip3d_frames",
     "mp3d",
+    "BatchConfig",
+    "spim_fusion_batch",
 ]

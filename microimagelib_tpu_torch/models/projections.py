@@ -208,13 +208,13 @@ def mip3d_params(shape_zyx, r_axis, project_num=36, impl=None, *, device=None):
     rule: 'matmul' while W's bytes are at most the cap and
     ``MIL_MIP_FACTORED_MIN_W_BYTES`` (2^29), else 'factored'. On a CUDA
     ``device`` it is 'factored' (K8) for every passthrough stack:
-    chip_smoke.py Phase 21 on an NVIDIA H100 80GB HBM3 (700 W) timed the
-    routes about both axes, 36 frames, and K8 was the fastest at each
-    shape: 2.8-4.2 ms at (128, 128, 128) against the gather route's 69 ms
-    and the matmul route's 801-834 ms (W 2.1 GB a frame); 13.8 ms at (320,
-    320, 320) and 14.8-17.3 ms at (320, 512, 320) against the gather
-    route's 1.06-1.09 s and 1.76-1.87 s (W of 84-239 GB a frame there:
-    over any cap). PERF.md section 6."""
+    chip_smoke.py Phase 21 on an NVIDIA H100 80GB HBM3 (700 W) timed each
+    route's call alone about both axes, 36 frames, and K8's was the
+    fastest at each shape: 1.9-2.6 ms at (128, 128, 128) against the
+    gather route's 71-73 ms and the matmul route's 805-807 ms (W 2.1 GB a
+    frame); 4.9-5.1 ms at (320, 320, 320) and 5.9-7.1 ms at (320, 512,
+    320) against the gather route's 1.16-1.32 s and 2.12-2.28 s (W of
+    84-239 GB a frame there: over any cap). PERF.md section 6."""
     sz, sy, sx = shape_zyx
     if r_axis == 1:
         im_rot = int(round(math.hypot(sy, sz)))

@@ -84,6 +84,8 @@ from microimagelib_tpu_torch.utils.device import (
 )
 from microimagelib_tpu_torch.utils.envflags import env_on
 
+NDIM = 12      # the affine matrix's free parameters (reference ``NDIM``)
+
 
 # --------------------------------------------------------------------------
 # Plausibility gate

@@ -1,6 +1,7 @@
-"""Build and load the port's native TIFF codec (``native/miltiff.cpp``, a
-copy of the JAX package's: page-parallel decode and encode with the
-u16 <-> f32 conversion fused into the copy).
+"""Build and load the port's native TIFF codec (``native/miltiff.cpp``, the
+JAX package's codec with every read bounded by the file's size:
+page-parallel decode and encode with the u16 <-> f32 conversion fused
+into the copy).
 
 The source is compiled by the host C++ compiler (``g++``, or ``$CXX``)
 against this interpreter's headers into

@@ -8,7 +8,10 @@
 //
 // Scope: classic + BigTIFF, little-endian, uncompressed, 1 sample/pixel,
 // 16-bit unsigned or 32-bit float. Anything else raises so the caller
-// falls back to the pure-Python codec (io/tiff.py).
+// falls back to the pure-Python codec (io/tiff.py), and so does a file
+// that is truncated or corrupt: every read of the header, the IFDs, the
+// tag data and the pages is bounded by the file's size (the JAX package's
+// copy of this codec reads past the end of such a file).
 //
 // Built with the raw CPython C API (no pybind11 in this environment).
 
@@ -18,6 +21,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <set>
 #include <string>
 #include <thread>
 #include <vector>
@@ -37,81 +41,123 @@ struct TiffInfo {
   std::vector<Page> pages;
 };
 
+// Every read is bounds-checked: a read past the end of the file, or of a
+// length that overflows, fails and sets `bad`, and the parse stops.
 struct Reader {
   const uint8_t* p;
   size_t n;
-  bool big;  // BigTIFF
+
+  bool has(uint64_t off, uint64_t len) const { return off <= n && len <= n - off; }
 
   template <typename T>
-  T at(uint64_t off) const {
-    T v;
-    std::memcpy(&v, p + off, sizeof(T));
-    return v;  // little-endian host assumed (x86/ARM LE)
+  bool at(uint64_t off, T* v) const {
+    if (!has(off, sizeof(T))) return false;
+    std::memcpy(v, p + off, sizeof(T));  // little-endian host assumed (x86/ARM LE)
+    return true;
   }
 };
 
+uint64_t type_size(uint16_t t) {
+  switch (t) {
+    case 1: case 2: case 6: case 7: return 1;
+    case 3: case 8: return 2;
+    case 4: case 9: case 11: return 4;
+    default: return 8;
+  }
+}
+
+// Parses the IFD chain into `info`. Returns false, with the reason in
+// `err`, for a layout this codec does not decode and for any file whose
+// IFDs, tag data or page data do not lie inside its bytes, whose strip
+// byte count is less than its page, or whose IFD chain returns to an IFD
+// it has seen: the caller then hands the file to the NumPy codec.
 bool parse_tiff(const Reader& r, TiffInfo* info, std::string* err) {
   if (r.n < 8 || r.p[0] != 'I' || r.p[1] != 'I') {
     *err = "not a little-endian TIFF";
     return false;
   }
-  uint16_t version = r.at<uint16_t>(2);
+  auto truncated = [&](const char* what) {
+    *err = std::string("truncated or corrupt TIFF: ") + what + " past the end of the file";
+    return false;
+  };
+  uint16_t version = 0;
+  r.at<uint16_t>(2, &version);
   uint64_t ifd_off;
   bool big = false;
   if (version == 42) {
-    ifd_off = r.at<uint32_t>(4);
+    uint32_t o32 = 0;
+    r.at<uint32_t>(4, &o32);
+    ifd_off = o32;
   } else if (version == 43) {
     big = true;
-    ifd_off = r.at<uint64_t>(8);
+    if (!r.at<uint64_t>(8, &ifd_off)) return truncated("BigTIFF header");
   } else {
     *err = "unsupported TIFF version";
     return false;
   }
+  const uint64_t entry_sz = big ? 20 : 12;
+  const uint64_t ptr_sz = big ? 8 : 4;
+  std::set<uint64_t> seen;
   bool first = true;
   while (ifd_off != 0) {
-    if (ifd_off + 8 > r.n) {
-      *err = "truncated IFD";
+    if (!seen.insert(ifd_off).second) {
+      *err = "the IFD chain loops";
       return false;
     }
-    uint64_t count = big ? r.at<uint64_t>(ifd_off) : r.at<uint16_t>(ifd_off);
-    uint64_t entry0 = ifd_off + (big ? 8 : 2);
-    uint64_t entry_sz = big ? 20 : 12;
+    uint64_t count = 0;
+    if (big) {
+      if (!r.at<uint64_t>(ifd_off, &count)) return truncated("IFD");
+    } else {
+      uint16_t c16 = 0;
+      if (!r.at<uint16_t>(ifd_off, &c16)) return truncated("IFD");
+      count = c16;
+    }
+    const uint64_t entry0 = ifd_off + (big ? 8 : 2);
+    if (count > r.n / entry_sz || !r.has(entry0, count * entry_sz + ptr_sz))
+      return truncated("IFD entries");
     uint32_t width = 0, height = 0;
     uint16_t bits = 1, comp = 1, spp = 1, sfmt = 1;
     bool imagej_contig = false;
     std::vector<uint64_t> strip_offs, strip_counts;
     for (uint64_t i = 0; i < count; ++i) {
-      uint64_t e = entry0 + i * entry_sz;
-      uint16_t tag = r.at<uint16_t>(e);
-      uint16_t typ = r.at<uint16_t>(e + 2);
-      uint64_t n = big ? r.at<uint64_t>(e + 4) : r.at<uint32_t>(e + 4);
-      uint64_t vpos = e + (big ? 12 : 8);
-      auto type_size = [&](uint16_t t) -> uint64_t {
-        switch (t) {
-          case 1: case 2: case 6: case 7: return 1;
-          case 3: case 8: return 2;
-          case 4: case 9: case 11: return 4;
-          default: return 8;
-        }
-      };
-      uint64_t total = type_size(typ) * n;
-      uint64_t inline_cap = big ? 8 : 4;
-      uint64_t data_pos = vpos;
-      if (total > inline_cap) {
-        data_pos = big ? r.at<uint64_t>(vpos) : r.at<uint32_t>(vpos);
+      const uint64_t e = entry0 + i * entry_sz;  // inside the file: checked above
+      uint16_t tag = 0, typ = 0;
+      r.at<uint16_t>(e, &tag);
+      r.at<uint16_t>(e + 2, &typ);
+      uint64_t n = 0;
+      if (big) {
+        r.at<uint64_t>(e + 4, &n);
+      } else {
+        uint32_t n32 = 0;
+        r.at<uint32_t>(e + 4, &n32);
+        n = n32;
       }
+      const uint64_t vpos = e + (big ? 12 : 8);
+      const uint64_t tsz = type_size(typ);
+      if (n > r.n) return truncated("tag data");  // more values than the file has bytes
+      const uint64_t total = tsz * n;
+      uint64_t data_pos = vpos;
+      if (total > ptr_sz) {
+        if (big) {
+          r.at<uint64_t>(vpos, &data_pos);
+        } else {
+          uint32_t d32 = 0;
+          r.at<uint32_t>(vpos, &d32);
+          data_pos = d32;
+        }
+      }
+      bool ok = true;
       auto read_val = [&](uint64_t idx) -> uint64_t {
-        uint64_t off = data_pos + idx * type_size(typ);
+        const uint64_t off = data_pos + idx * tsz;
         switch (typ) {
-          case 3: return r.at<uint16_t>(off);
-          case 4: return r.at<uint32_t>(off);
-          case 16: return r.at<uint64_t>(off);
-          default: return r.at<uint32_t>(off);
+          case 3: { uint16_t v = 0; ok = ok && r.at<uint16_t>(off, &v); return v; }
+          case 16: { uint64_t v = 0; ok = ok && r.at<uint64_t>(off, &v); return v; }
+          default: { uint32_t v = 0; ok = ok && r.at<uint32_t>(off, &v); return v; }
         }
       };
       if (tag == 270 && typ == 2) {  // ImageDescription: detect ImageJ
         uint64_t dlen = std::min<uint64_t>(n, 4096);
-        if (data_pos + dlen <= r.n) {
+        if (r.has(data_pos, dlen)) {
           std::string d(reinterpret_cast<const char*>(r.p + data_pos), dlen);
           if (d.find("ImageJ") != std::string::npos &&
               d.find("images=") != std::string::npos)
@@ -126,15 +172,18 @@ bool parse_tiff(const Reader& r, TiffInfo* info, std::string* err) {
         case 277: spp = (uint16_t)read_val(0); break;
         case 339: sfmt = (uint16_t)read_val(0); break;
         case 273:
+          if (!r.has(data_pos, total)) return truncated("strip offsets");
           strip_offs.resize(n);
           for (uint64_t k = 0; k < n; ++k) strip_offs[k] = read_val(k);
           break;
         case 279:
+          if (!r.has(data_pos, total)) return truncated("strip byte counts");
           strip_counts.resize(n);
           for (uint64_t k = 0; k < n; ++k) strip_counts[k] = read_val(k);
           break;
         default: break;
       }
+      if (!ok) return truncated("tag data");
     }
     if (imagej_contig) {
       // ImageJ contiguous hyperstack: one IFD, true depth in the
@@ -145,6 +194,7 @@ bool parse_tiff(const Reader& r, TiffInfo* info, std::string* err) {
     if (comp != 1) { *err = "compressed TIFF not supported natively"; return false; }
     if (spp != 1) { *err = "multi-sample TIFF not supported natively"; return false; }
     if (strip_offs.size() != 1) { *err = "multi-strip pages not supported natively"; return false; }
+    if (strip_counts.size() != 1) { *err = "pages without one strip byte count"; return false; }
     if (first) {
       info->width = width;
       info->height = height;
@@ -155,10 +205,23 @@ bool parse_tiff(const Reader& r, TiffInfo* info, std::string* err) {
       *err = "page geometry varies";
       return false;
     }
-    uint64_t nbytes = (uint64_t)width * height * (bits / 8);
+    const uint64_t px = (uint64_t)width * height;  // < 2^64: both are 32-bit
+    if (px > r.n) return truncated("page data");
+    const uint64_t nbytes = px * (bits / 8);
+    if (strip_counts[0] < nbytes) {
+      *err = "strip byte count less than the page";
+      return false;
+    }
+    if (!r.has(strip_offs[0], nbytes)) return truncated("page data");
     info->pages.push_back({strip_offs[0], nbytes});
-    uint64_t next_pos = entry0 + count * entry_sz;
-    ifd_off = big ? r.at<uint64_t>(next_pos) : r.at<uint32_t>(next_pos);
+    const uint64_t next_pos = entry0 + count * entry_sz;  // inside the file: checked above
+    if (big) {
+      r.at<uint64_t>(next_pos, &ifd_off);
+    } else {
+      uint32_t o32 = 0;
+      r.at<uint32_t>(next_pos, &o32);
+      ifd_off = o32;
+    }
   }
   if (info->pages.empty()) { *err = "no pages"; return false; }
   return true;
@@ -274,7 +337,7 @@ PyObject* py_read_stack_f32(PyObject*, PyObject* args) {
     PyErr_SetString(PyExc_IOError, "short read");
     return nullptr;
   }
-  Reader r{buf.data(), (size_t)sz, false};
+  Reader r{buf.data(), (size_t)sz};
   TiffInfo info;
   std::string err;
   if (!parse_tiff(r, &info, &err)) {
@@ -385,7 +448,7 @@ PyObject* py_get_info(PyObject*, PyObject* args) {
     PyErr_SetString(PyExc_IOError, "short read");
     return nullptr;
   }
-  Reader r{buf.data(), (size_t)sz, false};
+  Reader r{buf.data(), (size_t)sz};
   TiffInfo info;
   std::string err;
   if (!parse_tiff(r, &info, &err)) {

@@ -13,25 +13,17 @@ random volume on the batch's grid, 36 frames, on the route ``auto``
 takes there (``mip3d_frames``; CUDA events, the card idle before each
 call). The first line is the card's name and power limit.
 
-Each root runs in a process of its own, so that a parent commit unpacked
-by ``git archive`` beside the working tree can be timed in turns with it
-on one card: ``--roots build/parent,.,.,build/parent``.
+The roots run in turns (``tools/turns.py``), e.g. ``--roots
+build/parent,.,.,build/parent`` for a parent commit unpacked by ``git
+archive`` beside the working tree.
 """
 
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def card_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_root(root, tps, xy):
@@ -74,22 +66,16 @@ def main(argv=None):
     ap.add_argument("--roots", default=HERE)
     ap.add_argument("--tps", type=int, default=3)
     ap.add_argument("--xy", type=int, default=320)
-    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--one", help=argparse.SUPPRESS)   # the child: time this root
     args = ap.parse_args(argv)
     if args.one:
-        time_root(args.roots, args.tps, args.xy)
+        time_root(args.one, args.tps, args.xy)
         return 0
-    print(card_line(), flush=True)
-    for root in args.roots.split(","):
-        root = os.path.abspath(root)
-        env = dict(os.environ, PYTHONPATH=root)
-        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", "--roots",
-                             root, "--tps", str(args.tps), "--xy", str(args.xy)],
-                            env=env, cwd=root).returncode
-        if rc:
-            return rc
-    return 0
+    sys.path.insert(0, HERE)   # run by its path, a tool sees only its own directory
+    from microimagelib_tpu_torch.tools import turns
 
+    return turns.in_turns(__file__, args.roots, ["--tps", str(args.tps),
+                                                 "--xy", str(args.xy)])[0]
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -13,10 +13,9 @@ axes took the length-specialised transform, and K3's largest distance
 from ``torch.fft`` over its largest value. The first line is the card's
 name and power limit.
 
-Each root runs in a process of its own, so that two versions of the
-kernel (e.g. a parent commit unpacked by ``git archive`` beside the
-working tree) can be timed in turns on one card: ``--roots
-build/parent,.,.,build/parent``. Only the package's
+The roots run in turns (``tools/turns.py``), e.g. ``--roots
+build/parent,.,.,build/parent`` for a parent commit unpacked by ``git
+archive`` beside the working tree. Only the package's
 ``kernels.fft_ct`` is used. The inputs are uniform random volumes from a
 torch seed on the card and the half spectrum of another as the OTF.
 """
@@ -24,7 +23,6 @@ torch seed on the card and the half spectrum of another as the OTF.
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 GRIDS = ((320, 512, 512), (384, 512, 512), (512, 512, 512), (576, 512, 512),
@@ -35,13 +33,6 @@ LAUNCHES = (("x forward", ("x_forward",)), ("y forward", ("y_forward", "y_kernel
             ("z x OTF", ("z_kernel",)), ("y inverse", ("y_inverse", "y_kernel")),
             ("x inverse", ("x_inverse",)))
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def card_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def launch_ms(rows):
@@ -55,10 +46,9 @@ def launch_ms(rows):
     return out
 
 
-def time_root(root, grids, reps, card):
+def time_root(root, grids, reps):
     """One JSON line per grid for the package under ``root``; runs in this
     process."""
-    sys.path.insert(0, root)
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -99,7 +89,7 @@ def time_root(root, grids, reps, card):
             "launch_ms": launch_ms(rows), "z_registers": z["registers"],
             "z_spill_bytes": z["spill_bytes"],
             "specialised": "".join(a for a, n in zip("zyx", shape) if F.radix_plan(n)),
-            "max_rel_err": err, "card": card}), flush=True)
+            "max_rel_err": err}), flush=True)
         del v, otf
         torch.cuda.empty_cache()
 
@@ -118,17 +108,13 @@ def main(argv=None):
         return 1
     grids = [tuple(int(n) for n in g.split("x")) for g in args.grids.split(",")]
     if args.one:
-        time_root(args.one, grids, args.reps, card_line())
+        time_root(args.one, grids, args.reps)
         return 0
-    print(card_line(), flush=True)
-    for root in args.roots.split(","):
-        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                             os.path.abspath(root), "--grids", args.grids,
-                             "--reps", str(args.reps)]).returncode
-        if rc:
-            return rc
-    return 0
+    sys.path.insert(0, HERE)   # run by its path, a tool sees only its own directory
+    from microimagelib_tpu_torch.tools import turns
 
+    return turns.in_turns(__file__, args.roots, ["--grids", args.grids,
+                                                 "--reps", str(args.reps)])[0]
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -6,7 +6,9 @@ between the JAX routes — at that file's (18, 13, 15) blobs with 7 frames
 and tests/test_ops_basics.py's (12, 20, 16) volume with 8 frames. The
 route rule (``mip3d_params``) and the tap tables (``mip3d_factored_plan``)
 equal JAX's. K8, the factored route's CUDA kernel, is held against its
-plain version on the card only (marked ``cuda``; it skips here). JAX is
+plain version on the card only (marked ``cuda``; it skips here); on the
+CPU its z' interval (``valid_z_interval``) is held to an exhaustive scan
+and its walk over the rows-last layout, in numpy, to the plain version. JAX is
 imported inside the tests, so the card test also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_mip_routes.py -m cuda
@@ -242,6 +244,139 @@ def test_importing_the_routes_builds_nothing():
     assert build.CSRC_DIR / "mip_rot.cu" in build.sources()
 
 
+def _exhaustive_valid(row, na, nb, zo, po):
+    """(zo, po): the per-sample predicate of the factored route, the joint
+    box -0.5 <= c < n - 0.5 on the float32 ``coordinate`` of both axes."""
+    kb, kbz, kb0, ka, kaz, ka0 = (np.float32(v) for v in row)
+    z = np.arange(zo, dtype=np.float32)[:, None]
+    q = np.arange(po, dtype=np.float32)[None, :]
+    cb, ca = M.coordinate(kb, kbz, kb0, q, z), M.coordinate(ka, kaz, ka0, q, z)
+    return (cb >= -0.5) & (cb < nb - 0.5) & (ca >= -0.5) & (ca < na - 0.5)
+
+
+def _assert_interval_is_exact(row, na, nb, zo, po):
+    lo, hi = M.valid_z_interval(row, np.arange(po), na, nb, zo)
+    z = np.arange(zo)[:, None]
+    np.testing.assert_array_equal((z >= lo) & (z < hi), _exhaustive_valid(row, na, nb, zo, po))
+    for q in (0, po // 2, po - 1):        # the scalar form gives the same ends
+        assert tuple(M.valid_z_interval(row, q, na, nb, zo)) == (lo[q], hi[q])
+
+
+@pytest.mark.parametrize("r_axis", [1, 2])
+@pytest.mark.parametrize("shape", [(128, 128, 128), (320, 320, 320), (33, 47, 29)])
+def test_valid_z_interval_equals_the_exhaustive_scan(shape, r_axis):
+    """K8 walks only [lo, hi) of z' for each (frame, column): for every
+    frame of ``mip3d_params``' 36 matrices the interval is exactly the z'
+    that the per-sample box test accepts, so the kernel takes the samples
+    of the one-thread-a-column scan it replaced."""
+    p = PP.mip3d_params(shape, r_axis, 36, impl="factored")
+    _rows, na, nb, zo, po = M.extents(shape, p["out_shape"], r_axis)
+    for row in M.coefficients(p["mats"], r_axis):
+        _assert_interval_is_exact(row, na, nb, zo, po)
+
+
+
+@pytest.mark.parametrize("r_axis", [1, 2])
+@pytest.mark.parametrize("shape", [(128, 128, 128), (96, 100, 90)])
+def test_samples_inside_counts_the_exhaustive_scan(shape, r_axis):
+    """K8's bound counts the samples inside the box from the frames'
+    intervals: the count of the per-sample predicate over every frame."""
+    p = PP.mip3d_params(shape, r_axis, 36, impl="factored")
+    _rows, na, nb, zo, po = M.extents(shape, p["out_shape"], r_axis)
+    coef = M.coefficients(p["mats"], r_axis)
+    want = sum(int(_exhaustive_valid(row, na, nb, zo, po).sum()) for row in coef)
+    assert M.samples_inside(coef, na, nb, zo, po) == want
+    assert 0 < want < len(coef) * zo * po
+
+def test_valid_z_interval_on_random_and_exact_rotations():
+    """200 random rotations from a seeded generator, about both axes and on
+    random grids, each with its kz zeroed in one of four; the exact angles
+    0, 90, 180 and 270 degrees (kz ~ 1e-16 beside 1); and a coordinate
+    whose kz * z' is near an ulp of k * q (kz = 1e-7 beside 100), where the
+    rounded coordinate enters the box at z' = 39 and the real line at 76."""
+    rng = np.random.default_rng(16)
+    for i in range(200):
+        shape = tuple(int(n) for n in rng.integers(8, 90, 3))
+        r_axis = int(rng.integers(1, 3))
+        m = PP.rot_to_matrix(float(rng.uniform(-7, 7)), shape[2], shape[1], shape[0], r_axis)
+        _rows, na, nb, zo, po = M.extents(
+            shape, PP.mip3d_params(shape, r_axis, 1, "factored")["out_shape"], r_axis)
+        row = M.coefficients(np.asarray(m, np.float32)[None], r_axis)[0]
+        if i % 4 == 0:
+            row[1 if i % 8 else 4] = 0.0          # kz = 0: a constant test on that axis
+        _assert_interval_is_exact(row, na, nb, zo, po)
+    for theta in (0.0, np.pi / 2, np.pi, 3 * np.pi / 2):
+        for r_axis in (1, 2):
+            shape = (33, 47, 29)
+            p = PP.mip3d_params(shape, r_axis, 1, "factored")
+            _rows, na, nb, zo, po = M.extents(shape, p["out_shape"], r_axis)
+            m = PP.rot_to_matrix(theta, shape[2], shape[1], shape[0], r_axis)
+            _assert_interval_is_exact(
+                M.coefficients(np.asarray(m, np.float32)[None], r_axis)[0], na, nb, zo, po)
+    row = np.array([1.0, 1e-7, -100.500005, 0.0, 1.0, 0.0], np.float32)
+    _assert_interval_is_exact(row, 200, 200, 100, 200)
+    assert tuple(M.valid_z_interval(row, 100, 200, 200, 100)) == (39, 100)
+
+
+def _kernel_numpy(img, mats, out_shape, r_axis):
+    """K8's walk in numpy: per (frame, column) the z' of ``valid_z_interval``
+    in chunks of 32; per sample the record a lane writes (the tap pixel a0 *
+    nb + b0, whether a1 and b1 step past a0 and b0, whether it is inside the
+    box, fa, fb), and from it the four taps read from the rows-last source
+    as a vector over the rows (a warp's lanes)."""
+    src = M.rows_last(img, r_axis).numpy()
+    rows, na, nb, zo, po = M.extents(tuple(img.shape), out_shape, r_axis)
+    pixels = src.reshape(na * nb, rows)
+    f32 = np.float32
+    frames = np.zeros((len(mats), rows, po), np.float32)
+    for f, row in enumerate(M.coefficients(mats, r_axis)):
+        kb, kbz, kb0, ka, kaz, ka0 = (f32(v) for v in row)
+        los, his = M.valid_z_interval(row, np.arange(po), na, nb, zo)
+        for q in range(po):
+            acc = np.zeros(rows, np.float32)
+            for z0 in range(los[q], his[q], 32):
+                chunk = []
+                for z in range(z0, z0 + 32):          # lane z - z0
+                    cb = M.coordinate(kb, kbz, kb0, f32(q), f32(z))
+                    ca = M.coordinate(ka, kaz, ka0, f32(q), f32(z))
+                    valid = z < his[q] and -0.5 <= cb < nb - 0.5 and -0.5 <= ca < na - 0.5
+                    b0, a0 = np.floor(cb), np.floor(ca)
+                    ib, ia = int(b0), int(a0)
+                    b0i, b1i = min(max(ib, 0), nb - 1), min(ib + 1, nb - 1)
+                    a0i, a1i = min(max(ia, 0), na - 1), min(ia + 1, na - 1)
+                    flags = (a1i != a0i) | ((b1i != b0i) << 1) | (valid << 2)
+                    chunk.append((a0i * nb + b0i, flags, f32(ca - a0), f32(cb - b0)))
+                for pix, flags, fa, fb in chunk[:min(32, his[q] - z0)]:
+                    if not flags & 4:
+                        continue
+                    p1 = pix + (nb if flags & 1 else 0)
+                    d = 1 if flags & 2 else 0
+                    v0 = fb * pixels[pix + d] + (f32(1) - fb) * pixels[pix]
+                    v1 = fb * pixels[p1 + d] + (f32(1) - fb) * pixels[p1]
+                    acc = np.maximum(acc, fa * v1 + (f32(1) - fa) * v0)
+            frames[f, :, q] = acc
+    return frames.transpose(0, 2, 1) if r_axis == 1 else frames
+
+
+@pytest.mark.parametrize("r_axis", [1, 2])
+@pytest.mark.parametrize("shape", [(12, 20, 16), (18, 13, 15), (9, 35, 33)])
+def test_rows_last_layout_gives_the_rows_first_frames(shape, r_axis):
+    """K8's source layout (a, b, rows) is the plain version's (rows, a, b)
+    permuted, element for element; the kernel's walk over it (lanes on rows,
+    only the valid z' interval, the samples' records in chunks of 32) gives
+    the plain contraction's frames within 1e-5 x max."""
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100)
+    last = M.rows_last(img, r_axis)
+    assert last.is_contiguous()
+    assert torch.equal(last.permute(2, 0, 1), M.rows_first(img, r_axis))
+    p = PP.mip3d_params(shape, r_axis, 7, impl="factored")
+    ref = M.mip_rot(img, p["mats"], p["out_shape"], r_axis)
+    out = _kernel_numpy(img, p["mats"], p["out_shape"], r_axis)
+    assert out.shape == tuple(ref.shape)
+    np.testing.assert_allclose(out, ref.numpy(), rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -251,7 +386,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r_axis", [1, 2])
-@pytest.mark.parametrize("shape", [(18, 13, 15), (12, 20, 16), (40, 96, 64)])
+@pytest.mark.parametrize("shape", [(18, 13, 15), (12, 20, 16), (40, 96, 64), (24, 100, 70)])
 def test_mip_rot_kernel_matches_plain_and_gather(cuda, shape, r_axis):
     """K8 against its plain version (the factored einsums) and the gather
     route on the card, within 1e-5 x max; one launch a call, the same bits

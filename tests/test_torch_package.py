@@ -9,6 +9,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 import microimagelib_tpu_torch
 from microimagelib_tpu_torch.kernels import build
 
@@ -134,3 +136,57 @@ def test_native_codec_builds_at_first_use_from_its_own_source():
         "print('STATE', nb._MODULE is None, sum(t.COUNTS.values()))\n")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split("STATE")[1].split() == ["True", "0"]
+
+
+def _all_names(init_py):
+    """The names of ``__all__`` in an ``__init__.py``, read with ``ast``
+    (nothing is imported); the empty set where the file has no ``__all__``."""
+    import ast
+
+    for node in ast.parse(init_py.read_text()).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__"
+                                                for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    return set()
+
+
+@pytest.mark.parametrize("sub", ["models", "ops", "io", "utils", "parallel", "cli"])
+def test_every_jax_export_is_exported_by_the_port(sub):
+    """The same surface: each name in the ``__all__`` of a JAX package
+    ``__init__`` is in the port's counterpart's, and the port's module has
+    it. The JAX ``__all__`` is parsed from its file, so no JAX module is
+    imported here."""
+    import importlib
+
+    jax_names = _all_names(ROOT / "microimagelib_tpu" / sub / "__init__.py")
+    port = importlib.import_module(f"microimagelib_tpu_torch.{sub}")
+    port_names = set(getattr(port, "__all__", ()))
+    assert port_names == _all_names(PKG / sub / "__init__.py")
+    assert jax_names <= port_names, sorted(jax_names - port_names)
+    assert all(hasattr(port, name) for name in port_names)
+
+
+def test_times_tools_run_each_root_on_its_own_package(tmp_path, monkeypatch, capsys):
+    """tools/turns.py runs a tool's file once per root, in turns, with that
+    root's package first on the path, passes each child's output through
+    after the card line, and stops at the first child that fails."""
+    from microimagelib_tpu_torch.tools import turns
+
+    script = tmp_path / "tool.py"
+    script.write_text("import sys, microimagelib_tpu_torch as m\n"
+                      "print(sys.argv[1:], m.WHICH)\n"
+                      "sys.exit(3 if m.WHICH == 'bad' else 0)\n")
+    roots = []
+    for which in ("a", "b", "bad", "c"):
+        pkg = tmp_path / which / "microimagelib_tpu_torch"
+        pkg.mkdir(parents=True)
+        (pkg / "__init__.py").write_text(f"WHICH = {which!r}\n")
+        roots.append(str(tmp_path / which))
+    monkeypatch.setattr(turns, "card_line", lambda: "a card, 700.00 W")
+    rc, outs = turns.in_turns(str(script), ",".join(roots[:2] + roots[:1]), ["--x", "1"])
+    assert rc == 0
+    assert outs == [f"['--one', '{roots[i]}', '--x', '1'] {w}\n"
+                    for i, w in ((0, "a"), (1, "b"), (0, "a"))]
+    assert capsys.readouterr().out == "a card, 700.00 W\n" + "".join(outs)
+    rc, outs = turns.in_turns(str(script), ",".join(roots[1:]), [])
+    assert rc == 3 and [o.split()[-1] for o in outs] == ["b", "bad"]
