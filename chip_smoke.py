@@ -38,10 +38,11 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      at (320, 512, 512) and (384, 512, 512) the five launches' device
      times (torch.profiler), each against the bytes it must move and the
      z-shaped K7 copy's rate; then K3 against ``torch.fft`` on a ladder
-     of 22 grids, the voxel count from which K3 wins on those whose every
-     axis takes the specialised transform, and a gate: from 2^21 voxels
-     on, auto's route within 10% of the faster one, and K3 wherever it
-     wins on such a grid;
+     of 22 grids by device time a call (10 calls queued behind a spinning
+     kernel, CUDA events; 10 calls back to back beside it), the voxel count from which K3 wins on those
+     whose every axis takes the specialised transform, and a gate: from
+     2^21 voxels on, auto's route within 10% of the faster one, and K3
+     wherever it wins on such a grid;
   6. runs ``decon_dualview`` on two (320, 512, 512) views with
      anisotropic 25^3 PSFs and Wiener-Butterworth back projectors, 2
      iterations, MIL_FFT_IMPL=pallas: exactly 8 K3 calls, no K1 launch,
@@ -63,10 +64,13 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
  10. registers a (256, 512, 512) bead volume with its copy moved by the
      reg128 matrix of bench_all.py: ``reg3d``, choice 2, method 7, the
      automatic pyramid, default knobs. Checks NCC >= 0.95, the matrix
-     within 0.5 voxel of the truth over the central half-box, K4 and K5
-     launched at every level and no plain-version call; prints each
-     level's evaluations, launches, K4/K5 device time per launch, kernel
-     ms and host share. Then ``reg3d`` choice 1 (the phasor) on the bead
+     within 0.5 voxel of the truth over the central half-box, each level's
+     ladder in K9 with K4's and K5's bodies run at every level, at most
+     LEVEL_HOST_CALLS K4/K5 launches from the host a level (the initial
+     cost: no sync per evaluation), no ladder on the host loop and no
+     plain-version call; prints each level's evaluations, launches, K4/K5
+     device time per launch, the sums' ms and the rest of the level's
+     time. Then ``reg3d`` choice 1 (the phasor) on the bead
      volume circularly shifted by two whole-voxel vectors, every |shift|
      under size/4 and x over it (the wraparound case): both shifts come
      back exactly; ``max3d_with_coords`` on three tied maxima returns the
@@ -104,7 +108,9 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      1e-3, matrices within 0.5 voxel; each within FUSION_TRUTH_VOXELS of
      the true matrix and at least the true matrix's NCC on the
      registration's own cost (the CPU test against the JAX package sets
-     the distance); the decon of one registered pair with and without K2
+     the distance); (a)'s ladders on the host loop (the stated route of
+     MIL_REG_BATCH_LS), (b)'s in K9 with both bodies run and no host-loop
+     ladder; the decon of one registered pair with and without K2
      within 2e-4; per-step wall times, ms per dual-view iteration on K2,
      the K1 pair, K3 and ``torch.fft``, and per pyramid level the syncs,
      evaluations, device time per launch and host share with and without
@@ -126,7 +132,8 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      (``microimagelib_tpu_torch.tools.e2e_surrogate``) in-process, --xy 320
      (raw A (52, 320, 320), grid 320^3), 3 timepoints, regMode 2, bg 100,
      10 iterations, 16-bit MP_ZProj and MP_3D_Yaxis: the tool's checks
-     (output tree, every final NCC > 0.5), K4 and K5 launched, the decon's
+     (output tree, every final NCC > 0.5), the ladders in K9 (both bodies
+     run, no host-loop ladder), the decon's
      kernel (auto's route for the surrogate's PSF) launched 40 times a
      timepoint, K8 launched once per rotating MIP and no plain MIP route
      called, no plain-version call; tp/min; the rotating MIP about y alone
@@ -138,8 +145,9 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      registration's own cost, the two t0 matrices within
      BATCH_AGREE_VOXELS of each other. Per timepoint: the seconds of each
      stage (read, preprocess, registration, decon, MPs/MIPs, fetch, write,
-     the card synchronized after each) and each kernel's launches. Every
-     shape at which (a) and (b) launch K1, K3, K4 or K5 must be one at
+     the card synchronized after each) and each kernel's launches; (b)'s
+     ladders in K9. Every shape at which (a) and (b) launch K1, K3, K4,
+     K5 or K9 (K9's under K4 and K5, whose bodies it runs) must be one at
      which Phase 1, 5 or 9 held that kernel against its plain version.
      Then (a) once more with no instrumentation: its tp/min is the batch's
      own.
@@ -156,7 +164,8 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      low-memory registration of a (768, 1024, 1024) bead pair moved by a
      whole-voxel translation under the 16 GB budget: a host-pooled coarse
      ladder on K4/K5, the streamed full-resolution polish and final
-     transform; within 0.5 voxel of the truth and 1e-3 NCC of mode 1 on
+     transform; the coarse ladder in K9; within 0.5 voxel of the truth and
+     1e-3 NCC of mode 1 on
      the same pair, the streamed transform bit-equal to the resident one,
      its peak memory under the budget; the peak factor of one streamed
      block against ``ops.affine.STREAM_PEAK_FACTOR``; then ``reg3d`` with
@@ -188,7 +197,7 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      voxel of the truth, 1e-3 NCC of ``reg3d_affine``), method 7 at (128,
      256, 256) on the REG_DOF pair (more than one window, NCC > 0.9); (e) the
      spimFusionBatch CLI under MIL_MESH=2,2 on Phase 17 (b)'s TIFFs,
-     regMode 3: K4 and K5 launched, no K1/K3 launch (the decon runs on the
+     regMode 3: the ladders in K9, no K1/K3 launch (the decon runs on the
      pencil FFT), each Decon_t within rtol 2e-4, atol 2e-3 x max of the
      CLI without MIL_MESH; (f) two MIL_MULTIHOST=1 processes (gloo on a
      local port) on the card with (e)'s inputs: disjoint timepoint sets
@@ -220,8 +229,23 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      (at (128, 128, 128), where W fits) the one-hot matmul route, and the
      plain version once at (320, 320, 320); ``mip3d_params``' CUDA
      ``auto`` (K8) must be the fastest route timed at each shape.
+ 22. (run right after Phase 10) K9 (``csrc/reg_ladder.cu``, the ladder's
+     optimizer stages on the card, one cooperative launch a stage) against
+     its plain version, the host loop (one K4/K5 launch and one sync an
+     evaluation), at every level of Phase 10's pyramid from the start
+     Phase 10 gave it (its ladders' arguments recorded): evaluations
+     within 20%, the final cost within 1e-4, the matrices within 0.05
+     voxel over the central half-box; every evaluation's sums (the
+     ``trace=`` hook) bit for bit a K4/K5 launch on its matrix; two K9 runs
+     bit for bit; each stage kernel's registers, local bytes and resident
+     blocks against its plan; per level the seconds, evaluations, device
+     time and host share of both. Its agreement gates are reported when
+     every other phase has run, and fail the run then. With
+     ``MIL_SMOKE_DUMP=<dir>`` it saves its smaller levels there for
+     ``tools/reg_ladder_witness.py`` (the JAX ladder on the CPU).
 
-The CLI phases (4, 8, 11, 15, 17, 18 (d), 19 (e)) must read and write their TIFFs
+Phase 11's reg3D CLI must run its ladders in K9 (both bodies, no host-loop
+ladder). The CLI phases (4, 8, 11, 15, 17, 18 (d), 19 (e)) must read and write their TIFFs
 through the native codec only (``io.tiff.COUNTS``); Phase 11 prints the
 reg3D CLI's TIFF seconds.
 
@@ -229,9 +253,13 @@ It prints the card's name and power limit beside every time, ms per RL
 iteration for the K1, K2, K3 and ``torch.fft`` routes, one JSON line
 describing each kernel (its time, its plain version's, the least time the
 card could take for the same work, the time of the nearest PyTorch
-library call (K8: its time is the factored route's call alone,
-``mip3d_params``' host work included; also the gather route's time,
-``gather_route_ms``, and K8's wrapper called back to back, ``kernel_ms``),
+library call (K8: its time is its wrapper back to back; also the gather
+route's time, ``gather_route_ms``, and the factored route's call alone,
+``mip3d_params``' host work included, ``route_ms``; K9: its time is the
+ladders of Phase 10's levels, each called alone, summed, per level in
+``ms_per_level``, its bound K4/K5's bound times the evaluations on each
+body; K4 and K5 count as launches their own only, and the evaluations K9
+ran on their bodies as ``k9_body_evals``),
 its launches in Phase 17 (a), ``batch_launches``, in
 Phase 18 (c), ``bhbm_launches``, and in Phase 19 (e), ``mesh_launches``), and
 as its last line
@@ -241,6 +269,7 @@ is no CPU path.
 """
 
 import contextlib
+import inspect
 import io
 import json
 import math
@@ -267,6 +296,7 @@ from microimagelib_tpu_torch.kernels import corr as C
 from microimagelib_tpu_torch.kernels import fft_ct as F
 from microimagelib_tpu_torch.kernels import mip_rot as MR
 from microimagelib_tpu_torch.kernels import pipe_copy as P
+from microimagelib_tpu_torch.kernels import reg_ladder as RL
 from microimagelib_tpu_torch.kernels import rl_fused as KF
 from microimagelib_tpu_torch.models import batch as PB
 from microimagelib_tpu_torch.models import decon_streamed as DS
@@ -275,6 +305,8 @@ from microimagelib_tpu_torch.models import fusion as FU
 from microimagelib_tpu_torch.models import gen_backprojector
 from microimagelib_tpu_torch.models import projections as PP
 from microimagelib_tpu_torch.models import registration as R
+from microimagelib_tpu_torch.models import registration_device as RD
+from microimagelib_tpu_torch.models import registration_grad as RG
 from microimagelib_tpu_torch.ops import affine as AF
 from microimagelib_tpu_torch.ops import fft_sharded as FS
 from microimagelib_tpu_torch.ops.affine import affine_transform_3d
@@ -655,7 +687,10 @@ def main():
         phase8_dual_cli(rng, psfs)
     torch.cuda.synchronize()
     corr = phase9_corr(dev, card)
-    corr_launches = phase10_reg(dev, card)
+    corr_launches, k9_calls = phase10_reg(dev, card)
+    k9 = phase22_k9(dev, card, k9_calls)
+    del k9_calls
+    torch.cuda.empty_cache()
     with native_tiff("Phase 11"):
         phase11_reg_cli(dev)
     torch.cuda.synchronize()
@@ -688,6 +723,8 @@ def main():
           f"finisher launched K6 at (of {main14['k6_shapes']})")
     k6 = k6[k6_shape]
 
+    if k9["faults"]:
+        raise AssertionError("Phase 22: " + "; ".join(k9["faults"]))
     print(f"iteration ms at 512^3 [{card}]: " + json.dumps(iter_ms))
     nz, ny, nx = DUAL_SHAPE
     n_ct, n_spec = nz * ny * nx, nz * ny * (nx // 2 + 1)
@@ -727,7 +764,10 @@ def main():
             "route": "cuda",
             "source": "microimagelib_tpu_torch/csrc/corr.cu",
             "replaces": f"microimagelib_tpu/ops/pallas_corr.py:{line}",
-            "launches": corr_launches[grad],
+            # its own launches on the main path (the initial cost); the
+            # evaluations K9 ran on its body there are "k9_body_evals"
+            "launches": corr_launches["K4" if grad else "K5"],
+            "k9_body_evals": corr_launches["K9_K4" if grad else "K9_K5"],
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],
@@ -783,28 +823,61 @@ def main():
         "replaces": "microimagelib_tpu/models/projections.py:277",
         "launches": batch["K8"],
         "max_abs_err": k8["max_abs_err"],
-        "ms": k8["ms"],
+        # K8's wrapper back to back, as for K1-K7; the factored route's
+        # call alone, mip3d_params' host work included, is "route_ms"
+        "ms": k8["kernel_ms"],
         "plain_ms": k8["plain_ms"],
         "bound_ms": k8["bound"][0],
         "bound_by": k8["bound"][1],
         "library_ms": None,   # no single PyTorch call computes a rotating MIP
         "gather_route_ms": k8["gather_ms"],
-        # "ms" is the factored route's call alone (mip3d_params' host work
-        # and K8), as before the redesign; K8's wrapper back to back:
-        "kernel_ms": k8["kernel_ms"],
+        "route_ms": k8["ms"],
         "redesigned": "PR 16",
+    })
+    kernels.append({
+        "name": "reg_ladder",
+        "route": "cuda",
+        "source": "microimagelib_tpu_torch/csrc/reg_ladder.cu",
+        # not a Pallas kernel: the JAX package's jitted ladder (the L-BFGS
+        # and Powell lax.while_loops over K4/K5), one device program
+        "replaces": "microimagelib_tpu/models/registration_grad.py:111",
+        "also_replaces": "microimagelib_tpu/models/registration_device.py:126",
+        "launches": corr_launches["K9"],
+        "evaluations": {"K4_body": corr_launches["K9_K4"],
+                        "K5_body": corr_launches["K9_K5"]},
+        # the largest entry of the ladder's matrix against the host loop's
+        "max_abs_err": k9["max_abs_err"],
+        "fret_abs_err": k9["fret_err"],
+        # the ladders of Phase 10's five levels, each called alone (wall,
+        # synchronized), summed; per level below
+        "ms": k9["ms"],
+        "plain_ms": k9["plain_ms"],
+        # K4/K5's bound (Phase 9's model at the level's final matrix) times
+        # the evaluations K9 ran on each body, summed over the levels
+        "bound_ms": k9["bound"][0],
+        "bound_by": k9["bound"][1],
+        "library_ms": None,   # no PyTorch call runs an optimizer over the sums
+        "ms_per_level": k9["levels"],
     })
     # the launches of Phase 17 (a), the batch's own path, beside each entry's
     # main-path count
     ids = {"conv3_sep": "K1", "rl_iter_fused": "K2", "conv3_ct": "K3",
            "corr3d_partials": "K5", "corr3d_grad": "K4",
-           "corr3d_partials_nprobe": "K6", "pipe_copy": "K7", "mip_rot": "K8"}
+           "corr3d_partials_nprobe": "K6", "pipe_copy": "K7", "mip_rot": "K8",
+           "reg_ladder": "K9"}
+
     for k in kernels:
-        k["batch_launches"] = batch[ids[k["name"]]]
+        kernel = ids[k["name"]]
+        k["batch_launches"] = batch[kernel]
         # and of Phase 18 (c), the low-memory registration's coarse ladder
-        k["bhbm_launches"] = bhbm[ids[k["name"]]]
+        k["bhbm_launches"] = bhbm[kernel]
         # and of Phase 19 (e), the batch CLI under MIL_MESH=2,2
-        k["mesh_launches"] = mesh[ids[k["name"]]]
+        k["mesh_launches"] = mesh[kernel]
+        if kernel in ("K4", "K5"):
+            # the evaluations K9 ran on the body in those runs
+            k["batch_k9_body_evals"] = batch[f"K9_{kernel}"]
+            k["bhbm_k9_body_evals"] = bhbm[f"K9_{kernel}"]
+            k["mesh_k9_body_evals"] = mesh[f"K9_{kernel}"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -841,6 +914,38 @@ K3_LADDER = ((128, 128, 128), (128, 128, 256), (64, 256, 256), (128, 256, 256),
 # of the faster one, and K3 wherever it wins on an all-specialised grid
 K3_GATE_VOXELS = 2 ** 21
 K3_GATE_SLACK = 1.10
+# calls a ladder grid's device time is taken over
+K3_LADDER_REPS = 10
+
+
+# cycles the card spins before a device-timed run (~20 ms at the H100's
+# clocks): the host enqueues the calls meanwhile, so the calls then run
+# back to back at the card's own pace
+QUEUE_AHEAD_CYCLES = 40_000_000
+
+
+def device_ms_per_call(fn, reps):
+    """Device ms of one call of ``fn``: ``reps`` calls enqueued behind a
+    spinning kernel (``torch.cuda._sleep``), so that the host's launches
+    are all queued before the first call starts, timed by CUDA events
+    around the calls alone. The host's enqueue time must stay inside the
+    spin (checked)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin_end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+    spin_end.record()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    spun_out = spin_end.query()   # the spin over before the last call was queued
+    end.synchronize()
+    if spun_out:
+        raise AssertionError("the host enqueued the calls slower than the card spun")
+    return start.elapsed_time(end) / reps
 
 
 def k3_inputs(shape, rng, dev):
@@ -903,18 +1008,25 @@ def phase5_k3(dev, rng, card):
     res.update(ms=timed["ms"], plain_ms=timed["plain_ms"], split=split)
     k3_split(dev, card, (384, 512, 512))
 
-    print(f"  K3 against torch.fft by grid (CUDA events, 10 calls) [{card}]:")
+    # by device time: at ~0.05 ms a call, calls back to back time the host's
+    # launches (five for K3) more than the card
+    print(f"  K3 against torch.fft by grid (device ms a call: {K3_LADDER_REPS} calls "
+          f"queued behind a spin, CUDA events; CUDA events over 10 calls back to back "
+          f"beside it) [{card}]:")
     ladder, faults = [], []
     for shape in K3_LADDER:
         v, otf = k3_inputs(shape, own, dev)
-        k_ms = cuda_ms(lambda: F.conv3_ct(v, otf), 10)
-        t_ms = cuda_ms(lambda: F.conv3_ct_torch(v, otf), 10)
+        k_ev = cuda_ms(lambda: F.conv3_ct(v, otf), 10)
+        t_ev = cuda_ms(lambda: F.conv3_ct_torch(v, otf), 10)
+        k_ms = device_ms_per_call(lambda: F.conv3_ct(v, otf), K3_LADDER_REPS)
+        t_ms = device_ms_per_call(lambda: F.conv3_ct_torch(v, otf), K3_LADDER_REPS)
         vox, full, auto = int(np.prod(shape)), F.ct_specialised(shape), D._fft_impl(shape, v)
         if full:
             ladder.append((vox, k_ms, t_ms))
         generic = "".join(a for a, n in zip("zyx", shape) if not F.radix_plan(n))
         print(f"    {shape} ({vox} voxels, generic axes "
-              f"{generic or '-'}): K3 {k_ms:.3f} ms, torch.fft {t_ms:.3f} ms "
+              f"{generic or '-'}): K3 {k_ms:.3f} ms, torch.fft {t_ms:.3f} ms on the "
+              f"device (events: {k_ev:.3f}, {t_ev:.3f}) "
               f"({'K3' if k_ms < t_ms else 'torch.fft'} wins; auto takes {auto})")
         taken, other = (k_ms, t_ms) if auto == "ct" else (t_ms, k_ms)
         if vox >= K3_GATE_VOXELS and taken > K3_GATE_SLACK * other:
@@ -1184,6 +1296,23 @@ def level_shapes(shape):
             for f in R.pyramid_levels(R._auto_pool_factors(shape))] + [tuple(shape)]
 
 
+# Phase 10's grid for the kernel route against MIL_NCC_IMPL=gather
+REG_ROUTE_SHAPE = (128, 256, 256)
+# host launches of K4 and K5 a pyramid level may make beside its K9 ladder
+# (the initial cost); an evaluation's sums come from K9
+LEVEL_HOST_CALLS = 2
+# Phase 22's gates, K9 against the host loop from the same start at each
+# level: evaluations within 20%, final cost (-NCC) within 1e-4, matrices
+# within 0.05 voxel over the central half-box
+K9_EVALS_SLACK = 0.20
+K9_NCC_TOL = 1e-4
+K9_MATRIX_VOXELS = 0.05
+K9_TRACE_CAP = 20000
+# with MIL_SMOKE_DUMP set to a directory, Phase 22 saves each level of at
+# most this many voxels (its pair, its ladder's arguments, K9's and the
+# host loop's results) for tools/reg_ladder_witness.py
+K9_DUMP_VOXELS = 1 << 20
+
 # Phase 9's shapes: Phase 10's pyramid levels, then every level of the
 # fusion's registration (Phases 14 and 17 (b)) and of the surrogate's
 # (Phase 17 (a))
@@ -1338,8 +1467,8 @@ def box_error(m, truth, shape):
 
 
 def phase10_reg(dev, card):
-    """The slice at full width. Returns the K5 and K4 launch counts of the
-    main path's run."""
+    """The slice at full width. Returns the main path's launch counts
+    (``counts()``) and the ladders K9 ran, for Phase 22."""
     print(f"Phase 10: reg3d {REG_SHAPE}, choice 2, method 7, automatic pyramid "
           "(default knobs)")
     true_m = dof_to_matrix(REG_DOF, 6)
@@ -1348,34 +1477,40 @@ def phase10_reg(dev, card):
     levels = []
 
     def on_level(label, shape, secs):
-        levels.append((label, shape, secs, C.K4_LAUNCHES, C.K5_LAUNCHES))
+        levels.append((label, shape, secs, counts()))
 
     torch.cuda.synchronize()
-    C.K4_LAUNCHES = C.K5_LAUNCHES = C.PLAIN_CALLS = 0
+    zero_counts()
     t = time.time()
-    reg, tmx, rec = R.reg3d(vol, moved, reg_choice=2, aff_method=7, device=dev,
-                            as_device=True, on_level=on_level)
+    with LadderCalls() as ladders:
+        reg, tmx, rec = R.reg3d(vol, moved, reg_choice=2, aff_method=7, device=dev,
+                                as_device=True, on_level=on_level)
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = {True: C.K4_LAUNCHES, False: C.K5_LAUNCHES}
-    plain = C.PLAIN_CALLS
+    launches = counts()
     err = box_error(tmx, inverse12(true_m), REG_SHAPE)
     print(f"  reg3d: {wall:.3f} s, NCC {rec[3]:.6f} (initial {rec[1]:.6f}), "
-          f"{int(rec[5])} full-resolution evaluations, {launches[True]} K4 and "
-          f"{launches[False]} K5 launches, {plain} plain-version calls, matrix "
+          f"{int(rec[5])} full-resolution evaluations, launches {launches}, matrix "
           f"{np.round(tmx, 5).tolist()}, {err:.4f} voxel from the truth over the "
           f"central half-box [{card}]")
     if not np.isfinite(reg.sum().item()) or tuple(reg.shape) != REG_SHAPE:
         raise AssertionError("registered volume is not finite or has the wrong shape")
-    if rec[3] < 0.95 or err > 0.5 or plain != 0:
+    if rec[3] < 0.95 or err > 0.5 or not on_k9(launches):
         raise AssertionError(f"registration failed: NCC {rec[3]}, {err} voxel, "
-                             f"{plain} plain calls")
-    prev4 = prev5 = 0
-    for label, shape, secs, n4, n5 in levels:
-        d4, d5 = n4 - prev4, n5 - prev5
-        prev4, prev5 = n4, n5
-        if d4 == 0 or d5 == 0:
-            raise AssertionError(f"level {label}: {d4} K4 and {d5} K5 launches")
+                             f"launches {launches}")
+    if len(ladders.calls) != len(levels):
+        raise AssertionError(f"{len(levels)} levels ran {len(ladders.calls)} K9 ladders")
+    prev = dict.fromkeys(launches, 0)
+    for (label, shape, secs, n), call in zip(levels, ladders.calls):
+        d = {k: n[k] - prev[k] for k in n}
+        prev = n
+        e4, e5 = corr_runs(d, "K4"), corr_runs(d, "K5")
+        # one ladder a level, in K9; the host launches K4/K5 a few times a
+        # level (the initial cost), not once an evaluation
+        if (d["K9"] < 1 or e4 == 0 or e5 == 0 or d["K4"] + d["K5"] > LEVEL_HOST_CALLS
+                or d["ladder_plain"] or d["plain"]):
+            raise AssertionError(f"level {label}: launches {d}")
+        call["level"] = (label, tuple(shape), secs)
         src = R._mean_pool(vol, tuple(s // t for s, t in zip(REG_SHAPE, shape))) \
             if shape != REG_SHAPE else vol
         tgt = torch.roll(src, 1, 2).contiguous()
@@ -1385,34 +1520,38 @@ def phase10_reg(dev, card):
         g4, g5 = (call_device_ms(device_split(lambda: C.corr3d(src, tgt, m, grad=g), 10,
                                               f"K{4 if g else 5} level {label}", card))
                   for g in (True, False))
-        kern_ms = d4 * g4 + d5 * g5
-        print(f"  level {label} {shape}: {d4 + d5} evaluations ({d4} K4, {d5} K5), "
-              f"{secs:.3f} s, kernel {kern_ms / (d4 + d5):.4f} ms per evaluation "
-              f"(device K4 {g4:.4f}, K5 {g5:.4f} ms per launch; back to back K4 "
-              f"{t4:.4f}, K5 {t5:.4f} ms per call), kernel {kern_ms:.3f} ms of the level, "
-              f"host share {1 - kern_ms / 1e3 / secs:.3f} [{card}]")
+        kern_ms = e4 * g4 + e5 * g5
+        print(f"  level {label} {shape}: {e4 + e5} evaluations ({d['K9_K4']} on K4's and "
+              f"{d['K9_K5']} on K5's body in {d['K9']} K9 launches; {d['K4']} K4 and "
+              f"{d['K5']} K5 launches from the host), {secs:.3f} s, K4/K5 sums "
+              f"{kern_ms / (e4 + e5):.4f} ms per evaluation (device K4 {g4:.4f}, K5 "
+              f"{g5:.4f} ms per launch; back to back K4 {t4:.4f}, K5 {t5:.4f} ms per "
+              f"call), {kern_ms:.3f} ms of the level, the rest of the level's time "
+              f"{1 - kern_ms / 1e3 / secs:.3f} [{card}]")
     del reg, moved
     phasor_cases(vol, dev, card)
     del vol
     torch.cuda.empty_cache()
 
-    shape = (128, 256, 256)
+    shape = REG_ROUTE_SHAPE
     vol = beads(shape, SEED + 1, dev)
     moved = affine_transform_3d(vol, true_m, shape)
     out = {}
     for impl in ("auto", "gather"):
-        k4, k5, plain = C.K4_LAUNCHES, C.K5_LAUNCHES, C.PLAIN_CALLS
+        before = counts()
         t = time.time()
         with env(MIL_NCC_IMPL=impl):
             _, tmx2, rec2 = R.reg3d(vol, moved, reg_choice=2, aff_method=7,
                                     device=dev, want_reg=False)
-        kernels = C.K4_LAUNCHES - k4 + C.K5_LAUNCHES - k5
-        plains = C.PLAIN_CALLS - plain
+        n = {k: v - before[k] for k, v in counts().items()}
+        kernels, plains = n["K4"] + n["K5"] + n["K9"], n["plain"]
         print(f"  {shape} MIL_NCC_IMPL={impl}: {time.time() - t:.3f} s, NCC "
-              f"{rec2[3]:.6f}, {kernels} kernel launches, {plains} plain calls, "
+              f"{rec2[3]:.6f}, launches {n}, "
               f"{box_error(tmx2, inverse12(true_m), shape):.4f} voxel from the "
               f"truth [{card}]")
-        if (impl == "auto") != (kernels > 0) or (impl == "gather") != (plains > 0):
+        # auto: the ladders in K9; gather: the host loop on the plain versions
+        if ((impl == "auto") != on_k9(n) or (impl == "gather") != (plains > 0)
+                or (impl == "gather") != (n["ladder_plain"] > 0 and kernels == 0)):
             raise AssertionError(f"MIL_NCC_IMPL={impl} took the wrong route")
         out[impl] = (rec2[3], tmx2)
     if abs(out["auto"][0] - out["gather"][0]) > 1e-3 or \
@@ -1420,7 +1559,159 @@ def phase10_reg(dev, card):
         raise AssertionError("kernel and plain routes disagree")
     del vol, moved
     torch.cuda.empty_cache()
-    return launches
+    return launches, ladders.calls
+
+
+def wall_s(fn, reps):
+    """Least wall seconds of ``fn`` over ``reps`` calls, the card idle
+    before each and synchronized after."""
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t)
+    return best
+
+
+def kernel_device_ms(fn, names, label, card):
+    """Device ms of one call of ``fn`` spent in the kernels whose names
+    hold one of ``names`` (torch.profiler; each row's mean a launch times
+    its launches in the trace)."""
+    rows = device_split(fn, 1, label, card)
+    return sum(ms * n for key, ms, n in rows if any(x in key for x in names))
+
+
+def phase22_k9(dev, card, calls):
+    """K9 (``csrc/reg_ladder.cu``: the ladder's optimizer stages on the
+    card) against its plain version (the host loop: one K4/K5 launch and
+    one sync an evaluation) at every level of Phase 10's pyramid, from the
+    start Phase 10 gave that level (the ladders it ran, recorded). Returns
+    K9's JSON numbers."""
+    print(f"Phase 22: K9 (reg_ladder) vs the host loop at every level of Phase 10's "
+          f"pyramid [{card}]")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    res = {"levels": {}, "ms": 0.0, "plain_ms": 0.0, "bound": [0.0, 0.0],
+           "max_abs_err": 0.0, "fret_err": 0.0, "faults": []}
+    for call in calls:
+        label, shape, _secs = call["level"]
+        src, tgt = call["src"], call["tgt"]
+        knobs = [call[k] for k in ("sd_t", "p_init12", "aff_method", "ftol", "it_limit",
+                                   "engine", "finish", "finish_sweeps", "ls_max_iters",
+                                   "ls_patience")]
+        a = RL.ladder_args(call["engine"], call["aff_method"], call["p_init12"],
+                           call["ftol"], call["it_limit"], call["sd_t"], shape,
+                           call["finish"], call["finish_sweeps"], call["ls_max_iters"],
+                           call["ls_patience"])
+        for grad in (True, False):
+            plan = C.launch_plan(shape, grad, sms)
+            at = RL.kernel_attrs(grad, plan["vx"], plan["wide"])
+            print(f"  level {label} {shape}: K9's {'L-BFGS (K4 body)' if grad else 'Powell (K5 body)'}"
+                  f" stage kernel: {at['registers']} registers, {at['spill_bytes']} B local a "
+                  f"thread, {at['static_smem']} B shared, {at['blocks_per_sm']} blocks/SM for "
+                  f"a plan of {plan['blocks']} blocks on {sms} SMs")
+            if at["blocks_per_sm"] * sms < plan["blocks"]:
+                raise AssertionError(f"level {label}: K9's blocks are not co-resident")
+        torch.cuda.synchronize()
+        st, trace = RL.launch(src, tgt, a, trace_cap=K9_TRACE_CAP)
+        n_ev = st.evals[0] + st.evals[1]
+        if n_ev > K9_TRACE_CAP or len(trace) != n_ev or n_ev != st.nev:
+            raise AssertionError(f"level {label}: {n_ev} evaluations, {len(trace)} traced, "
+                                 f"nev {st.nev}")
+        st2, _ = RL.launch(src, tgt, a)
+        if bytes(st) != bytes(st2):
+            raise AssertionError(f"level {label}: two K9 runs differ")
+        bad = 0
+        for r in trace:
+            g = bool(r[0])
+            nv = 26 if g else 2
+            out = C.corr3d(src, tgt, r[1:13].astype(np.float32), grad=g).cpu().numpy()
+            bad += not np.array_equal(out.view(np.int64), r[13:13 + nv].view(np.int64))
+        if bad:
+            raise AssertionError(f"level {label}: {bad} of {n_ev} evaluations' sums differ "
+                                 "from a K4/K5 launch on the same matrix")
+        ref = RG.reg_ladder_host(src, tgt, *knobs)
+        aff = np.array(st.aff, np.float32)
+        d_ev = abs(st.nev - ref[3]) / ref[3]
+        d_f = abs(float(st.fret) - float(ref[1]))
+        d_m = box_error(aff, ref[0], shape)
+
+        def k9():
+            return RL.reg_ladder(src, tgt, *knobs)
+
+        def host():
+            return RG.reg_ladder_host(src, tgt, *knobs)
+
+        k_s, h_s = wall_s(k9, 3), wall_s(host, 2)
+        k_dev = kernel_device_ms(k9, ("reg_stage_kernel",), f"K9 level {label}", card)
+        h_dev = kernel_device_ms(host, ("corr_kernel",), f"host loop level {label}", card)
+        valid = float(C.corr3d(torch.ones_like(src), src, aff)[0])
+        b4, b5 = (bound(8 * valid, CORR_OPS[g] * valid) for g in (True, False))
+        lvl_bound = (st.evals[1] * b4[0] + st.evals[0] * b5[0],
+                     b4[1] if st.evals[1] >= st.evals[0] else b5[1])
+        print(f"  level {label} {shape}: K9 {k_s:.4f} s ({st.nev} evaluations: "
+              f"{st.evals[1]} on K4's body, {st.evals[0]} on K5's; {RL.stage_count(a)} "
+              f"launches; device {k_dev:.3f} ms, host share {1 - k_dev / 1e3 / k_s:.3f}), "
+              f"host loop {h_s:.4f} s ({ref[3]} evaluations; K4/K5 device {h_dev:.3f} ms, "
+              f"host share {1 - h_dev / 1e3 / h_s:.3f}); NCC {-float(st.fret):.7f} vs "
+              f"{-float(ref[1]):.7f}, matrices {d_m:.4f} voxel apart, evaluations "
+              f"{100 * d_ev:.1f}% apart; every evaluation's sums bit for bit a K4/K5 "
+              f"launch, two K9 runs bit for bit; bound (K4/K5's bound x evaluations) "
+              f"{lvl_bound[0]:.3f} ms [{card}]")
+        if d_ev > K9_EVALS_SLACK or d_f > K9_NCC_TOL or d_m > K9_MATRIX_VOXELS:
+            # reported when every phase has run (main raises on it)
+            res["faults"].append(f"level {label}: K9 and the host loop disagree (evaluations "
+                                 f"{100 * d_ev:.1f}% apart, NCC {d_f:.3g}, matrices "
+                                 f"{d_m:.4f} voxel)")
+            print(f"  FAIL: {res['faults'][-1]}")
+        dump = os.environ.get("MIL_SMOKE_DUMP")
+        if dump and math.prod(shape) <= K9_DUMP_VOXELS:
+            os.makedirs(dump, exist_ok=True)
+            args = dict(zip(("sd_t", "p_init12", "aff_method", "ftol", "it_limit", "engine",
+                             "finish", "finish_sweeps", "ls_max_iters", "ls_patience"), knobs))
+            args["p_init12"] = np.asarray(args["p_init12"], np.float32).tolist()
+            np.savez_compressed(os.path.join(dump, "x".join(map(str, shape)) + ".npz"),
+                                src=src.cpu().numpy(), tgt=tgt.cpu().numpy(),
+                                knobs=json.dumps(args), label=str(label), k9_aff=aff,
+                                k9_fret=np.float32(st.fret), k9_nev=st.nev, host_aff=ref[0],
+                                host_fret=ref[1], host_nev=ref[3])
+        key = "x".join(map(str, shape))
+        res["levels"][key] = {"ms": k_s * 1e3, "plain_ms": h_s * 1e3, "device_ms": k_dev,
+                              "plain_device_ms": h_dev, "evals": st.nev,
+                              "plain_evals": int(ref[3])}
+        res["ms"] += k_s * 1e3
+        res["plain_ms"] += h_s * 1e3
+        res["bound"][0] += lvl_bound[0]
+        res["bound"][1] = lvl_bound[1]
+        res["max_abs_err"] = max(res["max_abs_err"], float(np.abs(aff - ref[0]).max()))
+        res["fret_err"] = max(res["fret_err"], d_f)
+    return res
+
+
+class LadderCalls:
+    """Records the arguments of every ladder that takes K9
+    (``kernels/reg_ladder.py::reg_ladder`` on a CUDA pair) while it is
+    entered: one dict of ``reg_ladder``'s bound arguments a call."""
+
+    def __init__(self):
+        self.calls = []
+        self._orig = RL.reg_ladder
+
+    def __enter__(self):
+        sig = inspect.signature(self._orig)
+
+        def recorded(*args, **kw):
+            bound_args = sig.bind(*args, **kw)
+            bound_args.apply_defaults()
+            self.calls.append(dict(bound_args.arguments))
+            return self._orig(*args, **kw)
+
+        RL.reg_ladder = recorded
+        return self
+
+    def __exit__(self, *exc):
+        RL.reg_ladder = self._orig
 
 
 def phasor_cases(vol, dev, card):
@@ -1468,7 +1759,7 @@ def phase11_reg_cli(dev):
         writetifstack(f["t.tif"], vol.cpu().numpy(), 16)
         writetifstack(f["s.tif"], moved.cpu().numpy(), 16)
         del vol, moved
-        k4, k5 = C.K4_LAUNCHES, C.K5_LAUNCHES
+        before = counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = reg3d_cli.main(["-t", f["t.tif"], "-s", f["s.tif"], "-o", f["r.tif"],
@@ -1488,9 +1779,10 @@ def phase11_reg_cli(dev):
             raise AssertionError(f"reg3D output {out.shape} {out.dtype}")
         m = read_tmx(f["m.tmx"])
         err = box_error(m, inverse12(true_m), shape)
-        print(f"  reg3D output {size} (x, y, z) uint16, {C.K4_LAUNCHES - k4} K4 and "
-              f"{C.K5_LAUNCHES - k5} K5 launches, matrix {err:.4f} voxel from the truth")
-        if C.K4_LAUNCHES == k4 or C.K5_LAUNCHES == k5 or err > 0.5:
+        n = {k: v - before[k] for k, v in counts().items()}
+        print(f"  reg3D output {size} (x, y, z) uint16, launches {n}, matrix {err:.4f} "
+              "voxel from the truth")
+        if not on_k9(n) or err > 0.5:
             raise AssertionError("reg3D did not register on the kernels")
     torch.cuda.empty_cache()
 
@@ -1716,12 +2008,35 @@ def zero_counts():
     K.LAUNCHES = KF.LAUNCHES = F.LAUNCHES = P.LAUNCHES = MR.LAUNCHES = 0
     F.LAUNCHES_SPECIALISED = dict.fromkeys("xyz", 0)
     C.K4_LAUNCHES = C.K5_LAUNCHES = C.K6_LAUNCHES = C.PLAIN_CALLS = 0
+    RL.K9_LAUNCHES = RL.K9_EVALS_K4 = RL.K9_EVALS_K5 = 0
+    RG.HOST_LADDERS = RD.HOST_LADDERS = 0
 
 
 def counts():
+    """The kernels' launch counters. K4 and K5 count their own launches
+    (the initial cost, the hybrid engine's line searches, the host loop);
+    K9 its stage launches, K9_K4 / K9_K5 the evaluations those launches
+    ran on K4's / K5's body; ladder_plain the ladders run as a host loop,
+    plain the K4/K5 plain-version calls."""
     return {"K1": K.LAUNCHES, "K2": KF.LAUNCHES, "K3": F.LAUNCHES,
             "K4": C.K4_LAUNCHES, "K5": C.K5_LAUNCHES, "K6": C.K6_LAUNCHES,
-            "K7": P.LAUNCHES, "K8": MR.LAUNCHES, "plain": C.PLAIN_CALLS}
+            "K7": P.LAUNCHES, "K8": MR.LAUNCHES, "K9": RL.K9_LAUNCHES,
+            "K9_K4": RL.K9_EVALS_K4, "K9_K5": RL.K9_EVALS_K5,
+            "ladder_plain": RG.HOST_LADDERS + RD.HOST_LADDERS, "plain": C.PLAIN_CALLS}
+
+
+def on_k9(n):
+    """True where a run's registration ladders went through K9: K9 launched,
+    with evaluations on both K4's and K5's bodies, no ladder on the host
+    loop and no plain-version call."""
+    return (n["K9"] > 0 and n["K9_K4"] > 0 and n["K9_K5"] > 0 and not n["ladder_plain"]
+            and not n["plain"])
+
+
+def corr_runs(n, kernel):
+    """Passes of K4's (or K5's) body in a run: its own launches and the
+    evaluations K9 ran on it."""
+    return n[kernel] + n[f"K9_{kernel}"]
 
 
 FUSED_ON = {"MIL_CONV_SEP_FUSED": "1", "MIL_REG_BATCH_LS": "1"}
@@ -1764,13 +2079,15 @@ def phase14_fusion(dev, card):
               f"[{card}]")
         if decon.shape != FUSION_SHAPE or not np.isfinite(decon).all():
             raise AssertionError(f"({label}) fused volume bad: {decon.shape}")
+        # (a): MIL_REG_BATCH_LS=1 keeps the ladder on the host loop (K6 from
+        # the host, one sync a batch of probes); (b) runs it in K9
         if label == "a" and (n["K2"] != 2 * N_ITERS or n["K1"] != 0 or n["K6"] < 1
-                             or n["plain"] != 0):
+                             or n["plain"] != 0 or n["K9"] or not n["ladder_plain"]):
             raise AssertionError(f"(a) took the wrong kernels: {n}")
         want = {"separable": (4 * N_ITERS, 0), "K3": (0, 4 * N_ITERS),
                 "torch.fft": (0, 0)}[route_b]
         if label == "b" and ((n["K1"], n["K3"]) != want or n["K2"] or n["K6"]
-                             or n["plain"]):
+                             or not on_k9(n)):
             raise AssertionError(f"(b) took the wrong kernels for the {route_b} "
                                  f"route: {n}")
         runs[label] = (rec, tmx, reg_b, a_iso, n)
@@ -1842,8 +2159,7 @@ def reg_levels(dev, a_raw, b_raw, card):
         levels = []
 
         def on_level(name, shape, secs):
-            levels.append((name, shape, secs, C.K4_LAUNCHES, C.K5_LAUNCHES,
-                           C.K6_LAUNCHES))
+            levels.append((name, shape, secs, counts()))
 
         torch.cuda.synchronize()
         zero_counts()
@@ -1852,12 +2168,15 @@ def reg_levels(dev, a_raw, b_raw, card):
             _, tmx, rec = R.reg3d(a_iso, b_iso, 2, 7, device=dev, want_reg=False,
                                   on_level=on_level)
         wall = time.time() - t
-        print(f"  registration {label}: {wall:.3f} s, NCC {rec[3]:.6f}, "
-              f"{C.K4_LAUNCHES} K4, {C.K5_LAUNCHES} K5, {C.K6_LAUNCHES} K6 launches [{card}]")
-        prev = (0, 0, 0)
-        for name, shape, secs, n4, n5, n6 in levels:
-            d4, d5, d6 = n4 - prev[0], n5 - prev[1], n6 - prev[2]
-            prev = (n4, n5, n6)
+        print(f"  registration {label}: {wall:.3f} s, NCC {rec[3]:.6f}, launches "
+              f"{counts()} [{card}]")
+        prev = dict.fromkeys(counts(), 0)
+        for name, shape, secs, n in levels:
+            d = {k: n[k] - prev[k] for k in n}
+            prev = n
+            # K9 evaluations count with their bodies; a K9 ladder syncs once
+            d4, d5, d6 = corr_runs(d, "K4"), corr_runs(d, "K5"), d["K6"]
+            syncs = d["K4"] + d["K5"] + d6 + (d["K9"] > 0)
             if d6:
                 k6_shapes.append(tuple(shape))
             factor = tuple(s // t for s, t in zip(FUSION_SHAPE, shape))
@@ -1870,8 +2189,9 @@ def reg_levels(dev, a_raw, b_raw, card):
                                         ("K5", lambda: C.corr3d(src, tgt, m, grad=False)),
                                         ("K6", lambda: C.corr3d_nprobe(src, tgt, eight))))
             kern_ms = d4 * t4 + d5 * t5 + d6 * t6
-            print(f"    level {name} {shape}: {d4 + d5 + d6} syncs, {d4 + d5 + 8 * d6} "
-                  f"evaluations ({d4} K4, {d5} K5, {d6} K6 x 8), {secs:.3f} s, kernel "
+            print(f"    level {name} {shape}: {syncs} syncs, {d4 + d5 + 8 * d6} "
+                  f"evaluations ({d4} K4, {d5} K5, {d6} K6 x 8; {d['K9']} K9 launches), "
+                  f"{secs:.3f} s, kernel "
                   f"{kern_ms:.3f} ms, host share {1 - kern_ms / 1e3 / secs:.3f} (device "
                   f"K4 {t4:.4f}, K5 {t5:.4f}, K6 {t6:.4f} ms per launch) [{card}]")
             del src, tgt
@@ -2209,7 +2529,8 @@ class TimepointCounts:
 
 class LaunchShapes:
     """The shapes at which K1, K3, K4 and K5 launch while it is entered
-    (their wrappers' ``_launch``, where each counts a launch)."""
+    (their wrappers' ``_launch``, where each counts a launch), K9's ladders
+    under K4 and K5 as they ran each body."""
 
     def __init__(self):
         self.shapes = {k: set() for k in CHECKED}
@@ -2222,13 +2543,23 @@ class LaunchShapes:
                 self.shapes[_kernel(*args)].add(tuple(args[0].shape))
                 return _orig(*args)
 
-            self._orig.append((mod, mod._launch))
+            self._orig.append((mod, "_launch", mod._launch))
             mod._launch = launch
+
+        def ladder(src, tgt, args, trace_cap=0, _orig=RL.launch):
+            out = _orig(src, tgt, args, trace_cap)
+            for kernel, n in (("K5", out[0].evals[0]), ("K4", out[0].evals[1])):
+                if n:
+                    self.shapes[kernel].add(tuple(src.shape))
+            return out
+
+        self._orig.append((RL, "launch", RL.launch))
+        RL.launch = ladder
         return self
 
     def __exit__(self, *exc):
-        for mod, orig in self._orig:
-            mod._launch = orig
+        for mod, name, orig in self._orig:
+            setattr(mod, name, orig)
 
     def check(self, label):
         """Fail unless every launch shape was held against the plain version."""
@@ -2338,8 +2669,8 @@ def phase17_batch(dev, card, views):
           f"launches {total} [{card}]")
     print_timepoints("a", timings, per_tp, card)
     k1, k3 = decon_launches(route, E2E_TPS)
-    if (total["K4"] < 1 or total["K5"] < 1 or total["plain"] or total["K1"] != k1
-            or total["K3"] != k3 or len(per_tp) != E2E_TPS):
+    if (not on_k9(total) or total["K1"] != k1 or total["K3"] != k3
+            or len(per_tp) != E2E_TPS):
         raise AssertionError(f"(a) took the wrong kernels for the {route} route: {total}")
     # one K8 launch per rotating MIP: the surrogate saves MP_3D_Yaxis alone
     if total["K8"] != E2E_TPS * E2E_MIP_AXES or plain_mips.calls:
@@ -2419,7 +2750,7 @@ def phase17_batch(dev, card, views):
                              card)
             k1, k3 = decon_launches(route_b, BATCH_TPS)
             if (done != list(range(BATCH_TPS)) or dec.shape != FUSION_SHAPE or not dec.any()
-                    or n["K1"] != k1 or n["K3"] != k3 or n["K4"] < 1 or n["plain"]):
+                    or n["K1"] != k1 or n["K3"] != k3 or not on_k9(n)):
                 raise AssertionError(f"(b) {label}: outputs {dec.shape} or kernels {n} wrong")
             if err > FUSION_TRUTH_VOXELS or ncc < ncc_true:
                 raise AssertionError(f"(b) {label}: t0 matrix misses the truth gate")
@@ -2669,8 +3000,7 @@ def phase18_beyond_hbm(dev, card, main14, views):
           f"{err:.4f} voxel from the truth, peak device memory {peak / 1e9:.3f} GB; "
           f"on mode 1's cost NCC {ncc2:.6f} vs mode 1's {ncc1:.6f}; coarse ladder "
           f"launches {bhbm}; matrix {np.round(tmx2, 5).tolist()} [{card}]")
-    if (err > 0.5 or abs(ncc2 - ncc1) > 1e-3 or peak > budget or bhbm["K4"] < 1
-            or bhbm["K5"] < 1 or bhbm["plain"]):
+    if err > 0.5 or abs(ncc2 - ncc1) > 1e-3 or peak > budget or not on_k9(bhbm):
         raise AssertionError("(c) the low-memory registration missed its gates")
     resident = affine_transform_3d(moved_d, tmx2, shape).cpu().numpy()
     del moved_d
@@ -2710,7 +3040,8 @@ def hybrid_vs_grad(dev, card):
     apart = box_error(tmx_h, tmx_g, HYBRID_SHAPE)
     print(f"  (c) hybrid vs grad: NCC {ncc_h:.6f} vs {ncc_g:.6f}, matrices {apart:.4f} "
           "voxel apart")
-    if abs(ncc_h - ncc_g) > 1e-3 or apart > 0.5 or n_h["K5"] < 1 or n_h["K4"] or n_h["plain"]:
+    if (abs(ncc_h - ncc_g) > 1e-3 or apart > 0.5 or n_h["K5"] < 1 or n_h["K4"]
+            or n_h["K9"] or n_h["plain"]):
         raise AssertionError("(c) the hybrid engine disagrees with the grad engine")
     del vol_d, moved_d
     torch.cuda.empty_cache()
@@ -2753,8 +3084,8 @@ def phase18_fusion_cli(dev, card, main14, views):
           f"NCC {ncc_d:.6f} vs Phase 14 (b)'s {ncc_b:.6f}, matrices {apart:.4f} voxel "
           f"apart, {errs[0]:.4f} and {errs[1]:.4f} voxel from the truth [{card}]")
     if (out.shape != FUSION_SHAPE or not out.any() or abs(ncc_d - ncc_b) > 1e-3
-            or apart > 0.5 or max(errs) > FUSION_TRUTH_VOXELS or n["K4"] < 1
-            or n["K1"] or n["K2"] or n["K3"] or n["plain"]):
+            or apart > 0.5 or max(errs) > FUSION_TRUTH_VOXELS or not on_k9(n)
+            or n["K1"] or n["K2"] or n["K3"]):
         raise AssertionError("(d) the -gm 2 fusion missed its gates")
     torch.cuda.empty_cache()
 
@@ -3109,7 +3440,7 @@ def mesh_batch_cli(dev, card, tmp):
         log = f.read()
     want = f"Device mesh (dp 2, sp 2): {', '.join([str(dev)] * 4)}"
     n = runs["MIL_MESH=2,2"]
-    if want not in log or n["K4"] < 1 or n["K5"] < 1 or n["K1"] or n["K3"] or n["plain"]:
+    if want not in log or not on_k9(n) or n["K1"] or n["K3"]:
         raise AssertionError(f"(e) the mesh run took the wrong path: launches {n}")
     for t in range(BATCH_TPS):
         got = readtifstack(os.path.join(out, "Decon", f"Decon_{t}.tif"))[0]

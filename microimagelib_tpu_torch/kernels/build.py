@@ -28,6 +28,11 @@ BUILD_ROOT = PKG_DIR.parent / "build" / PKG_DIR.name
 LIB_NAME = "libmil_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# flags of one source on top of NVCC_FLAGS: K9's optimizer arithmetic
+# rounds each float32 operation on its own, as the host loop's numpy
+# scalars do (no FMA contraction; the K4/K5 body it shares spells out its
+# FMAs, so its bits stay K4/K5's)
+FILE_FLAGS = {"reg_ladder.cu": ("-fmad=false",)}
 
 _LIB = None
 
@@ -39,6 +44,7 @@ def sources():
 
 def _source_hash():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(FILE_FLAGS.items())).encode())
     for path in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -64,8 +70,8 @@ def compile_commands(obj_dir):
     cmds = []
     for src in sources():
         obj = Path(obj_dir) / (src.stem + ".o")
-        cmds.append(([nvcc_path(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                     obj))
+        cmds.append(([nvcc_path(), *NVCC_FLAGS, *FILE_FLAGS.get(src.name, ()), "-c",
+                      str(src), "-o", str(obj)], obj))
     return cmds
 
 

@@ -23,10 +23,17 @@ import math
 import numpy as np
 import torch
 
-from microimagelib_tpu_torch.ops.corr import corr3d_auto, corr3d_partials_nprobe
+from microimagelib_tpu_torch.kernels import reg_ladder as RL
+from microimagelib_tpu_torch.ops.corr import (
+    corr3d_auto,
+    corr3d_partials_nprobe,
+    resolve_ncc_impl,
+)
 from microimagelib_tpu_torch.ops.powell_device import _linmin, powell_device
 
 _F32 = torch.float32
+# ladders run as a host loop (reg_ladder_device_host)
+HOST_LADDERS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +202,13 @@ def _p12_matrix(p):
     return params_to_matrix_t(_to_t(p)).numpy()
 
 
+def on_kernel_route(src_ms, ncc_impl=None):
+    """True where the ladder runs in K9: a CUDA pair whose cost takes the
+    kernels (``ncc_impl``, else ``ops.corr.resolve_ncc_impl``)."""
+    impl = ncc_impl if ncc_impl is not None else resolve_ncc_impl(src_ms)
+    return impl == "pallas" and src_ms.is_cuda
+
+
 def reg_ladder_device(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
                       it_limit, ncc_impl=None, batch_ls=False):
     """Run the affMethod 1-7 search. Inputs: the mean-subtracted source
@@ -203,7 +217,24 @@ def reg_ladder_device(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
     matrix).
 
     Returns (aff_coef float32 12-vector, fret, stage costs (4,), total
-    evaluations), as the JAX version does."""
+    evaluations), as the JAX version does. A CUDA pair on the kernel route
+    runs the whole ladder in K9 (``kernels/reg_ladder.py``: one launch per
+    stage, one sync); everything else, ``batch_ls`` (K6 from the host)
+    included, runs :func:`reg_ladder_device_host`."""
+    if on_kernel_route(src_ms, ncc_impl) and not batch_ls:
+        return RL.reg_ladder(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol, it_limit,
+                             "device")
+    return reg_ladder_device_host(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
+                                  it_limit, ncc_impl, batch_ls)
+
+
+def reg_ladder_device_host(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
+                           it_limit, ncc_impl=None, batch_ls=False):
+    """The Powell ladder as a host loop, one K5 call (or, with
+    ``batch_ls``, one K6 call of 8 probes) and one sync per evaluation
+    (K9's plain version). Counted in :data:`HOST_LADDERS`."""
+    global HOST_LADDERS
+    HOST_LADDERS += 1
     cost_m = _make_cost(src_ms, tgt_ms, sd_t, ncc_impl)
     cost_batch_m = (_make_cost_batch(src_ms, tgt_ms, sd_t, ncc_impl)
                     if batch_ls else None)

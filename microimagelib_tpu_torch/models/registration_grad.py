@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from microimagelib_tpu_torch.kernels import reg_ladder as RL
 from microimagelib_tpu_torch.models.registration_device import (
     _dof_cost,
     _dof_cost_batch,
@@ -30,12 +31,17 @@ from microimagelib_tpu_torch.models.registration_device import (
     _p12_matrix,
     _to_t,
     dof_to_matrix_t,
+    on_kernel_route,
     params_to_matrix_t,
+    reg_ladder_device_host,
 )
 from microimagelib_tpu_torch.ops.corr import NCCPartials
 from microimagelib_tpu_torch.ops.lbfgs import lbfgs_minimize
 from microimagelib_tpu_torch.ops.powell_device import powell_device
 
+
+# ladders run as a host loop (reg_ladder_grad_host)
+HOST_LADDERS = 0
 
 def _make_cost_grad_m(src_ms, tgt_ms, sd_t, ncc_impl):
     """m12 (CPU float32 tensor) -> (cost, dcost/dm12) with
@@ -84,13 +90,53 @@ def reg_ladder_grad(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
     stages, same return contract (aff 12-vector, fret, stage costs (4,),
     total evaluations).
 
+    A CUDA pair on the kernel route (``ops.corr.resolve_ncc_impl``) runs
+    the whole ladder in K9 (``kernels/reg_ladder.py``: one launch per
+    stage, one sync); everything else runs :func:`reg_ladder_grad_host`,
+    as does ``batch_ls`` (the
+    finisher's line searches as 8-probe K6 calls from the host). Arguments
+    as there."""
+    if on_kernel_route(src_ms, ncc_impl) and not batch_ls:
+        return RL.reg_ladder(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol, it_limit,
+                             "grad", finish, finish_sweeps, ls_max_iters, ls_patience)
+    return reg_ladder_grad_host(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol, it_limit,
+                                ncc_impl, finish, batch_ls, finish_sweeps, ls_max_iters,
+                                ls_patience)
+
+
+def reg_ladder_host(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol, it_limit,
+                    engine="grad", finish=True, finish_sweeps=None, ls_max_iters=None,
+                    ls_patience=None, ncc_impl=None, batch_ls=False):
+    """K9's plain version in K9's argument order
+    (``kernels/reg_ladder.py::reg_ladder``): the host loop of ``engine``,
+    :func:`reg_ladder_grad_host` ('grad') or
+    ``registration_device.reg_ladder_device_host`` ('device'), whatever
+    the pair's device."""
+    if engine == "grad":
+        return reg_ladder_grad_host(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
+                                    it_limit, ncc_impl, finish, batch_ls, finish_sweeps,
+                                    ls_max_iters, ls_patience)
+    if engine == "device":
+        return reg_ladder_device_host(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
+                                      it_limit, ncc_impl, batch_ls)
+    raise ValueError(f"unknown ladder engine {engine!r}")
+
+
+def reg_ladder_grad_host(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
+                         it_limit, ncc_impl=None, finish=True, batch_ls=False,
+                         finish_sweeps=None, ls_max_iters=None, ls_patience=None):
+    """The gradient ladder as a host loop, one K4/K5 call and one sync per
+    evaluation (K9's plain version).
+
     ``finish``: end with a Powell direction-set pass from the L-BFGS point
     (full reference semantics); ``finish_sweeps`` caps it at N sweeps (None
     = run to Powell's ftol). ``ls_max_iters``/``ls_patience``: the
     per-stage L-BFGS step cap and ftol-stall patience (None: the MIL_LBFGS_*
     env knobs). ``batch_ls``: the finisher's line minimizations probe 8
     points per batched cost call (one K6 launch and one sync on the kernel
-    route) instead of serial mnbrak/brent."""
+    route) instead of serial mnbrak/brent. Counted in :data:`HOST_LADDERS`."""
+    global HOST_LADDERS
+    HOST_LADDERS += 1
     cost_grad_m = _make_cost_grad_m(src_ms, tgt_ms, sd_t, ncc_impl)
     cost_m = _make_cost(src_ms, tgt_ms, sd_t, ncc_impl)
     cost_batch_m = (_make_cost_batch(src_ms, tgt_ms, sd_t, ncc_impl)

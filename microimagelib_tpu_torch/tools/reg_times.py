@@ -1,0 +1,173 @@
+"""Time 3-D registration per pyramid level and the batch's registration
+stage on one CUDA device, for one or more checkouts of the package in
+turns.
+
+    python microimagelib_tpu_torch/tools/reg_times.py [--roots DIR,DIR,...]
+        [--shape Z,Y,X] [--tps N] [--xy N] [--runs N]
+
+For each root (default: the checkout holding this file) it prints one JSON
+line per run of ``reg3d`` (choice 2, method 7, the automatic pyramid,
+default knobs) on a bead volume of ``--shape`` and its copy moved by the
+reg128 matrix (after one warm run): per level the seconds (the card
+synchronized at the level's end), the evaluations (K4/K5 launches from the
+host and, where the checkout has K9, the evaluations K9 ran on each body),
+K9's launches, the K4/K5 sums' device time (evaluations x each kernel's
+device ms per launch at the level shape, torch.profiler) and the rest of
+the level's time as its host share; then one line with the end-to-end
+surrogate's (``tools/e2e_surrogate.py``) registration seconds per
+timepoint over ``--tps`` timepoints at ``--xy``. The first line is the
+card's name and power limit.
+
+The roots run in turns (``tools/turns.py``), e.g. ``--roots
+build/parent,.,.,build/parent`` for a parent commit unpacked by ``git
+archive`` beside the working tree.
+"""
+
+import argparse
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REG_DOF = [2.0, -1.5, 1.0, 2.0, -1.0, 1.5, 1, 1, 1]   # bench_all.py:122
+
+
+def beads(shape, seed, dev, sigma=3.0):
+    """80 beads per 128^3 voxels in the central half of each axis,
+    amplitudes 80-200, smoothed by a sum-normalized Gaussian."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = int(round(80 * np.prod(shape) / 128 ** 3))
+    pos = [rng.integers(s // 4, 3 * s // 4, size=n) for s in shape]
+    amp = rng.uniform(80, 200, size=n).astype(np.float32)
+    vol = torch.zeros(shape, dtype=torch.float32, device=dev)
+    vol[tuple(torch.from_numpy(p).to(dev) for p in pos)] = torch.from_numpy(amp).to(dev)
+    g = 1.0
+    for ax, s in enumerate(shape):
+        d = torch.arange(s, dtype=torch.float64, device=dev)
+        d = torch.minimum(d, s - d)
+        k = torch.exp(-d * d / (2 * sigma ** 2))
+        g = g * k.reshape([-1 if i == ax else 1 for i in range(3)])
+    g = (g / g.sum()).float()
+    return torch.fft.irfftn(torch.fft.rfftn(vol) * torch.fft.rfftn(g), s=shape)
+
+
+def launch_ms(fn):
+    """Device ms a launch of the one kernel ``fn`` launches (torch.profiler
+    over 10 calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e.device_time_total / 1e3 / e.count for e in prof.key_averages()
+                if e.device_time_total > 0 and e.count and "corr_kernel" in e.key]
+        if rows:
+            return rows[0]
+    return float("nan")
+
+
+def time_root(root, shape, tps, xy, runs):
+    """JSON lines for the package under ``root``; runs in this process."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from microimagelib_tpu_torch.kernels import corr as C
+    from microimagelib_tpu_torch.models import registration as R
+    from microimagelib_tpu_torch.ops.affine import affine_transform_3d
+    from microimagelib_tpu_torch.ops.matrix import dof_to_matrix
+    from microimagelib_tpu_torch.tools import e2e_surrogate as E2E
+    try:
+        from microimagelib_tpu_torch.kernels import reg_ladder as RL
+    except ImportError:       # a checkout before K9
+        RL = None
+
+    def counts():
+        n = {"K4": C.K4_LAUNCHES, "K5": C.K5_LAUNCHES}
+        if RL is not None:
+            n.update(K9=RL.K9_LAUNCHES, K9_K4=RL.K9_EVALS_K4, K9_K5=RL.K9_EVALS_K5)
+        return n
+
+    dev = torch.device("cuda", 0)
+    vol = beads(shape, 0, dev)
+    moved = affine_transform_3d(vol, dof_to_matrix(REG_DOF, 6), shape)
+    per_launch = {}
+    for run in range(runs + 1):
+        levels = []
+
+        def on_level(label, lvl_shape, secs):
+            levels.append((label, tuple(lvl_shape), secs, counts()))
+
+        torch.cuda.synchronize()
+        start = counts()
+        _, tmx, rec = R.reg3d(vol, moved, reg_choice=2, aff_method=7, device=dev,
+                              as_device=True, on_level=on_level)
+        torch.cuda.synchronize()
+        if run == 0:
+            continue          # the warm run
+        prev, out = start, []
+        for label, lvl_shape, secs, n in levels:
+            d = {k: n[k] - prev[k] for k in n}
+            prev = n
+            if lvl_shape not in per_launch:
+                f = tuple(s // t for s, t in zip(shape, lvl_shape))
+                src = R._mean_pool(vol, f) if lvl_shape != tuple(shape) else vol
+                tgt = torch.roll(src, 1, 2).contiguous()
+                m = R._tmx_full_to_coarse(tmx, f)
+                per_launch[lvl_shape] = tuple(
+                    launch_ms(lambda g=g: C.corr3d(src, tgt, m, grad=g)) for g in (True, False))
+            g4, g5 = per_launch[lvl_shape]
+            e4 = d["K4"] + d.get("K9_K4", 0)
+            e5 = d["K5"] + d.get("K9_K5", 0)
+            sums_ms = e4 * g4 + e5 * g5
+            out.append({"level": label, "shape": list(lvl_shape), "s": secs,
+                        "evals_k4": e4, "evals_k5": e5, "host_k4": d["K4"],
+                        "host_k5": d["K5"], "k9_launches": d.get("K9", 0),
+                        "sums_ms": sums_ms, "host_share": 1 - sums_ms / 1e3 / secs})
+        print(json.dumps({"root": root, "run": run, "shape": list(shape), "ncc": rec[3],
+                          "s": sum(lv["s"] for lv in out), "levels": out}), flush=True)
+    del vol, moved
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        E2E.run(tps, xy, device=dev)
+        timings = {}
+        res = E2E.run(tps, xy, device=dev, timings=timings)
+    reg = [timings[t].get("registration", 0.0) for t in sorted(timings)]
+    print(json.dumps({"root": root, "surrogate_xy": xy, "timepoints": tps,
+                      "registration_s": reg, "registration_s_sum": sum(reg),
+                      "wall_s": res["wall_s"], "nccs": res["nccs"]}), flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--roots", default=HERE)
+    ap.add_argument("--shape", default="256,512,512")
+    ap.add_argument("--tps", type=int, default=3)
+    ap.add_argument("--xy", type=int, default=320)
+    ap.add_argument("--runs", type=int, default=2)
+    ap.add_argument("--one", help=argparse.SUPPRESS)   # the child: time this root
+    args = ap.parse_args(argv)
+    if args.one:
+        time_root(args.one, tuple(int(n) for n in args.shape.split(",")), args.tps,
+                  args.xy, args.runs)
+        return 0
+    sys.path.insert(0, HERE)   # run by its path, a tool sees only its own directory
+    from microimagelib_tpu_torch.tools import turns
+
+    return turns.in_turns(__file__, args.roots,
+                          ["--shape", args.shape, "--tps", str(args.tps), "--xy",
+                           str(args.xy), "--runs", str(args.runs)])[0]
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -750,3 +750,72 @@ def test_streamed_block_peak_factor_under_the_constant(cuda, kind, planes):
     torch.cuda.synchronize()
     factor = (torch.cuda.max_memory_allocated(cuda) - base) / raw
     assert out is not None and factor <= AF.STREAM_PEAK_FACTOR, factor
+
+
+def _blob_pair(shape, shift, seed):
+    """A smooth random volume and its copy moved by ``shift`` (x, y, z)
+    voxels, both mean-subtracted, on the card, with the target's SD."""
+    rng = np.random.default_rng(seed)
+    vol = torch.from_numpy(rng.random(shape, dtype=np.float32))
+    for ax in range(3):      # a few box passes: smooth, registrable texture
+        for _ in range(3):
+            vol = (vol + torch.roll(vol, 1, ax) + torch.roll(vol, -1, ax)) / 3
+    m = np.array([1, 0, 0, shift[0], 0, 1, 0, shift[1], 0, 0, 1, shift[2]], np.float32)
+    from microimagelib_tpu_torch.ops.affine import affine_transform_3d
+    moved = affine_transform_3d(vol, m, shape)
+    src = (moved - moved.double().mean().float()).contiguous()
+    tgt = (vol - vol.double().mean().float()).contiguous()
+    sd_t = float(torch.sum(tgt.double() ** 2).sqrt())
+    return src, tgt, sd_t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["grad", "device"])
+@pytest.mark.parametrize("method", [1, 7])
+@pytest.mark.parametrize("shape", [(16, 32, 128), (24, 40, 100)])
+def test_reg_ladder_kernel_matches_host_loop(cuda, engine, method, shape):
+    """K9 against its plain version (the host loop over K4/K5 on the card)
+    from the same start: evaluations within 20%, the final cost within
+    1e-4, the matrix within 0.05 voxel over the central half-box; each
+    evaluation's sums bit for bit a K4/K5 launch on its matrix; two runs bit
+    for bit."""
+    from microimagelib_tpu_torch.kernels import reg_ladder as RL
+    from microimagelib_tpu_torch.models import registration_grad as RG
+
+    src, tgt, sd_t = (x.to(cuda) if isinstance(x, torch.Tensor) else x
+                      for x in _blob_pair(shape, (0.6, -0.8, 0.3), 7))
+    p0 = np.array([0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0, 1], np.float32)
+    args = RL.ladder_args(engine, method, p0, 1e-4, 3000, sd_t, shape, True, 1)
+    launches = RL.K9_LAUNCHES
+    st, trace = RL.launch(src, tgt, args, trace_cap=10000)
+    assert RL.K9_LAUNCHES - launches == RL.stage_count(args)
+    st2, _ = RL.launch(src, tgt, args)
+    assert bytes(st) == bytes(st2)
+    assert len(trace) == st.nev == st.evals[0] + st.evals[1]
+    assert (st.evals[1] > 0) == (engine == "grad") and st.evals[0] > 0
+    for r in trace:
+        g = bool(r[0])
+        out = C.corr3d(src, tgt, r[1:13].astype(np.float32), grad=g).cpu().numpy()
+        np.testing.assert_array_equal(out.view(np.int64), r[13:13 + out.size].view(np.int64))
+    aff, fret, _stage, nev = RG.reg_ladder_host(src, tgt, sd_t, p0, method, 1e-4, 3000,
+                                                engine, True, 1)
+    assert abs(st.nev - nev) <= 0.2 * nev
+    assert abs(float(st.fret) - float(fret)) <= 1e-4
+    sz, sy, sx = shape
+    pts = np.array([[x, y, z, 1.0] for x in (sx / 4, 3 * sx / 4)
+                    for y in (sy / 4, 3 * sy / 4) for z in (sz / 4, 3 * sz / 4)])
+    a = np.array(st.aff, np.float64).reshape(3, 4)
+    b = np.asarray(aff, np.float64).reshape(3, 4)
+    assert np.abs(pts @ a.T - pts @ b.T).max() <= 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", [False, True], ids=["powell", "lbfgs"])
+def test_reg_ladder_kernel_fits_its_launch_bounds(cuda, grad):
+    """The stage kernels keep K5's (Powell) or K4's (L-BFGS) residency, so
+    their plans' blocks are co-resident for the cooperative launch."""
+    from microimagelib_tpu_torch.kernels import reg_ladder as RL
+
+    for vx in (4, 2, 1):
+        for wide in (0, 1):
+            assert RL.kernel_attrs(grad, vx, wide)["blocks_per_sm"] >= C.RESIDENT[grad]
