@@ -237,9 +237,17 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      within 20%, the final cost within 1e-4, the matrices within 0.05
      voxel over the central half-box; every evaluation's sums (the
      ``trace=`` hook) bit for bit a K4/K5 launch on its matrix; two K9 runs
-     bit for bit; each stage kernel's registers, local bytes and resident
-     blocks against its plan; per level the seconds, evaluations, device
-     time and host share of both. Its agreement gates are reported when
+     bit for bit; ``nvcc -Xptxas -v`` on ``reg_ladder.cu`` (compiled
+     beside the library's build: its seconds, and each function's
+     registers, frame and spills, the body's path apart from the
+     optimizer's side; the twelve stage kernels and twelve rows must be
+     there); each of the twelve stage kernels' registers, local bytes and
+     resident blocks, and co-residency against each level's plan; per
+     level the seconds, evaluations, device time and host share of both,
+     and K9's split from the trace's stamps (medians of rows, the other
+     blocks' and block 0's apart, hand-over, column sum and step, in µs,
+     and the rows against a K4/K5 launch's device time at the level).
+     Its agreement gates are reported when
      every other phase has run, and fail the run then. With
      ``MIL_SMOKE_DUMP=<dir>`` it saves its smaller levels there for
      ``tools/reg_ladder_witness.py`` (the JAX ladder on the CPU).
@@ -268,8 +276,8 @@ then nonzero and that line is not printed. Needs one CUDA device; there
 is no CPU path.
 """
 
+import atexit
 import contextlib
-import inspect
 import io
 import json
 import math
@@ -279,6 +287,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -510,6 +519,8 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
+    k9_ptxas = K9Ptxas()
+    atexit.register(k9_ptxas.stop)   # a phase that fails before 22 leaves no nvcc behind
     t = time.time()
     lib_path = build.build()
     print(f"built {lib_path.relative_to(build.BUILD_ROOT.parent.parent)} "
@@ -688,7 +699,7 @@ def main():
     torch.cuda.synchronize()
     corr = phase9_corr(dev, card)
     corr_launches, k9_calls = phase10_reg(dev, card)
-    k9 = phase22_k9(dev, card, k9_calls)
+    k9 = phase22_k9(dev, card, k9_calls, k9_ptxas)
     del k9_calls
     torch.cuda.empty_cache()
     with native_tiff("Phase 11"):
@@ -858,6 +869,10 @@ def main():
         "bound_by": k9["bound"][1],
         "library_ms": None,   # no PyTorch call runs an optimizer over the sums
         "ms_per_level": k9["levels"],
+        # nvcc -Xptxas -v on reg_ladder.cu alone: its seconds, the body
+        # path's registers and spills, the optimizer's frame
+        "build_s": k9["build_s"],
+        "ptxas": k9["ptxas"],
     })
     # the launches of Phase 17 (a), the batch's own path, beside each entry's
     # main-path count
@@ -1482,7 +1497,7 @@ def phase10_reg(dev, card):
     torch.cuda.synchronize()
     zero_counts()
     t = time.time()
-    with LadderCalls() as ladders:
+    with RL.record_ladders() as ladder_calls:
         reg, tmx, rec = R.reg3d(vol, moved, reg_choice=2, aff_method=7, device=dev,
                                 as_device=True, on_level=on_level)
     torch.cuda.synchronize()
@@ -1498,10 +1513,10 @@ def phase10_reg(dev, card):
     if rec[3] < 0.95 or err > 0.5 or not on_k9(launches):
         raise AssertionError(f"registration failed: NCC {rec[3]}, {err} voxel, "
                              f"launches {launches}")
-    if len(ladders.calls) != len(levels):
-        raise AssertionError(f"{len(levels)} levels ran {len(ladders.calls)} K9 ladders")
+    if len(ladder_calls) != len(levels):
+        raise AssertionError(f"{len(levels)} levels ran {len(ladder_calls)} K9 ladders")
     prev = dict.fromkeys(launches, 0)
-    for (label, shape, secs, n), call in zip(levels, ladders.calls):
+    for (label, shape, secs, n), call in zip(levels, ladder_calls):
         d = {k: n[k] - prev[k] for k in n}
         prev = n
         e4, e5 = corr_runs(d, "K4"), corr_runs(d, "K5")
@@ -1521,6 +1536,7 @@ def phase10_reg(dev, card):
                                               f"K{4 if g else 5} level {label}", card))
                   for g in (True, False))
         kern_ms = e4 * g4 + e5 * g5
+        call["k45_device_ms"] = (g4, g5)
         print(f"  level {label} {shape}: {e4 + e5} evaluations ({d['K9_K4']} on K4's and "
               f"{d['K9_K5']} on K5's body in {d['K9']} K9 launches; {d['K4']} K4 and "
               f"{d['K5']} K5 launches from the host), {secs:.3f} s, K4/K5 sums "
@@ -1559,7 +1575,7 @@ def phase10_reg(dev, card):
         raise AssertionError("kernel and plain routes disagree")
     del vol, moved
     torch.cuda.empty_cache()
-    return launches, ladders.calls
+    return launches, ladder_calls
 
 
 def wall_s(fn, reps):
@@ -1583,7 +1599,77 @@ def kernel_device_ms(fn, names, label, card):
     return sum(ms * n for key, ms, n in rows if any(x in key for x in names))
 
 
-def phase22_k9(dev, card, calls):
+class K9Ptxas:
+    """``nvcc -Xptxas -v`` on K9's source (``csrc/reg_ladder.cu`` alone,
+    with the library's flags), started beside the library's build and read
+    in Phase 22."""
+
+    def __init__(self):
+        self._tmp = tempfile.TemporaryDirectory()
+        t0 = time.time()
+        self._proc = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, *build.FILE_FLAGS["reg_ladder.cu"],
+             "-Xptxas", "-v", "-c", str(build.CSRC_DIR / "reg_ladder.cu"), "-o",
+             os.path.join(self._tmp.name, "reg_ladder.o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self._out = {}
+
+        def wait():   # the compile's own seconds, whenever Phase 22 reads them
+            self._out["text"] = self._proc.communicate()[0]
+            self._out["secs"] = time.time() - t0
+
+        self._waiter = threading.Thread(target=wait, daemon=True)
+        self._waiter.start()
+
+    def stop(self):
+        if self._proc.poll() is None:
+            self._proc.kill()
+        self._waiter.join()
+        self._tmp.cleanup()
+
+    def result(self):
+        """One dict a function (its mangled name, an entry's registers,
+        stack frame and spill bytes), and the compile's seconds."""
+        self._waiter.join(timeout=900)
+        self._tmp.cleanup()
+        if "secs" not in self._out:
+            raise AssertionError("nvcc -Xptxas -v on reg_ladder.cu did not finish in 900 s")
+        if self._proc.returncode:
+            raise AssertionError("nvcc -Xptxas -v failed on reg_ladder.cu:\n"
+                                 + self._out.get("text", ""))
+        return k9_ptxas_funcs(self._out["text"]), self._out["secs"]
+
+
+def k9_ptxas_funcs(text):
+    """``nvcc -Xptxas -v``'s lines read as one dict a function."""
+    funcs, name, entry = {}, None, None
+    for ln in text.splitlines():
+        m = re.search(r"(Compiling entry function|Function properties for) '?([\w$.]+)'?", ln)
+        if m:
+            name = m.group(2)
+            funcs.setdefault(name, {"name": name, "registers": None})
+            if m.group(1).startswith("Compiling"):
+                entry = name
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                      r"spill loads", ln)
+        if m and name:
+            funcs[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            funcs[entry]["registers"] = int(m.group(1))
+    return list(funcs.values())
+
+
+def k9_body_path(fn):
+    """True for a function on K9's body path: a stage kernel or the row of
+    an instantiation (``stage_row``)."""
+    return "reg_stage_kernel" in fn["name"] or "stage_row" in fn["name"]
+
+
+def phase22_k9(dev, card, calls, ptxas):
     """K9 (``csrc/reg_ladder.cu``: the ladder's optimizer stages on the
     card) against its plain version (the host loop: one K4/K5 launch and
     one sync an evaluation) at every level of Phase 10's pyramid, from the
@@ -1594,16 +1680,39 @@ def phase22_k9(dev, card, calls):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     res = {"levels": {}, "ms": 0.0, "plain_ms": 0.0, "bound": [0.0, 0.0],
            "max_abs_err": 0.0, "fret_err": 0.0, "faults": []}
+    funcs, res["build_s"] = ptxas.result()
+    print(f"  nvcc -Xptxas -v on csrc/reg_ladder.cu alone (beside the library's build): "
+          f"{res['build_s']:.1f} s [{card}]")
+    for fn in funcs:
+        print(f"    {fn['name']}: {fn['registers']} registers, {fn.get('stack')} B stack "
+              f"frame, {fn.get('spill_stores')} B spill stores, {fn.get('spill_loads')} B "
+              f"spill loads" + ("" if k9_body_path(fn) else " (the optimizer's side)"))
+    body = [fn for fn in funcs if k9_body_path(fn)]
+    spilled = [fn["name"] for fn in body if fn.get("spill_stores") or fn.get("spill_loads")]
+    for part in ("reg_stage_kernel", "stage_row"):
+        if len([fn for fn in body if part in fn["name"]]) != len(RL.INSTANTIATIONS):
+            raise AssertionError(f"K9's body path: {[fn['name'] for fn in body]}")
+    res["ptxas"] = {"body_spill_bytes": max((fn.get("spill_stores") or 0) for fn in body),
+                    "body_spilled": len(spilled),
+                    "body_registers": max(fn["registers"] or 0 for fn in body),
+                    "optimizer_stack_bytes": max(fn.get("stack") or 0 for fn in funcs
+                                                 if not k9_body_path(fn))}
+    for grad, vx, wide in RL.INSTANTIATIONS:
+        at = RL.kernel_attrs(grad, vx, wide)
+        print(f"  stage kernel <{bool(grad)}, {vx}, {'long long' if wide else 'int'}>: "
+              f"{at['registers']} registers, {at['spill_bytes']} B local a thread (the "
+              f"optimizer's frame), {at['static_smem']} B shared, {at['blocks_per_sm']} "
+              f"blocks/SM")
+        if at["blocks_per_sm"] < C.RESIDENT[bool(grad)]:
+            raise AssertionError(f"stage kernel {(grad, vx, wide)} keeps "
+                                 f"{at['blocks_per_sm']} blocks an SM")
     for call in calls:
         label, shape, _secs = call["level"]
         src, tgt = call["src"], call["tgt"]
         knobs = [call[k] for k in ("sd_t", "p_init12", "aff_method", "ftol", "it_limit",
                                    "engine", "finish", "finish_sweeps", "ls_max_iters",
                                    "ls_patience")]
-        a = RL.ladder_args(call["engine"], call["aff_method"], call["p_init12"],
-                           call["ftol"], call["it_limit"], call["sd_t"], shape,
-                           call["finish"], call["finish_sweeps"], call["ls_max_iters"],
-                           call["ls_patience"])
+        a = RL.args_of(call)
         for grad in (True, False):
             plan = C.launch_plan(shape, grad, sms)
             at = RL.kernel_attrs(grad, plan["vx"], plan["wide"])
@@ -1622,6 +1731,19 @@ def phase22_k9(dev, card, calls):
         st2, _ = RL.launch(src, tgt, a)
         if bytes(st) != bytes(st2):
             raise AssertionError(f"level {label}: two K9 runs differ")
+        split = {"all": RL.split_medians(trace), "K4": RL.split_medians(trace, 1),
+                 "K5": RL.split_medians(trace, 0)}
+        g45 = dict(zip(("K4", "K5"), call["k45_device_ms"]))
+        for kind, sp in split.items():
+            if not sp["n"]:
+                continue
+            vs = (f"; rows {sp['rows'] / 1e3 / g45[kind]:.2f}x a {kind} launch's device "
+                  f"time ({g45[kind] * 1e3:.1f} us)" if kind in g45 else "")
+            print(f"  level {label} {shape}: K9 split, medians of {sp['n']} {kind} "
+                  f"evaluations (us): rows {sp['rows']:.2f} (release {sp['release']:.2f}; "
+                  f"other blocks {sp['rows_others']:.2f}, block 0 {sp['rows_block0']:.2f}), "
+                  f"hand-over {sp['handover']:.2f}, column sum {sp['colsum']:.2f}, step "
+                  f"{sp['step']:.2f}, evaluation {sp['evaluation']:.2f}{vs} [{card}]")
         bad = 0
         for r in trace:
             g = bool(r[0])
@@ -1679,7 +1801,8 @@ def phase22_k9(dev, card, calls):
         key = "x".join(map(str, shape))
         res["levels"][key] = {"ms": k_s * 1e3, "plain_ms": h_s * 1e3, "device_ms": k_dev,
                               "plain_device_ms": h_dev, "evals": st.nev,
-                              "plain_evals": int(ref[3])}
+                              "plain_evals": int(ref[3]),
+                              "split_us": {k: v for k, v in split.items() if v["n"]}}
         res["ms"] += k_s * 1e3
         res["plain_ms"] += h_s * 1e3
         res["bound"][0] += lvl_bound[0]
@@ -1687,31 +1810,6 @@ def phase22_k9(dev, card, calls):
         res["max_abs_err"] = max(res["max_abs_err"], float(np.abs(aff - ref[0]).max()))
         res["fret_err"] = max(res["fret_err"], d_f)
     return res
-
-
-class LadderCalls:
-    """Records the arguments of every ladder that takes K9
-    (``kernels/reg_ladder.py::reg_ladder`` on a CUDA pair) while it is
-    entered: one dict of ``reg_ladder``'s bound arguments a call."""
-
-    def __init__(self):
-        self.calls = []
-        self._orig = RL.reg_ladder
-
-    def __enter__(self):
-        sig = inspect.signature(self._orig)
-
-        def recorded(*args, **kw):
-            bound_args = sig.bind(*args, **kw)
-            bound_args.apply_defaults()
-            self.calls.append(dict(bound_args.arguments))
-            return self._orig(*args, **kw)
-
-        RL.reg_ladder = recorded
-        return self
-
-    def __exit__(self, *exc):
-        RL.reg_ladder = self._orig
 
 
 def phasor_cases(vol, dev, card):

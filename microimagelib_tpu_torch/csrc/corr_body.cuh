@@ -4,12 +4,14 @@
 // fixed-order float64 reduction and the last block's column sum. Included
 // by corr.cu (K4, K5, K6) and reg_ladder.cu (K9), so every K9 evaluation
 // computes a K4/K5 launch's block rows and column sums bit for bit. The
-// design notes are corr.cu's.
+// design notes are corr.cu's and reg_ladder.cu's.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -180,14 +182,15 @@ __device__ __forceinline__ void row_coords(const float* m, float yf, float zf, f
 // corners lie inside the grid (0 <= c < n - 1 on every axis: every voxel
 // but the outermost shell of the source) they sit at fixed offsets from
 // the first, one pointer and immediate offsets; elsewhere each corner is
-// clamped on its own. Both read the same texels.
+// clamped on its own. Both read the same texels. The matrix's x column
+// (m_00, m_10, m_20) comes as three values; gather below takes the matrix.
 template <typename IDX>
-__device__ __forceinline__ bool gather(const float* __restrict__ src, const float* m,
-                                       const float (&kr)[3], float xf, const Geo& g,
-                                       float (&v)[8], float (&fr)[3]) {
-  const float cx = __fadd_rn(__fmul_rn(m[0], xf), kr[0]);
-  const float cy = __fadd_rn(__fmul_rn(m[4], xf), kr[1]);
-  const float cz = __fadd_rn(__fmul_rn(m[8], xf), kr[2]);
+__device__ __forceinline__ bool gather_x(const float* __restrict__ src, float mx, float my,
+                                         float mz, const float (&kr)[3], float xf,
+                                         const Geo& g, float (&v)[8], float (&fr)[3]) {
+  const float cx = __fadd_rn(__fmul_rn(mx, xf), kr[0]);
+  const float cy = __fadd_rn(__fmul_rn(my, xf), kr[1]);
+  const float cz = __fadd_rn(__fmul_rn(mz, xf), kr[2]);
   const float x0 = floorf(cx), y0 = floorf(cy), z0 = floorf(cz);
   const int xr = static_cast<int>(x0), yr = static_cast<int>(y0), zr = static_cast<int>(z0);
   const IDX sx = g.sx, plane = static_cast<IDX>(g.plane);
@@ -231,19 +234,57 @@ __device__ __forceinline__ bool gather(const float* __restrict__ src, const floa
   return true;
 }
 
+template <typename IDX>
+__device__ __forceinline__ bool gather(const float* __restrict__ src, const float* m,
+                                       const float (&kr)[3], float xf, const Geo& g,
+                                       float (&v)[8], float (&fr)[3]) {
+  return gather_x<IDX>(src, m[0], m[4], m[8], kr, xf, g, v, fr);
+}
+
+// K9's matrix for corr_block_with: its shared copy of the newest
+// evaluation's matrix, 16 floats (the 12 entries, then m_00, m_10, m_20, 0):
+// row() reads the 12 entries a step, xcol() the x column a voxel (K4 and K5
+// read theirs as constant-bank operands of a kernel parameter). Plain loads:
+// volatile ones, which the compiler may not move, made the body slower.
+struct SharedMat {
+  const float* m;
+  __device__ __forceinline__ void row(float (&out)[12]) const {
+#pragma unroll
+    for (int k = 0; k < 12; ++k) out[k] = m[k];
+  }
+  __device__ __forceinline__ void xcol(float& a, float& b, float& c) const {
+    a = m[12];
+    b = m[13];
+    c = m[14];
+  }
+};
+
+// Fill a SharedMat's 16 floats from the 12 entries.
+__device__ __forceinline__ void shared_mat_fill(float* dst, const float* m) {
+#pragma unroll
+  for (int k = 0; k < 12; ++k) dst[k] = m[k];
+  dst[12] = m[0];
+  dst[13] = m[4];
+  dst[14] = m[8];
+  dst[15] = 0.f;
+}
+
 // One block's share of K5 (GRAD = false: ss, st) or K4 (GRAD = true: and
-// the 24 gradient sums) for the matrix m: the block's tasks of the plan
-// (block index `block`), per-thread fp32 partials, then the block's float64
-// row, value k to partials[k * stride]. VX voxels a thread a step; IDX the
-// voxel offset type (int below 2^31 voxels). Shared by K4/K5 (corr.cu) and
-// K9 (reg_ladder.cu), so a K9 evaluation's row equals a K4/K5 launch's.
-// Every thread of the block must call it.
-template <bool GRAD, int VX, typename IDX>
-__device__ __forceinline__ void corr_block(const float* __restrict__ src,
-                                           const float* __restrict__ tgt, const float* m,
-                                           const Geo& g, long long block,
-                                           double* __restrict__ partials, size_t stride) {
+// the 24 gradient sums) for the matrix `mat`: the block's tasks of the plan
+// (block index `block`), per-thread fp32 partials, then the block's
+// float64 row, value k to partials[k * stride]. VX voxels a thread a step;
+// IDX the voxel offset type (int below 2^31 voxels). MAT is `const float*`
+// (K4/K5, corr.cu: a kernel parameter) or SharedMat (K9, reg_ladder.cu);
+// the arithmetic is the same, so a K9 evaluation's row equals a K4/K5
+// launch's. Every thread of the block must call it.
+template <bool GRAD, int VX, typename IDX, class MAT>
+__device__ __forceinline__ void corr_block_with(const float* __restrict__ src,
+                                                const float* __restrict__ tgt, MAT mat,
+                                                const Geo& g, long long block,
+                                                double* __restrict__ partials,
+                                                size_t stride) {
   constexpr int NV = GRAD ? 26 : 2;
+  constexpr bool kShared = !std::is_same<MAT, const float*>::value;
   float acc[NV];
 #pragma unroll
   for (int k = 0; k < NV; ++k) acc[k] = 0.f;
@@ -255,7 +296,13 @@ __device__ __forceinline__ void corr_block(const float* __restrict__ src,
   for (int k = 0; k < nsteps; ++k) {
     const float yf = static_cast<float>(y), zf = static_cast<float>(z);
     float kr[3];
-    row_coords(m, yf, zf, kr);
+    if constexpr (kShared) {
+      float m[12];
+      mat.row(m);
+      row_coords(m, yf, zf, kr);
+    } else {
+      row_coords(mat, yf, zf, kr);
+    }
     const int xb = seg * (32 * VX) + lane;
     // the target of voxel j is tp[32 j] (the row's offset, then the lane's:
     // no offset past the grid in IDX)
@@ -267,7 +314,16 @@ __device__ __forceinline__ void corr_block(const float* __restrict__ src,
 #pragma unroll
     for (int j = 0; j < VX; ++j) {
       const int x = xb + 32 * j;
-      ok[j] = x < g.sx && gather<IDX>(src, m, kr, static_cast<float>(x), g, v[j], fr[j]);
+      if constexpr (kShared) {
+        ok[j] = false;
+        if (x < g.sx) {
+          float mx, my, mz;
+          mat.xcol(mx, my, mz);
+          ok[j] = gather_x<IDX>(src, mx, my, mz, kr, static_cast<float>(x), g, v[j], fr[j]);
+        }
+      } else {
+        ok[j] = x < g.sx && gather<IDX>(src, mat, kr, static_cast<float>(x), g, v[j], fr[j]);
+      }
       if (ok[j]) t[j] = __ldg(tp + 32 * j);
     }
 
@@ -323,6 +379,15 @@ __device__ __forceinline__ void corr_block(const float* __restrict__ src,
 #pragma unroll
   for (int k = 0; k < NV; ++k) d[k] = static_cast<double>(acc[k]);
   block_sum<NV>(d, NV, partials, stride);
+}
+
+// K4/K5's body: the matrix a kernel parameter.
+template <bool GRAD, int VX, typename IDX>
+__device__ __forceinline__ void corr_block(const float* __restrict__ src,
+                                           const float* __restrict__ tgt, const float* m,
+                                           const Geo& g, long long block,
+                                           double* __restrict__ partials, size_t stride) {
+  corr_block_with<GRAD, VX, IDX, const float*>(src, tgt, m, g, block, partials, stride);
 }
 
 }  // namespace

@@ -15,44 +15,63 @@
 //
 // What bounds it on this card. Each evaluation is a K4 or K5 pass over the
 // pair (the sums' bound, ~8 bytes a valid voxel); between evaluations the
-// optimizer's step is a few thousand scalar operations in one block. The
-// host loop paid a host round trip per evaluation (a sync, a copy of the
-// sums, CPU autograd through the matrix builders: 0.11-0.30 ms against a
-// 4-36 us kernel at the pooled levels). Here the step and the hand-over
-// cost two global-memory barriers an evaluation.
+// optimizer's step is a few thousand scalar operations in one block, and
+// the hand-over between the blocks two barriers in global memory. A traced
+// launch stamps each evaluation (publish, the other blocks' latest start
+// and last arrival, block 0's own row, the rows seen, the column sum done,
+// the next publish), which splits its time into rows, hand-over, column sum
+// and step (kernels/reg_ladder.py::trace_split).
 //
-// The design (the simple one; making it fast is later work):
+// The design (redesigned on that split):
 //   * The stage kernel takes K4's plan and launch bounds (L-BFGS stages)
 //     or K5's (Powell stages): at most one wave of resident blocks
 //     (corr_body.cuh::make_plan), launched with cudaLaunchCooperativeKernel,
 //     which refuses a grid that would not be co-resident; the entry checks
 //     the count against cudaOccupancyMaxActiveBlocksPerMultiprocessor first.
-//   * Block 0 runs the optimizer: each of its threads runs the same
-//     reg_opt.cuh code on the same values (so every branch is uniform), and
-//     at each evaluation thread 0 publishes the matrix and a new generation
-//     in the workspace, then all of block 0 computes its own block row.
-//   * Every other block waits on the generation counter, reads the matrix,
-//     writes its row (corr_body.cuh::corr_block, the very body of K4/K5)
-//     and counts itself in. Block 0 waits for the count, then sums the
-//     columns in K4/K5's fixed order (sum_columns): each evaluation's ss,
-//     st, gs and gt equal a standalone K4/K5 launch on the same matrix, bit
-//     for bit. The cost and its gradient follow in float64.
-//   * The barriers are a counter in global memory with __threadfence, valid
-//     under the co-residency the cooperative launch guarantees (no -rdc,
-//     no grid.sync). Every wait is bounded (kSpinNs): past the bound a
-//     block gives up, the stage ends, and the state's error code says so.
-//   * One kernel a stage kind (reg_stage_kernel<GRAD>): the plan's VX and
-//     64-bit choice select K4's or K5's body at run time (block_row), and
-//     the optimizer (drive), the evaluation and the six bodies are calls
-//     (__noinline__), each compiled once a kind: with them inlined into
-//     twelve instantiations the file took 339 s to build on the H100
-//     machine. The optimizer's state (the history of L-BFGS, Powell's
-//     direction set) lives in each block-0 thread's local memory.
+//   * One stage kernel an instantiation of K4/K5's body (GRAD, VX, IDX:
+//     MIL_K9_STAGE_KINDS), which the host picks from the plan as corr.cu
+//     picks K4's or K5's. The blocks other than 0 run the body inlined
+//     there, its operands kernel parameters as in corr.cu's corr_kernel, the
+//     matrix from shared memory (corr_body.cuh::SharedMat: it changes each
+//     evaluation, so it cannot be a constant-bank operand). With six bodies
+//     inlined behind a switch in one kernel a kind, or the body behind a
+//     call, ptxas spilled hundreds of bytes in it and the rows ran about
+//     twice a K4/K5 launch.
+//   * Block 0 runs the optimizer (reg_opt.cuh: each of its threads the same
+//     values, so every branch is uniform) and computes the plan's last row,
+//     usually the lightest (stage_row: a call from inside the optimizer,
+//     whose registers ptxas trims, so it spills; the last row leaves it the
+//     time). Which block writes which row does not change a bit.
+//   * The hand-over. Block 0 publishes each matrix and its generation in
+//     kCopies copies, one a 128-byte line (block b polls copy b % kCopies,
+//     napping between reads), and every block counts its row in on a line
+//     of its own (polled from one line with the matrix, the release and
+//     every other part of an evaluation ran slower). K4's 26 columns are
+//     then summed by blocks 1..26, each in
+//     sum_columns' order for its column (the bits of one block summing them
+//     all), and read by block 0; K5's 2 by block 0.
+//     Each evaluation's ss, st, gs and gt equal a standalone K4/K5 launch on
+//     the same matrix, bit for bit; the cost and its gradient follow in
+//     float64.
+//   * The barriers are counters in global memory with __threadfence, valid
+//     under the co-residency the cooperative launch guarantees (no
+//     grid.sync). Every wait is bounded (kSpinNs): past the bound a block
+//     gives up, the stage ends, and the state's error code says so.
+//   * Build: the file is relocatable device code (kernels/build.py), so the
+//     optimizer (drive, reg_opt.cuh) and block 0's rows are compiled once,
+//     shared by the twelve kernels; whole-program compilation compiles each
+//     kernel's call graph again, minutes for twelve kernels.
+//   * Block 0's row reads the stage's pointers, geometry and instantiation
+//     from c_stage (__constant__), written on the stream before each stage; K9's
+//     ladders on one device are ordered one after another (an event), so no
+//     stage reads another's copy.
 //   * No --use_fast_math: cosf, sinf and sqrt round as IEEE says.
 //
 // The workspace (per device and stream, kernels/reg_ladder.py): kSyncWords
 // doubles of control words (zeroed before each stage), kStateWords of
 // LadderState (carried from stage to stage), then the block rows.
+
+#include <mutex>
 
 #include "corr_body.cuh"
 #include "reg_opt.cuh"
@@ -63,26 +82,92 @@ using mil_reg::LadderArgs;
 using mil_reg::LadderState;
 using mil_reg::Stage;
 
-// The stage's control words, zeroed before each launch.
-struct Sync {
-  unsigned gen;       // evaluations block 0 has published (then once more: stop)
-  unsigned arrived;   // rows the other blocks have written, over the stage
+// The stage's control words, zeroed before each launch, one 128-byte line
+// per job: the other blocks poll for a new evaluation all the time they are
+// not writing rows, so the matrix they read is published in kCopies copies
+// (block b polls copy b % kCopies) and the count they add to has a line of
+// its own.
+constexpr int kLine = 128;
+constexpr int kCopies = 32;   // published by the lanes of block 0's warp 0
+
+// One copy of the newest evaluation.
+struct __align__(128) Release {
+  unsigned gen;       // evaluations published (then once more: stop)
   unsigned stop;      // 1: the stage is done
-  unsigned pad;
-  float m[12];        // the matrix of the newest evaluation
+  float m[12];        // the matrix
 };
 
-constexpr int kSyncWords = 8;      // doubles
+struct __align__(128) Arrivals {
+  unsigned arrived;   // rows written (every block's, block 0's too), over the stage
+};
+
+// trace only (%globaltimer ns): the newest evaluation's latest row start
+// and last row arrival among the blocks other than 0
+struct __align__(128) Stamps {
+  unsigned long long t_start;
+  unsigned long long t_arrive;
+};
+
+// K4's columns: column k is summed by block k + 1 (k < the other blocks),
+// which counts itself in `summed`; block 0 sums any column left over.
+struct __align__(128) Summed {
+  unsigned summed;    // columns the other blocks have summed, over the stage
+};
+
+struct __align__(128) Columns {
+  double v[26];
+};
+
+struct Sync {
+  Arrivals a;
+  Stamps t;
+  Summed s;
+  Columns col;        // two lines
+  Release r[kCopies];
+};
+
+constexpr int kSyncWords = (5 + kCopies) * kLine / 8;   // doubles
 constexpr int kStateWords = 32;
-constexpr int kTraceWords = 40;    // a trace record: kind, m(12), sums(26), pad
+// a trace record: kind, m(12), sums(26), pad, then kStamps %globaltimer
+// stamps (ns, the bits of a 64-bit integer in a double's slot): publish,
+// latest row start, last row arrival among the other blocks, block 0's own
+// row done, block 0 sees the count, column sum done, next publish (or the
+// stage's stop)
+constexpr int kStampAt = 40;
+constexpr int kStamps = 7;
+constexpr int kTraceWords = kStampAt + kStamps;
 constexpr unsigned long long kSpinNs = 10ull * 1000ull * 1000ull * 1000ull;
 // LadderState::error codes (1: an unknown method or engine, reg_opt.cuh)
 constexpr int kErrTimeout = 2;
 constexpr int kErrKind = 3;
 
-static_assert(sizeof(Sync) <= kSyncWords * sizeof(double), "Sync outgrew its words");
+static_assert(sizeof(Sync) == kSyncWords * sizeof(double), "Sync and its words differ");
 static_assert(sizeof(LadderState) <= kStateWords * sizeof(double),
               "LadderState outgrew its words");
+
+// Every instantiation of the body, (GRAD, VX, IDX) as corr.cu instantiates
+// K4/K5; each stage picks one from its plan. kernels/reg_ladder.py::
+// INSTANTIATIONS mirrors this order (a CPU test parses it).
+#define MIL_K9_STAGE_KINDS(X)                                                        \
+  X(true, 4, int) X(true, 2, int) X(true, 1, int)                                    \
+  X(true, 4, long long) X(true, 2, long long) X(true, 1, long long)                  \
+  X(false, 4, int) X(false, 2, int) X(false, 1, int)                                 \
+  X(false, 4, long long) X(false, 2, long long) X(false, 1, long long)
+
+// What block 0's row reads as constant operands: the stage's pointers, its
+// geometry and its instantiation. Written on the stream before each stage
+// launch; K9's ladders on one device run one after another (mil_reg_ladder
+// orders them with an event), so no stage reads another's copy.
+struct StageConsts {
+  const float* src;
+  const float* tgt;
+  double* partials;
+  Geo g;
+  int vx;
+  int wide;
+};
+
+__constant__ StageConsts c_stage;
 
 __device__ __forceinline__ unsigned long long now_ns() {
   unsigned long long t;
@@ -90,46 +175,68 @@ __device__ __forceinline__ unsigned long long now_ns() {
   return t;
 }
 
+__device__ __forceinline__ double stamp(unsigned long long t) {
+  return __longlong_as_double(static_cast<long long>(t));
+}
+
 __device__ __forceinline__ unsigned load_volatile(const unsigned* p) {
   return *reinterpret_cast<const volatile unsigned*>(p);
 }
 
-// A block's row of K4's (GRAD) or K5's sums for the matrix m, on the
-// plan's instantiation (vx voxels a thread a step; wide: 64-bit offsets):
-// corr_block itself, so the row equals a K4/K5 launch's. Not inlined, so
-// each of the six bodies compiles once a stage kind.
+// Wait until *count reaches want (or the bound runs out: false).
+__device__ __forceinline__ bool wait_count(const unsigned* count, unsigned want) {
+  const unsigned long long t0 = now_ns();
+  while (load_volatile(count) < want)
+    if (now_ns() - t0 > kSpinNs) return false;
+  return true;
+}
+
+// A poller's naps between reads of its copy: from kNapMinNs, doubling to
+// kNapMaxNs (a release waits at most about that long for it).
+constexpr unsigned kNapMinNs = 32;
+constexpr unsigned kNapMaxNs = 256;
+
+// Publish generation `gen` in one copy: the matrix m (or, with stop = 1, the
+// end of the stage), made visible before the generation.
+__device__ __forceinline__ void publish(Release& r, const float* m, unsigned gen,
+                                       unsigned stop) {
+  volatile float* vm = r.m;
+  if (m != nullptr)
+    for (int k = 0; k < 12; ++k) vm[k] = m[k];
+  if (stop) reinterpret_cast<volatile unsigned*>(&r.stop)[0] = 1u;
+  __threadfence();
+  atomicExch(&r.gen, gen);
+}
+
+// Block 0's row on one instantiation of the body: corr_block_with with
+// every operand but the matrix (shared) read from c_stage. Block 0 calls it
+// from inside the optimizer, so it is a function of its own, compiled once
+// (the other blocks run the body inlined in their stage kernel).
+template <bool GRAD, int VX, typename IDX>
+__device__ __noinline__ void stage_row(const float* sh_m, unsigned block) {
+  corr_block_with<GRAD, VX, IDX>(c_stage.src, c_stage.tgt, SharedMat{sh_m}, c_stage.g, block,
+                                 c_stage.partials + block, gridDim.x);
+}
+
+// Block 0's row on the stage's instantiation (c_stage.vx, c_stage.wide).
 template <bool GRAD>
-__device__ __noinline__ void block_row(int vx, int wide, const float* __restrict__ src,
-                                       const float* __restrict__ tgt, const float* m,
-                                       const Geo g, long long block, double* partials,
-                                       size_t stride) {
-  if (wide) {
-    if (vx == 4) {
-      corr_block<GRAD, 4, long long>(src, tgt, m, g, block, partials, stride);
-    } else if (vx == 2) {
-      corr_block<GRAD, 2, long long>(src, tgt, m, g, block, partials, stride);
-    } else {
-      corr_block<GRAD, 1, long long>(src, tgt, m, g, block, partials, stride);
-    }
-  } else if (vx == 4) {
-    corr_block<GRAD, 4, int>(src, tgt, m, g, block, partials, stride);
-  } else if (vx == 2) {
-    corr_block<GRAD, 2, int>(src, tgt, m, g, block, partials, stride);
-  } else {
-    corr_block<GRAD, 1, int>(src, tgt, m, g, block, partials, stride);
+__device__ __forceinline__ void block_row(const float* sh_m, unsigned block) {
+#define MIL_K9_ROW(G, V, I)                                                        \
+  if constexpr (G == GRAD) {                                                        \
+    if (c_stage.vx == V && c_stage.wide == (sizeof(I) == 8 ? 1 : 0)) {              \
+      stage_row<G, V, I>(sh_m, block);                                              \
+      return;                                                                       \
+    }                                                                               \
   }
+  MIL_K9_STAGE_KINDS(MIL_K9_ROW)
+#undef MIL_K9_ROW
 }
 
 // Block 0's evaluator: one K4 (GRAD) or K5 evaluation across the grid.
 // Called by every thread of block 0 with the same matrix.
 template <bool GRAD>
 struct DevEval {
-  const float* src;
-  const float* tgt;
   Sync* sync;
-  double* partials;
-  Geo g;
-  int vx, wide;
   unsigned nb;        // blocks in the grid
   unsigned gen;       // evaluations published
   int err;
@@ -137,11 +244,12 @@ struct DevEval {
   double* trace;      // test hook: one record an evaluation, or null
   int trace_cap;
   int trace_next;     // the record this evaluation takes
+  double* last_rec;   // the previous evaluation's record (thread 0), or null
 
   __host__ __device__ __noinline__ void operator()(const float* m, bool grad, double* out) {
 #ifdef __CUDA_ARCH__
     constexpr int NV = GRAD ? 26 : 2;
-    __shared__ float sh_m[12];
+    __shared__ __align__(16) float sh_m[16];
     __shared__ double sh_res[NV];
     __shared__ int sh_err;
     if (grad != GRAD && !err) err = kErrKind;
@@ -150,29 +258,35 @@ struct DevEval {
       return;
     }
     const unsigned tid = threadIdx.x;
+    unsigned long long t_pub = 0, t_row0 = 0, t_seen = 0;
     if (tid == 0) {
       sh_err = 0;
-      volatile float* vm = sync->m;
-      for (int k = 0; k < 12; ++k) {
-        sh_m[k] = m[k];
-        vm[k] = m[k];
+      shared_mat_fill(sh_m, m);
+      if (trace != nullptr) {
+        t_pub = now_ns();
+        if (last_rec != nullptr) last_rec[kStampAt + 6] = stamp(t_pub);
       }
-      __threadfence();
-      atomicExch(&sync->gen, gen + 1);
+    }
+    if (tid < kCopies) {   // warp 0: after the publish stamp
+      __syncwarp();
+      publish(sync->r[tid], m, gen + 1, 0u);
     }
     gen += 1;
     __syncthreads();
-    block_row<GRAD>(vx, wide, src, tgt, sh_m, g, 0, partials, nb);
-    __threadfence();   // the row, before the column sum reads it from L2
+    block_row<GRAD>(sh_m, nb - 1);
+    // the row visible device-wide before block 0 counts itself in: K4's
+    // column sums in the other blocks read it
+    __threadfence();
+    __syncthreads();
+    // K4: the other blocks sum columns 0 .. owned - 1, block 0 the rest
+    const unsigned owned = GRAD ? (nb - 1 < NV ? nb - 1 : NV) : 0;
     if (tid == 0) {
-      const unsigned want = (nb - 1) * gen;
-      const unsigned long long t0 = now_ns();
-      while (load_volatile(&sync->arrived) < want) {
-        if (now_ns() - t0 > kSpinNs) {
-          sh_err = kErrTimeout;
-          break;
-        }
-      }
+      if (trace != nullptr) t_row0 = now_ns();
+      atomicAdd(&sync->a.arrived, 1u);
+      bool ok = wait_count(&sync->a.arrived, nb * gen);
+      if (trace != nullptr) t_seen = now_ns();
+      ok = ok && wait_count(&sync->s.summed, owned * gen);
+      if (!ok) sh_err = kErrTimeout;
       __threadfence();
     }
     __syncthreads();
@@ -181,14 +295,33 @@ struct DevEval {
       for (int k = 0; k < 26; ++k) out[k] = 0.0;
       return;
     }
-    sum_columns<NV>(partials, static_cast<int>(nb), NV, sh_res);
-    for (int k = 0; k < NV; ++k) out[k] = sh_res[k];
+    if (owned < NV)
+      sum_columns<NV>(c_stage.partials + static_cast<size_t>(owned) * nb, static_cast<int>(nb),
+                      NV - owned, sh_res + owned);
+    for (int k = 0; k < NV; ++k)
+      out[k] = k < static_cast<int>(owned) ? __ldcg(&sync->col.v[k]) : sh_res[k];
     for (int k = NV; k < 26; ++k) out[k] = 0.0;
-    if (trace != nullptr && tid == 0 && trace_next < trace_cap) {
-      double* r = trace + static_cast<size_t>(trace_next) * kTraceWords;
-      r[0] = GRAD ? 1.0 : 0.0;
-      for (int k = 0; k < 12; ++k) r[1 + k] = m[k];
-      for (int k = 0; k < 26; ++k) r[13 + k] = out[k];
+    if (trace != nullptr && tid == 0) {
+      const unsigned long long t_sum = now_ns();
+      last_rec = nullptr;
+      if (trace_next < trace_cap) {
+        double* r = trace + static_cast<size_t>(trace_next) * kTraceWords;
+        r[0] = GRAD ? 1.0 : 0.0;
+        for (int k = 0; k < 12; ++k) r[1 + k] = m[k];
+        for (int k = 0; k < 26; ++k) r[13 + k] = out[k];
+        r[39] = 0.0;
+        const unsigned long long t_arr = *reinterpret_cast<volatile unsigned long long*>(
+            &sync->t.t_arrive);
+        r[kStampAt + 0] = stamp(t_pub);
+        r[kStampAt + 1] = stamp(*reinterpret_cast<volatile unsigned long long*>(
+            &sync->t.t_start));
+        r[kStampAt + 2] = stamp(t_arr);
+        r[kStampAt + 3] = stamp(t_row0);
+        r[kStampAt + 4] = stamp(t_seen);
+        r[kStampAt + 5] = stamp(t_sum);
+        r[kStampAt + 6] = 0.0;
+        last_rec = r;
+      }
     }
     trace_next += 1;
     count += 1;
@@ -197,58 +330,12 @@ struct DevEval {
   }
 };
 
-// The blocks other than 0: wait for a generation, write the row, count in;
-// until block 0 says stop (or a wait runs past the bound: block 0's own
-// wait then runs out too and reports it).
-template <bool GRAD>
-__device__ __noinline__ void worker(int vx, int wide, const float* __restrict__ src,
-                                    const float* __restrict__ tgt, Sync* sync,
-                                    double* partials, const Geo g) {
-  __shared__ float sh_m[12];
-  __shared__ unsigned sh_gen;
-  __shared__ int sh_quit;
-  unsigned seen = 0;
-  for (;;) {
-    if (threadIdx.x == 0) {
-      const unsigned long long t0 = now_ns();
-      unsigned gnow;
-      int quit = 0;
-      while ((gnow = load_volatile(&sync->gen)) == seen) {
-        if (now_ns() - t0 > kSpinNs) {
-          quit = 1;
-          break;
-        }
-      }
-      __threadfence();
-      if (!quit && load_volatile(&sync->stop)) quit = 1;
-      if (!quit) {
-        const volatile float* vm = sync->m;
-        for (int k = 0; k < 12; ++k) sh_m[k] = vm[k];
-      }
-      sh_gen = gnow;
-      sh_quit = quit;
-    }
-    __syncthreads();
-    if (sh_quit) return;
-    seen = sh_gen;
-    block_row<GRAD>(vx, wide, src, tgt, sh_m, g, blockIdx.x, partials + blockIdx.x,
-                    gridDim.x);
-    // the row visible device-wide before the block counts itself in (as
-    // corr_body.cuh::last_block orders K4/K5's rows before their ticket)
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) atomicAdd(&sync->arrived, 1u);
-  }
-}
-
 // Block 0: run the stage's optimizer (every thread, the same values),
 // then publish the state and stop the other blocks. Not inlined: one copy
 // of the optimizer a stage kind.
 template <bool GRAD>
-__device__ __noinline__ void drive(const float* src, const float* tgt, Sync* sync,
-                                   LadderState* state, double* partials,
-                                   const LadderArgs& args, const Stage& stage, int first,
-                                   int last, const Geo g, int vx, int wide, double* trace,
+__device__ __noinline__ void drive(Sync* sync, LadderState* state, const LadderArgs& args,
+                                   const Stage& stage, int first, int last, double* trace,
                                    int trace_cap) {
   LadderState s;
   if (first) {
@@ -256,8 +343,8 @@ __device__ __noinline__ void drive(const float* src, const float* tgt, Sync* syn
   } else {
     s = *state;
   }
-  DevEval<GRAD> ev{src, tgt, sync, partials, g, vx, wide, gridDim.x, 0u, 0, 0,
-                   trace, trace_cap, s.evals[0] + s.evals[1]};
+  DevEval<GRAD> ev{sync, gridDim.x, 0u, 0, 0, trace, trace_cap, s.evals[0] + s.evals[1],
+                   nullptr};
   if (!s.error) {
     mil_reg::run_stage_kind<GRAD>(args, stage, s, ev);
     s.evals[GRAD ? 1 : 0] += ev.count;
@@ -266,33 +353,118 @@ __device__ __noinline__ void drive(const float* src, const float* tgt, Sync* syn
   if (last) mil_reg::ladder_finish(s);
   if (threadIdx.x == 0) {
     *state = s;
-    reinterpret_cast<volatile unsigned*>(&sync->stop)[0] = 1u;
-    __threadfence();
-    atomicExch(&sync->gen, ev.gen + 1);
+    if (ev.last_rec != nullptr) ev.last_rec[kStampAt + 6] = stamp(now_ns());
   }
+  if (threadIdx.x < kCopies) publish(sync->r[threadIdx.x], nullptr, ev.gen + 1, 1u);
 }
 
 // One optimizer stage: GRAD = L-BFGS over K4's sums (K4's launch bounds),
-// else Powell over K5's (K5's). `first` starts the ladder (the state from
-// args), `last` ends it (the final matrix); vx and wide are the plan's.
-template <bool GRAD>
+// else Powell over K5's (K5's), on one instantiation of the body (VX
+// voxels a thread a step, IDX the offset type). `first` starts the ladder
+// (the state from args), `last` ends it (the final matrix). Block 0
+// drives; block b > 0 waits for a generation, writes the plan's row b - 1
+// and counts itself in (K4: blocks 1..26 then sum a column each), until
+// block 0 says stop (or a wait runs past the bound: block 0's own wait
+// then runs out too and reports it).
+template <bool GRAD, int VX, typename IDX>
 __global__ void __launch_bounds__(kThreads, GRAD ? kResidentGrad : kResidentSums)
-reg_stage_kernel(const float* __restrict__ src, const float* __restrict__ tgt, Sync* sync,
-                 LadderState* state, double* __restrict__ partials, LadderArgs args,
-                 Stage stage, int first, int last, Geo g, int vx, int wide, double* trace,
-                 int trace_cap) {
-  if (blockIdx.x != 0) {
-    worker<GRAD>(vx, wide, src, tgt, sync, partials, g);
-  } else {
-    drive<GRAD>(src, tgt, sync, state, partials, args, stage, first, last, g, vx, wide,
-                trace, trace_cap);
+reg_stage_kernel(Sync* sync, LadderState* state, LadderArgs args, Stage stage, int first,
+                 int last, double* trace, int trace_cap, const float* __restrict__ src,
+                 const float* __restrict__ tgt, double* __restrict__ partials, Geo g) {
+  if (blockIdx.x == 0) {
+    drive<GRAD>(sync, state, args, stage, first, last, trace, trace_cap);
+    return;
+  }
+  __shared__ __align__(16) float sh_m[16];
+  __shared__ unsigned sh_gen;
+  __shared__ int sh_quit;
+  __shared__ int sh_rows_in;
+  Release* rel = &sync->r[blockIdx.x % kCopies];
+  unsigned seen = 0;
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const unsigned long long t0 = now_ns();
+      unsigned gnow;
+      int quit = 0;
+      unsigned nap = kNapMinNs;
+      while ((gnow = load_volatile(&rel->gen)) == seen) {
+        if (now_ns() - t0 > kSpinNs) {
+          quit = 1;
+          break;
+        }
+        __nanosleep(nap);
+        if (nap < kNapMaxNs) nap *= 2;
+      }
+      __threadfence();
+      if (!quit && load_volatile(&rel->stop)) quit = 1;
+      if (!quit) {
+        const volatile float* vm = rel->m;
+        float m[12];
+        for (int k = 0; k < 12; ++k) m[k] = vm[k];
+        shared_mat_fill(sh_m, m);
+        if (trace != nullptr) atomicMax(&sync->t.t_start, now_ns());
+      }
+      sh_gen = gnow;
+      sh_quit = quit;
+    }
+    __syncthreads();
+    if (sh_quit) return;
+    seen = sh_gen;
+    corr_block_with<GRAD, VX, IDX>(src, tgt, SharedMat{sh_m}, g, blockIdx.x - 1,
+                                   partials + (blockIdx.x - 1), gridDim.x);
+    // the row visible device-wide before the block counts itself in (as
+    // corr_body.cuh::last_block orders K4/K5's rows before their ticket)
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (trace != nullptr) {
+        atomicMax(&sync->t.t_arrive, now_ns());
+        __threadfence();
+      }
+      atomicAdd(&sync->a.arrived, 1u);
+    }
+    if constexpr (GRAD) {
+      // K4: block k + 1 sums column k once every row is in, in sum_columns'
+      // order for that column (so with block 0's bits), and counts itself in
+      const unsigned k = blockIdx.x - 1;
+      if (k < 26) {
+        if (threadIdx.x == 0) {
+          sh_rows_in = wait_count(&sync->a.arrived, gridDim.x * seen);
+          __threadfence();
+        }
+        __syncthreads();
+        if (sh_rows_in) {
+          sum_columns<1>(partials + static_cast<size_t>(k) * gridDim.x,
+                         static_cast<int>(gridDim.x), 1, &sync->col.v[k]);
+          if (threadIdx.x == 0) {
+            __threadfence();
+            atomicAdd(&sync->s.summed, 1u);
+          }
+        }
+      }
+    }
   }
 }
 
-using StageFn = void (*)(const float*, const float*, Sync*, LadderState*, double*, LadderArgs,
-                         Stage, int, int, Geo, int, int, double*, int);
+using StageFn = void (*)(Sync*, LadderState*, LadderArgs, Stage, int, int, double*, int,
+                         const float*, const float*, double*, Geo);
 
-StageFn stage_fn(bool grad) { return grad ? reg_stage_kernel<true> : reg_stage_kernel<false>; }
+struct StageKind {
+  int grad, vx, wide;
+  StageFn fn;
+};
+
+#define MIL_K9_KIND(G, V, I) {G ? 1 : 0, V, sizeof(I) == 8 ? 1 : 0, reg_stage_kernel<G, V, I>},
+const StageKind kStageKinds[] = {MIL_K9_STAGE_KINDS(MIL_K9_KIND)};
+#undef MIL_K9_KIND
+constexpr int kNumKinds = sizeof(kStageKinds) / sizeof(kStageKinds[0]);
+
+// The stage kernel of an instantiation, or null.
+StageFn stage_fn(int grad, int vx, int wide) {
+  for (const StageKind& k : kStageKinds)
+    if (k.grad == (grad != 0) && k.vx == vx && k.wide == (wide != 0)) return k.fn;
+  return nullptr;
+}
 
 int sms_of_device() {
   int dev = 0, n = 0;
@@ -305,6 +477,54 @@ int sms_of_device() {
 long long work_words(const Plan& p4, const Plan& p5) {
   const long long rows = p4.blocks * 26 > p5.blocks * 2 ? p4.blocks * 26 : p5.blocks * 2;
   return kSyncWords + kStateWords + rows;
+}
+
+// The ladders on one device run one after another, whatever their streams:
+// each waits for the previous one's event, since every stage rewrites
+// c_stage.
+constexpr int kMaxDevices = 64;
+std::mutex g_mu;
+cudaEvent_t g_done[kMaxDevices] = {};
+
+// The stages of one ladder on `st` (the caller holds g_mu).
+int launch_stages(const float* src, const float* tgt, int sz, int sy, int sx,
+                  const LadderArgs& a, const Stage* stages, int n, const Plan* plans, int sms,
+                  double* work, double* trace, int trace_cap, cudaStream_t st,
+                  int* n_launches) {
+  cudaError_t err;
+  Sync* sync = reinterpret_cast<Sync*>(work);
+  LadderState* state = reinterpret_cast<LadderState*>(work + kSyncWords);
+  double* partials = work + kSyncWords + kStateWords;
+  for (int i = 0; i < n; ++i) {
+    const Plan& p = plans[stages[i].lbfgs];
+    const StageFn fn = stage_fn(stages[i].lbfgs, p.vx, p.wide);
+    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    int per_sm = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, reinterpret_cast<const void*>(fn), kThreads, 0)) != cudaSuccess)
+      return static_cast<int>(err);
+    if (static_cast<long long>(per_sm) * sms < p.blocks)
+      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    const StageConsts consts{src, tgt, partials, make_geo(p, sz, sy, sx), p.vx, p.wide};
+    if ((err = cudaMemsetAsync(sync, 0, sizeof(Sync), st)) != cudaSuccess ||
+        (err = cudaMemcpyToSymbolAsync(c_stage, &consts, sizeof(consts), 0,
+                                       cudaMemcpyHostToDevice, st)) != cudaSuccess)
+      return static_cast<int>(err);
+    Stage stage = stages[i];
+    LadderArgs args = a;
+    int first = i == 0, last = i == n - 1;
+    const float* s_ptr = src;
+    const float* t_ptr = tgt;
+    Geo g = consts.g;
+    void* kargs[] = {&sync,  &state, &args,  &stage,    &first, &last,
+                     &trace, &trace_cap, &s_ptr, &t_ptr, &partials, &g};
+    if ((err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
+                                           dim3(static_cast<unsigned>(p.blocks)),
+                                           dim3(kThreads), kargs, 0, st)) != cudaSuccess)
+      return static_cast<int>(err);
+    *n_launches += 1;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -324,28 +544,42 @@ int mil_reg_ladder_work(int sz, int sy, int sx, long long* out) {
 }
 
 // Sizes the wrapper's mirrors must match: LadderArgs, LadderState bytes,
-// doubles a trace record.
+// doubles a trace record, the first stamp's word, the stage kernels.
 int mil_reg_ladder_sizes(int* out) {
   out[0] = static_cast<int>(sizeof(LadderArgs));
   out[1] = static_cast<int>(sizeof(LadderState));
   out[2] = kTraceWords;
+  out[3] = kStampAt;
+  out[4] = kNumKinds;
   return 0;
 }
 
-// What a stage kernel compiled to: grad 1 = the L-BFGS stage (K4's body),
-// 0 = the Powell stage (K5's); vx, wide as the plan gives them. out[0]
-// registers, out[1] spilled (local) bytes a thread, out[2] static shared
-// bytes, out[3] resident blocks per SM. Returns a cudaError_t.
+// The body's instantiations in MIL_K9_STAGE_KINDS' order: (grad, vx, wide) each,
+// into out[3 i .. 3 i + 2], for i < the count mil_reg_ladder_sizes gives.
+int mil_reg_ladder_kinds(int* out) {
+  for (int i = 0; i < kNumKinds; ++i) {
+    out[3 * i] = kStageKinds[i].grad;
+    out[3 * i + 1] = kStageKinds[i].vx;
+    out[3 * i + 2] = kStageKinds[i].wide;
+  }
+  return 0;
+}
+
+// What the stage kernel of an instantiation compiled to: grad 1 = the
+// L-BFGS stage (K4's body), 0 = the Powell stage (K5's); vx, wide as the
+// plan gives them (one kernel a kind runs every instantiation of its
+// kind). out[0] registers, out[1] local bytes a thread (the optimizer's
+// frame included), out[2] static shared bytes, out[3] resident blocks per
+// SM. Returns a cudaError_t.
 int mil_reg_ladder_attrs(int grad, int vx, int wide, int* out) {
-  if (vx != 1 && vx != 2 && vx != 4) return static_cast<int>(cudaErrorInvalidValue);
-  (void)wide;   // one kernel a stage kind takes every instantiation of the body
-  const void* fn = reinterpret_cast<const void*>(stage_fn(grad != 0));
+  const StageFn fn = stage_fn(grad, vx, wide);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes a;
   int blocks = 0;
   cudaError_t err;
-  if ((err = cudaFuncGetAttributes(&a, fn)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0)) !=
-          cudaSuccess)
+  if ((err = cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(fn))) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &blocks, reinterpret_cast<const void*>(fn), kThreads, 0)) != cudaSuccess)
     return static_cast<int>(err);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
@@ -358,9 +592,10 @@ int mil_reg_ladder_attrs(int grad, int vx, int wide, int* out) {
 // sync. `work` holds `work_len` doubles on the device (mil_reg_ladder_work);
 // the result is the LadderState at work + kSyncWords, once the stream gets
 // there. `trace` (or null) takes up to trace_cap records of kTraceWords
-// doubles: kind (1 = K4), the matrix, the sums. n_launches receives the
-// stages launched. Returns a cudaError_t: cudaErrorCooperativeLaunchTooLarge
-// where the plan's blocks would not be co-resident.
+// doubles: kind (1 = K4), the matrix, the sums, the stamps. n_launches
+// receives the stages launched. Returns a cudaError_t:
+// cudaErrorCooperativeLaunchTooLarge where the plan's blocks would not be
+// co-resident.
 int mil_reg_ladder(const float* src, const float* tgt, int sz, int sy, int sx,
                    const LadderArgs* args, double* work, long long work_len, double* trace,
                    int trace_cap, void* stream, int* n_launches) {
@@ -378,41 +613,26 @@ int mil_reg_ladder(const float* src, const float* tgt, int sz, int sy, int sx,
       (err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
     return static_cast<int>(err);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   const Plan plans[2] = {make_plan(sz, sy, sx, false, sms), make_plan(sz, sy, sx, true, sms)};
   if (work_len < work_words(plans[1], plans[0])) return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < 2; ++i)
     if (plans[i].blocks > kMaxBlocks || plans[i].steps > 2147483647LL)
       return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Sync* sync = reinterpret_cast<Sync*>(work);
-  LadderState* state = reinterpret_cast<LadderState*>(work + kSyncWords);
-  double* partials = work + kSyncWords + kStateWords;
-  LadderArgs a = *args;
-  for (int i = 0; i < n; ++i) {
-    const Plan& p = plans[stages[i].lbfgs];
-    const StageFn fn = stage_fn(stages[i].lbfgs != 0);
-    int per_sm = 0;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, reinterpret_cast<const void*>(fn), kThreads, 0)) != cudaSuccess)
-      return static_cast<int>(err);
-    if (static_cast<long long>(per_sm) * sms < p.blocks)
-      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    if ((err = cudaMemsetAsync(sync, 0, sizeof(Sync), st)) != cudaSuccess)
-      return static_cast<int>(err);
-    Geo g = make_geo(p, sz, sy, sx);
-    Stage stage = stages[i];
-    int first = i == 0, last = i == n - 1, vx = p.vx, wide = p.wide;
-    const float* s_ptr = src;
-    const float* t_ptr = tgt;
-    void* kargs[] = {&s_ptr, &t_ptr, &sync, &state, &partials, &a,     &stage,
-                     &first, &last, &g,     &vx,   &wide,  &trace, &trace_cap};
-    if ((err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
-                                           dim3(static_cast<unsigned>(p.blocks)),
-                                           dim3(kThreads), kargs, 0, st)) != cudaSuccess)
-      return static_cast<int>(err);
-    *n_launches += 1;
+  std::lock_guard<std::mutex> lock(g_mu);
+  if (g_done[dev] == nullptr &&
+      (err = cudaEventCreateWithFlags(&g_done[dev], cudaEventDisableTiming)) != cudaSuccess) {
+    g_done[dev] = nullptr;
+    return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  if ((err = cudaStreamWaitEvent(st, g_done[dev], 0)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int rc = launch_stages(src, tgt, sz, sy, sx, *args, stages, n, plans, sms, work, trace,
+                               trace_cap, st, n_launches);
+  if ((err = cudaEventRecord(g_done[dev], st)) != cudaSuccess && rc == 0)
+    return static_cast<int>(err);
+  return rc;
 }
 
 }  // extern "C"

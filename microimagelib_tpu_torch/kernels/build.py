@@ -2,8 +2,9 @@
 
 Every ``*.cu`` file under ``microimagelib_tpu_torch/csrc/`` is compiled
 by ``nvcc`` for Hopper (``sm_90a``) into an object, one ``nvcc`` process
-per source, all started together; the objects are linked into one shared
-library with a plain C interface (CUDA runtime only: no cuFFT, no
+per source, all started together; those compiled as relocatable device
+code are device-linked; the objects are linked into one shared library
+with a plain C interface (CUDA runtime only: no cuFFT, no
 cuBLAS), loaded with ``ctypes``. The library goes into
 ``build/microimagelib_tpu_torch/<hash of the sources and flags>/`` at the
 repository root, so an edit to a source rebuilds it and an unchanged tree
@@ -28,11 +29,15 @@ BUILD_ROOT = PKG_DIR.parent / "build" / PKG_DIR.name
 LIB_NAME = "libmil_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
-# flags of one source on top of NVCC_FLAGS: K9's optimizer arithmetic
-# rounds each float32 operation on its own, as the host loop's numpy
-# scalars do (no FMA contraction; the K4/K5 body it shares spells out its
-# FMAs, so its bits stay K4/K5's)
-FILE_FLAGS = {"reg_ladder.cu": ("-fmad=false",)}
+# flags of one source on top of NVCC_FLAGS. K9 (reg_ladder.cu): its
+# optimizer arithmetic rounds each float32 operation on its own, as the host
+# loop's numpy scalars do (no FMA contraction; the K4/K5 body it shares
+# spells out its FMAs, so its bits stay K4/K5's); and it is relocatable
+# device code, device-linked before the library's link (dlink_command): its
+# twelve stage kernels then share one compiled copy of the optimizer a
+# stage kind, where whole-program compilation compiles a kernel's whole
+# call graph once per kernel (minutes for the file, against ~30 s)
+FILE_FLAGS = {"reg_ladder.cu": ("-fmad=false", "-rdc=true")}
 
 _LIB = None
 
@@ -80,6 +85,13 @@ def link_command(objects, out_path):
             *(str(o) for o in objects)]
 
 
+def dlink_command(objects, out_path):
+    """The device link of the objects compiled as relocatable device code
+    (``-rdc=true`` in FILE_FLAGS) into one object for the library's link."""
+    return [nvcc_path(), *NVCC_FLAGS, "-dlink", "-o", str(out_path),
+            *(str(o) for o in objects)]
+
+
 def _run_all(cmds):
     """Run the commands in parallel; raise with the first failure's output."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -105,8 +117,13 @@ def build():
     try:
         compiles = compile_commands(tmp_dir)
         _run_all([cmd for cmd, _obj in compiles])
+        objects = [obj for _cmd, obj in compiles]
+        relocatable = [obj for cmd, obj in compiles if "-rdc=true" in cmd]
+        if relocatable:
+            objects.append(tmp_dir / "dlink.o")
+            _run_all([dlink_command(relocatable, objects[-1])])
         tmp = tmp_dir / LIB_NAME
-        _run_all([link_command([obj for _cmd, obj in compiles], tmp)])
+        _run_all([link_command(objects, tmp)])
         os.replace(tmp, out)
     finally:
         shutil.rmtree(tmp_dir, ignore_errors=True)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import inspect
 
 import numpy as np
 import torch
@@ -38,7 +39,8 @@ from microimagelib_tpu_torch.kernels import corr as C
 
 __all__ = ["reg_ladder", "launch", "ladder_args", "kernel_attrs", "LadderArgs",
            "LadderState", "K9_LAUNCHES", "K9_EVALS_K4", "K9_EVALS_K5", "ENGINES",
-           "TRACE_WORDS", "stage_count"]
+           "TRACE_WORDS", "STAMP_AT", "STAMPS", "INSTANTIATIONS", "stage_count",
+           "trace_split", "split_medians", "record_ladders", "args_of"]
 
 # stage launches of K9 (one per optimizer stage), and the evaluations those
 # launches made on K4's body (L-BFGS stages) and on K5's (Powell stages)
@@ -46,8 +48,16 @@ K9_LAUNCHES = 0
 K9_EVALS_K4 = 0
 K9_EVALS_K5 = 0
 ENGINES = {"grad": 0, "device": 1}
-# doubles a trace record: kind (1 = K4), the matrix (12), the sums (26), pad
-TRACE_WORDS = 40
+# doubles a trace record: kind (1 = K4), the matrix (12), the sums (26), pad,
+# then the %globaltimer stamps (ns, int64 bits in the float64 slots) named
+# in STAMPS, from word STAMP_AT
+STAMPS = ("publish", "start", "arrive", "row0", "seen", "summed", "next")
+STAMP_AT = 40
+TRACE_WORDS = STAMP_AT + len(STAMPS)
+# the stage kernels (grad, vx, wide), in the order of csrc/reg_ladder.cu's
+# MIL_K9_STAGE_KINDS: one a (GRAD, VX, IDX) of K4/K5's plan
+INSTANTIATIONS = tuple((grad, vx, wide) for grad in (1, 0) for wide in (0, 1)
+                       for vx in (4, 2, 1))
 # LadderState.error codes
 ERRORS = {1: "unknown method or engine", 2: "a block's wait ran past its bound",
           3: "an evaluation of the wrong kind"}
@@ -114,11 +124,17 @@ def _library():
         lib.mil_reg_ladder_sizes.restype = i
         lib.mil_reg_ladder_attrs.argtypes = [i] * 3 + [p]
         lib.mil_reg_ladder_attrs.restype = i
-        sizes = (ctypes.c_int * 3)()
+        lib.mil_reg_ladder_kinds.argtypes = [p]
+        lib.mil_reg_ladder_kinds.restype = i
+        sizes = (ctypes.c_int * 5)()
         lib.mil_reg_ladder_sizes(sizes)
-        want = (ctypes.sizeof(LadderArgs), ctypes.sizeof(LadderState), TRACE_WORDS)
-        if tuple(sizes) != want:
-            raise RuntimeError(f"csrc/reg_ladder.cu's layouts {tuple(sizes)} differ from "
+        kinds = (ctypes.c_int * (3 * max(1, sizes[4])))()
+        lib.mil_reg_ladder_kinds(kinds)
+        got = (tuple(sizes), tuple(tuple(kinds[3 * k:3 * k + 3]) for k in range(sizes[4])))
+        want = ((ctypes.sizeof(LadderArgs), ctypes.sizeof(LadderState), TRACE_WORDS, STAMP_AT,
+                 len(INSTANTIATIONS)), INSTANTIATIONS)
+        if got != want:
+            raise RuntimeError(f"csrc/reg_ladder.cu's layouts {got} differ from "
                                f"kernels/reg_ladder.py's {want}")
         _lib = lib
     return _lib
@@ -164,7 +180,8 @@ def launch(src, tgt, args, trace_cap=0):
     :class:`LadderArgs`), then one sync. Returns the final
     :class:`LadderState` and, with ``trace_cap`` > 0, the (n, TRACE_WORDS)
     float64 trace of the first n <= trace_cap evaluations (the test hook:
-    kind, matrix and sums of each). Raises on a refused launch or an error
+    kind, matrix and sums of each, and the stamps :func:`trace_split`
+    reads). Raises on a refused launch or an error
     the kernel reports."""
     global K9_LAUNCHES, K9_EVALS_K4, K9_EVALS_K5
     C._check(src, tgt)
@@ -196,6 +213,69 @@ def launch(src, tgt, args, trace_cap=0):
         return state, None
     n = min(int(trace_cap), state.evals[0] + state.evals[1])
     return state, trace[:n].cpu().numpy()
+
+
+def trace_split(trace):
+    """Each traced evaluation's time, part by part, in microseconds, from
+    the stamps of a ``launch(..., trace_cap=n)`` trace: ``rows`` (publish to
+    the last row done, block 0's or another block's), ``handover`` (then
+    until block 0 sees the count), ``colsum`` (the column sum), ``step``
+    (then until the next publish: the optimizer's step), ``evaluation``
+    (publish to next publish, their sum); inside ``rows``, ``release``
+    (publish to the latest start among the other blocks; 0 on a one-block
+    grid), ``rows_others`` (publish to their last arrival) and
+    ``rows_block0`` (publish to block 0's row done). A dict of float64
+    arrays."""
+    t = np.ascontiguousarray(trace[:, STAMP_AT:STAMP_AT + len(STAMPS)]).view(np.int64)
+    p, s, a, r0, w, c, n = (t[:, k] for k in range(len(STAMPS)))
+    done = np.maximum(a, r0)
+
+    def us(d):
+        return d.astype(np.float64) / 1e3
+
+    return {"rows": us(done - p), "handover": us(w - done), "colsum": us(c - w),
+            "step": us(n - c), "evaluation": us(n - p), "release": us(np.where(s > 0, s - p, 0)),
+            "rows_others": us(np.where(a > 0, a - p, 0)), "rows_block0": us(r0 - p)}
+
+
+def split_medians(trace, kind=None):
+    """The medians of :func:`trace_split` over the trace's evaluations (or
+    those of ``kind``: 1 for K4's body, 0 for K5's), and their count under
+    ``n``."""
+    if kind is not None:
+        trace = trace[trace[:, 0] == kind]
+    out = {k: float(np.median(v)) if len(v) else float("nan")
+           for k, v in trace_split(trace).items()}
+    out["n"] = int(len(trace))
+    return out
+
+
+@contextlib.contextmanager
+def record_ladders():
+    """While entered, record the arguments of every ladder :func:`reg_ladder`
+    runs (the models call it through this module): a list of dicts of its
+    bound arguments, one a call, for :func:`args_of` and :func:`launch`."""
+    calls, orig = [], globals()["reg_ladder"]
+    sig = inspect.signature(orig)
+
+    def recorded(*args, **kw):
+        bound = sig.bind(*args, **kw)
+        bound.apply_defaults()
+        calls.append(dict(bound.arguments))
+        return orig(*args, **kw)
+
+    globals()["reg_ladder"] = recorded
+    try:
+        yield calls
+    finally:
+        globals()["reg_ladder"] = orig
+
+
+def args_of(call):
+    """The :class:`LadderArgs` of a call :func:`record_ladders` recorded."""
+    return ladder_args(call["engine"], call["aff_method"], call["p_init12"], call["ftol"],
+                       call["it_limit"], call["sd_t"], tuple(call["src"].shape), call["finish"],
+                       call["finish_sweeps"], call["ls_max_iters"], call["ls_patience"])
 
 
 def _result(state):

@@ -13,7 +13,11 @@ synchronized at the level's end), the evaluations (K4/K5 launches from the
 host and, where the checkout has K9, the evaluations K9 ran on each body),
 K9's launches, the K4/K5 sums' device time (evaluations x each kernel's
 device ms per launch at the level shape, torch.profiler) and the rest of
-the level's time as its host share; then one line with the end-to-end
+the level's time as its host share, and, where the checkout's K9 stamps its
+trace (``kernels/reg_ladder.py::split_medians``), the medians of each
+evaluation's parts in microseconds (rows, hand-over, column sum, the
+optimizer's step; overall and per body), from the warm run's ladders run
+again with a trace; then one line with the end-to-end
 surrogate's (``tools/e2e_surrogate.py``) registration seconds per
 timepoint over ``--tps`` timepoints at ``--xy``. The first line is the
 card's name and power limit.
@@ -102,6 +106,8 @@ def time_root(root, shape, tps, xy, runs):
     vol = beads(shape, 0, dev)
     moved = affine_transform_3d(vol, dof_to_matrix(REG_DOF, 6), shape)
     per_launch = {}
+    splits = {}
+    stamped = RL is not None and hasattr(RL, "record_ladders")
     for run in range(runs + 1):
         levels = []
 
@@ -110,10 +116,18 @@ def time_root(root, shape, tps, xy, runs):
 
         torch.cuda.synchronize()
         start = counts()
-        _, tmx, rec = R.reg3d(vol, moved, reg_choice=2, aff_method=7, device=dev,
-                              as_device=True, on_level=on_level)
+        with (RL.record_ladders() if run == 0 and stamped
+              else contextlib.nullcontext([])) as ladders:
+            _, tmx, rec = R.reg3d(vol, moved, reg_choice=2, aff_method=7, device=dev,
+                                  as_device=True, on_level=on_level)
         torch.cuda.synchronize()
         if run == 0:
+            # the warm run's ladders again, traced: each evaluation's parts
+            for c in ladders:
+                _, trace = RL.launch(c["src"], c["tgt"], RL.args_of(c), trace_cap=20000)
+                splits[tuple(c["src"].shape)] = {
+                    name: RL.split_medians(trace, kind) for name, kind in
+                    (("all", None), ("K4", 1), ("K5", 0))}
             continue          # the warm run
         prev, out = start, []
         for label, lvl_shape, secs, n in levels:
@@ -134,6 +148,8 @@ def time_root(root, shape, tps, xy, runs):
                         "evals_k4": e4, "evals_k5": e5, "host_k4": d["K4"],
                         "host_k5": d["K5"], "k9_launches": d.get("K9", 0),
                         "sums_ms": sums_ms, "host_share": 1 - sums_ms / 1e3 / secs})
+            if lvl_shape in splits:
+                out[-1]["split_us"] = splits[lvl_shape]
         print(json.dumps({"root": root, "run": run, "shape": list(shape), "ncc": rec[3],
                           "s": sum(lv["s"] for lv in out), "levels": out}), flush=True)
     del vol, moved

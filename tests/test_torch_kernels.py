@@ -812,10 +812,45 @@ def test_reg_ladder_kernel_matches_host_loop(cuda, engine, method, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("grad", [False, True], ids=["powell", "lbfgs"])
 def test_reg_ladder_kernel_fits_its_launch_bounds(cuda, grad):
-    """The stage kernels keep K5's (Powell) or K4's (L-BFGS) residency, so
-    their plans' blocks are co-resident for the cooperative launch."""
+    """The stage kernel of every (GRAD, VX, IDX) instantiation of the body
+    keeps K5's (Powell) or K4's (L-BFGS) residency and register cap, so its
+    plans' blocks are co-resident for the cooperative launch; every (vx,
+    wide) the plan can give has an instantiation."""
     from microimagelib_tpu_torch.kernels import reg_ladder as RL
 
-    for vx in (4, 2, 1):
-        for wide in (0, 1):
-            assert RL.kernel_attrs(grad, vx, wide)["blocks_per_sm"] >= C.RESIDENT[grad]
+    kinds = [k for k in RL.INSTANTIATIONS if k[0] == int(grad)]
+    assert sorted((vx, wide) for _g, vx, wide in kinds) == sorted(
+        (vx, wide) for vx in (4, 2, 1) for wide in (0, 1))
+    for _g, vx, wide in kinds:
+        at = RL.kernel_attrs(grad, vx, wide)
+        assert at["blocks_per_sm"] >= C.RESIDENT[grad]
+        assert at["registers"] <= 65536 // (128 * C.RESIDENT[grad])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["grad", "device"])
+def test_reg_ladder_trace_stamps_are_in_order(cuda, engine):
+    """Every traced evaluation's stamps run publish <= latest row start <=
+    the other blocks' last arrival, publish <= block 0's row done, both <=
+    block 0 sees the count <= column sum done <= next publish, and the next
+    publish is the following evaluation's publish within a stage."""
+    from microimagelib_tpu_torch.kernels import reg_ladder as RL
+
+    shape = (24, 40, 100)
+    src, tgt, sd_t = (x.to(cuda) if isinstance(x, torch.Tensor) else x
+                      for x in _blob_pair(shape, (0.6, -0.8, 0.3), 7))
+    p0 = np.array([0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0, 1], np.float32)
+    args = RL.ladder_args(engine, 7, p0, 1e-4, 3000, sd_t, shape)
+    st, trace = RL.launch(src, tgt, args, trace_cap=10000)
+    t = np.ascontiguousarray(trace[:, RL.STAMP_AT:]).view(np.int64)
+    pub, start, arrive, row0, seen, summed, nxt = t.T
+    assert len(t) == st.nev and (pub > 0).all()
+    assert (pub <= start).all() and (start <= arrive).all() and (pub <= row0).all()
+    assert (np.maximum(arrive, row0) <= seen).all()
+    assert (seen <= summed).all() and (summed <= nxt).all()
+    assert (nxt[:-1] <= pub[1:]).all()
+    # within a stage the next publish is the next evaluation's; at a
+    # stage's end it is the stop
+    assert (nxt[:-1] == pub[1:]).sum() >= len(t) - RL.stage_count(args)
+    sp = RL.trace_split(trace)
+    assert (sp["evaluation"] > 0).all() and np.isfinite(sp["rows"]).all()
