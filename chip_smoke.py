@@ -96,27 +96,28 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      ((10, 16, 320) ... (320, 512, 320)) and at the five pyramid shapes of
      Phase 10, and times one 8-probe call against 8 K5 calls; K6's numbers
      in the kernels line are those of the largest level where Phase 14
-     launched it;
+     ran its body (in K9);
  14. runs ``fusion_dualview`` at full width: bead truth on the isotropic
      (320, 512, 320) grid, view A blurred along z and view B moved by the
      reg128 matrix, blurred along x and rotated, both sampled to raw
      (52, 512, 320) at 0.1625 / 1.0 um pixels; choice 2, method 7,
      matched PSFs, 10 iterations; (a) with MIL_CONV_SEP_FUSED=1
-     MIL_REG_BATCH_LS=1 (20 K2 launches, no K1 launch, K6 launched, no
-     plain call), (b) with both off (40 K1 launches or 40 K3 calls, as
+     MIL_REG_BATCH_LS=1 (20 K2 launches, no K1 launch, K6's body run in
+     K9 and no K6 launch of its own, no plain call), (b) with both off
+     (40 K1 launches or 40 K3 calls, as
      auto's route for the fusion PSFs says); (a) against (b): NCC within
      1e-3, matrices within 0.5 voxel; each within FUSION_TRUTH_VOXELS of
      the true matrix and at least the true matrix's NCC on the
      registration's own cost (the CPU test against the JAX package sets
-     the distance); (a)'s ladders on the host loop (the stated route of
-     MIL_REG_BATCH_LS), (b)'s in K9 with both bodies run and no host-loop
-     ladder; the decon of one registered pair with and without K2
+     the distance); (a)'s ladders in K9 with K4's and K6's bodies run,
+     (b)'s with K4's and K5's, no host-loop ladder in either; the decon of
+     one registered pair with and without K2
      within 2e-4; per-step wall times, ms per dual-view iteration on K2,
      the K1 pair, K3 and ``torch.fft``, and per pyramid level the syncs,
      evaluations, device time per launch and host share with and without
-     K6;
+     K6's body;
  15. the spimFusion CLI on the same views as 16-bit TIFFs, -bit 16 -otmx,
-     with K2 and K6 on;
+     with K2 and K6's body on (its ladders in K9 as (a)'s);
  16. compares the copy in K1's launch shapes (K7) with its plain version,
      bit for bit, in both geometries at 512^3 (shift 4) and at five
      smaller shapes, two of them off the chunk multiples and one with an
@@ -170,7 +171,10 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      its peak memory under the budget; the peak factor of one streamed
      block against ``ops.affine.STREAM_PEAK_FACTOR``; then ``reg3d`` with
      the ``hybrid`` engine on Phase 10's (256, 512, 512) pair against the
-     ``grad`` engine (1e-3 NCC, 0.5 voxel); (d) the spimFusion CLI with -gm 2 on Phase 14's views against
+     ``grad`` engine (1e-3 NCC, 0.5 voxel): every line minimization one
+     K9 launch and one sync (no host-loop line), K5 launched only for the
+     single evaluations and each level's initial cost, its seconds, lines
+     and syncs printed; (d) the spimFusion CLI with -gm 2 on Phase 14's views against
      Phase 14 (b) (1e-3 NCC, 0.5 voxel, each within FUSION_TRUTH_VOXELS of
      the truth).
  19. the multi-device layer (``parallel/*``, ``ops/fft_sharded.py``) with
@@ -237,12 +241,17 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      within 20%, the final cost within 1e-4, the matrices within 0.05
      voxel over the central half-box; every evaluation's sums (the
      ``trace=`` hook) bit for bit a K4/K5 launch on its matrix; two K9 runs
-     bit for bit; ``nvcc -Xptxas -v`` on ``reg_ladder.cu`` (compiled
+     bit for bit; the same with MIL_REG_BATCH_LS=1 for both engines from
+     the same start (K9's probe stages over K6's body against the host
+     loop's K6 launches), every traced probe evaluation's sums bit for bit
+     a K6 launch on its matrices, and its split against an 8-probe K6
+     launch's device time; ``nvcc -Xptxas -v`` on ``reg_ladder.cu`` (compiled
      beside the library's build: its seconds, and each function's
      registers, frame and spills, the body's path apart from the
-     optimizer's side; the twelve stage kernels and twelve rows must be
-     there); each of the twelve stage kernels' registers, local bytes and
-     resident blocks, and co-residency against each level's plan; per
+     optimizer's side; the eighteen stage kernels and eighteen rows must be
+     there, six of them over K6's body); each of the eighteen stage
+     kernels' registers, local bytes and resident blocks, and
+     co-residency against each level's plan; per
      level the seconds, evaluations, device time and host share of both,
      and K9's split from the trace's stamps (medians of rows, the other
      blocks' and block 0's apart, hand-over, column sum and step, in µs,
@@ -253,7 +262,9 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      ``tools/reg_ladder_witness.py`` (the JAX ladder on the CPU).
 
 Phase 11's reg3D CLI must run its ladders in K9 (both bodies, no host-loop
-ladder). The CLI phases (4, 8, 11, 15, 17, 18 (d), 19 (e)) must read and write their TIFFs
+ladder); Phases 14 (a) and 15 theirs in K9 with K6's body
+(MIL_REG_BATCH_LS=1). The CLI phases (4, 8, 11, 15, 17, 18 (d), 19 (e))
+must read and write their TIFFs
 through the native codec only (``io.tiff.COUNTS``); Phase 11 prints the
 reg3D CLI's TIFF seconds.
 
@@ -266,8 +277,9 @@ route's time, ``gather_route_ms``, and the factored route's call alone,
 ``mip3d_params``' host work included, ``route_ms``; K9: its time is the
 ladders of Phase 10's levels, each called alone, summed, per level in
 ``ms_per_level``, its bound K4/K5's bound times the evaluations on each
-body; K4 and K5 count as launches their own only, and the evaluations K9
-ran on their bodies as ``k9_body_evals``),
+body; K4, K5 and K6 count as launches their own only, and the evaluations
+K9 ran on their bodies as ``k9_body_evals``; K9's ``k9_lines`` are the
+hybrid engine's line launches in Phase 18 (c)),
 its launches in Phase 17 (a), ``batch_launches``, in
 Phase 18 (c), ``bhbm_launches``, and in Phase 19 (e), ``mesh_launches``), and
 as its last line
@@ -727,11 +739,11 @@ def main():
     # JSON numbers are those of the largest such shape
     unchecked = set(main14["k6_shapes"]) - set(k6)
     if not main14["k6_shapes"] or unchecked:
-        raise AssertionError(f"K6 launched at {main14['k6_shapes']}, Phase 13 did not "
+        raise AssertionError(f"K6's body ran at {main14['k6_shapes']}, Phase 13 did not "
                              f"check {sorted(unchecked)}")
     k6_shape = max(main14["k6_shapes"], key=lambda s: int(np.prod(s)))
     print(f"K6's numbers below are at {k6_shape}, the largest level the fusion's "
-          f"finisher launched K6 at (of {main14['k6_shapes']})")
+          f"finisher ran K6's body at in K9 (of {main14['k6_shapes']})")
     k6 = k6[k6_shape]
 
     if k9["faults"]:
@@ -805,7 +817,10 @@ def main():
         "route": "cuda",
         "source": "microimagelib_tpu_torch/csrc/corr.cu",
         "replaces": "microimagelib_tpu/ops/pallas_corr.py:242",
+        # its own launches on the main path (none since K9 runs its body);
+        # the evaluations K9 ran on its body there are "k9_body_evals"
         "launches": main14["k6"],
+        "k9_body_evals": main14["k9_k6"],
         "max_abs_err": k6["max_abs_err"],
         "ms": k6["ms"],
         "plain_ms": k6["plain_ms"],
@@ -855,7 +870,10 @@ def main():
         "also_replaces": "microimagelib_tpu/models/registration_device.py:126",
         "launches": corr_launches["K9"],
         "evaluations": {"K4_body": corr_launches["K9_K4"],
-                        "K5_body": corr_launches["K9_K5"]},
+                        "K5_body": corr_launches["K9_K5"],
+                        "K6_body_phase14a": main14["k9_k6"]},
+        # the line launches of Phase 18 (c)'s hybrid reg3d, one a line
+        "k9_lines": bhbm["hybrid_lines"],
         # the largest entry of the ladder's matrix against the host loop's
         "max_abs_err": k9["max_abs_err"],
         "fret_abs_err": k9["fret_err"],
@@ -869,6 +887,8 @@ def main():
         "bound_by": k9["bound"][1],
         "library_ms": None,   # no PyTorch call runs an optimizer over the sums
         "ms_per_level": k9["levels"],
+        # MIL_REG_BATCH_LS=1 at each level, both engines, against the host loop
+        "probe_levels": k9["probe_levels"],
         # nvcc -Xptxas -v on reg_ladder.cu alone: its seconds, the body
         # path's registers and spills, the optimizer's frame
         "build_s": k9["build_s"],
@@ -888,7 +908,7 @@ def main():
         k["bhbm_launches"] = bhbm[kernel]
         # and of Phase 19 (e), the batch CLI under MIL_MESH=2,2
         k["mesh_launches"] = mesh[kernel]
-        if kernel in ("K4", "K5"):
+        if kernel in ("K4", "K5", "K6"):
             # the evaluations K9 ran on the body in those runs
             k["batch_k9_body_evals"] = batch[f"K9_{kernel}"]
             k["bhbm_k9_body_evals"] = bhbm[f"K9_{kernel}"]
@@ -1669,6 +1689,22 @@ def k9_body_path(fn):
     return "reg_stage_kernel" in fn["name"] or "stage_row" in fn["name"]
 
 
+def k9_probe_kernel(fn):
+    """True for a stage kernel over K6's body (the mangled BODY = 2)."""
+    return "reg_stage_kernelILi2E" in fn["name"]
+
+
+def k9_kernel_key(fn):
+    """A stage kernel's (BODY, VX, IDX) from its mangled name, as
+    '<2, 4, int>'."""
+    m = re.search(r"reg_stage_kernelILi(\d)ELi(\d)E([ix])E", fn["name"])
+    return f"<{m.group(1)}, {m.group(2)}, {'int' if m.group(3) == 'i' else 'long long'}>"
+
+
+K9_BODY_NAMES = {0: "Powell and the line, K5's body", 1: "L-BFGS, K4's body",
+                 2: "Powell with probes, K6's body"}
+
+
 def phase22_k9(dev, card, calls, ptxas):
     """K9 (``csrc/reg_ladder.cu``: the ladder's optimizer stages on the
     card) against its plain version (the host loop: one K4/K5 launch and
@@ -1678,8 +1714,8 @@ def phase22_k9(dev, card, calls, ptxas):
     print(f"Phase 22: K9 (reg_ladder) vs the host loop at every level of Phase 10's "
           f"pyramid [{card}]")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    res = {"levels": {}, "ms": 0.0, "plain_ms": 0.0, "bound": [0.0, 0.0],
-           "max_abs_err": 0.0, "fret_err": 0.0, "faults": []}
+    res = {"levels": {}, "probe_levels": {}, "ms": 0.0, "plain_ms": 0.0,
+           "bound": [0.0, 0.0], "max_abs_err": 0.0, "fret_err": 0.0, "faults": []}
     funcs, res["build_s"] = ptxas.result()
     print(f"  nvcc -Xptxas -v on csrc/reg_ladder.cu alone (beside the library's build): "
           f"{res['build_s']:.1f} s [{card}]")
@@ -1696,15 +1732,21 @@ def phase22_k9(dev, card, calls, ptxas):
                     "body_spilled": len(spilled),
                     "body_registers": max(fn["registers"] or 0 for fn in body),
                     "optimizer_stack_bytes": max(fn.get("stack") or 0 for fn in funcs
-                                                 if not k9_body_path(fn))}
-    for grad, vx, wide in RL.INSTANTIATIONS:
-        at = RL.kernel_attrs(grad, vx, wide)
-        print(f"  stage kernel <{bool(grad)}, {vx}, {'long long' if wide else 'int'}>: "
-              f"{at['registers']} registers, {at['spill_bytes']} B local a thread (the "
-              f"optimizer's frame), {at['static_smem']} B shared, {at['blocks_per_sm']} "
-              f"blocks/SM")
-        if at["blocks_per_sm"] < C.RESIDENT[bool(grad)]:
-            raise AssertionError(f"stage kernel {(grad, vx, wide)} keeps "
+                                                 if not k9_body_path(fn)),
+                    # the six stage kernels over K6's body (BODY 2)
+                    "probe_kernels": {k9_kernel_key(fn): [fn["registers"], fn.get("spill_stores"),
+                                                          fn.get("spill_loads")]
+                                      for fn in body if k9_probe_kernel(fn)}}
+    if len(res["ptxas"]["probe_kernels"]) != 6:
+        raise AssertionError(f"K9's probe stage kernels: {res['ptxas']['probe_kernels']}")
+    for body_id, vx, wide in RL.INSTANTIATIONS:
+        at = RL.kernel_attrs(body_id, vx, wide)
+        print(f"  stage kernel <{body_id}, {vx}, {'long long' if wide else 'int'}> "
+              f"({K9_BODY_NAMES[body_id]}): {at['registers']} registers, {at['spill_bytes']} "
+              f"B local a thread (the optimizer's frame), {at['static_smem']} B shared, "
+              f"{at['blocks_per_sm']} blocks/SM")
+        if at["blocks_per_sm"] < C.RESIDENT[body_id == RL.BODIES["K4"]]:
+            raise AssertionError(f"stage kernel {(body_id, vx, wide)} keeps "
                                  f"{at['blocks_per_sm']} blocks an SM")
     for call in calls:
         label, shape, _secs = call["level"]
@@ -1809,7 +1851,94 @@ def phase22_k9(dev, card, calls, ptxas):
         res["bound"][1] = lvl_bound[1]
         res["max_abs_err"] = max(res["max_abs_err"], float(np.abs(aff - ref[0]).max()))
         res["fret_err"] = max(res["fret_err"], d_f)
+        res["probe_levels"][key] = phase22_probes(call, knobs, sms, card, res)
     return res
+
+
+def phase22_probes(call, knobs, sms, card, res):
+    """Phase 22 at one level with MIL_REG_BATCH_LS=1: the ladder of both
+    engines from the level's recorded start, K9 (its Powell stages over
+    K6's body) against the host loop (one K6 launch and one sync a probe
+    pass), with Phase 22's gates; every traced probe evaluation's sums bit
+    for bit a K6 launch on its matrices; two K9 runs bit for bit; the split
+    of K6's evaluations, the rows against a K6 launch's device time. Adds
+    to ``res["faults"]``; returns the level's numbers per engine."""
+    label, shape, _secs = call["level"]
+    src, tgt = call["src"], call["tgt"]
+    plan = C.launch_plan(shape, False, sms)
+    at = RL.kernel_attrs(RL.BODIES["K6"], plan["vx"], plan["wide"])
+    print(f"  level {label} {shape}: K9's probe stage kernel (K6 body, vx {plan['vx']}): "
+          f"{at['registers']} registers, {at['spill_bytes']} B local a thread, "
+          f"{at['static_smem']} B shared, {at['blocks_per_sm']} blocks/SM for a plan of "
+          f"{plan['blocks']} blocks on {sms} SMs")
+    if at["blocks_per_sm"] * sms < plan["blocks"]:
+        raise AssertionError(f"level {label}: K9's probe blocks are not co-resident")
+    out, k6_ms = {}, None
+    for engine in ("grad", "device"):
+        a = RL.args_of(call, engine=engine, batch_ls=True)
+        kn = list(knobs)
+        kn[5] = engine
+        torch.cuda.synchronize()
+        st, trace = RL.launch(src, tgt, a, trace_cap=K9_TRACE_CAP)
+        n_ev = sum(st.evals)
+        # a probe stage where the ladder has Powell stages: the device
+        # engine's, the grad engine's finisher (off at some levels)
+        probes = engine == "device" or bool(call["finish"])
+        if (n_ev > K9_TRACE_CAP or len(trace) != n_ev or bool(st.evals[2]) != probes
+                or st.evals[0]):
+            raise AssertionError(f"level {label} {engine} batch_ls: evaluations {list(st.evals)},"
+                                 f" {len(trace)} traced")
+        st2, _ = RL.launch(src, tgt, a)
+        if bytes(st) != bytes(st2):
+            raise AssertionError(f"level {label} {engine} batch_ls: two K9 runs differ")
+        bad, eights = 0, None
+        for r in trace:
+            mats, sums = RL.trace_matrices(r)
+            if int(r[0]) == RL.BODIES["K6"]:
+                got = C.corr3d_nprobe(src, tgt, mats).cpu().numpy().reshape(-1)
+                if eights is None and len(mats) == 8:
+                    eights = mats
+            else:
+                got = C.corr3d(src, tgt, mats[0], grad=bool(r[0])).cpu().numpy()
+            bad += not np.array_equal(got.view(np.int64), sums.view(np.int64))
+        if bad:
+            raise AssertionError(f"level {label} {engine} batch_ls: {bad} of {n_ev} "
+                                 "evaluations' sums differ from a K4/K6 launch")
+        if k6_ms is None and eights is not None:
+            k6_ms = call_device_ms(device_split(lambda: C.corr3d_nprobe(src, tgt, eights), 10,
+                                                f"K6 level {label}", card))
+        ref = RG.reg_ladder_host(src, tgt, *kn, batch_ls=True)
+        aff = np.array(st.aff, np.float32)
+        d_ev = abs(st.nev - ref[3]) / ref[3]
+        d_f = abs(float(st.fret) - float(ref[1]))
+        d_m = box_error(aff, ref[0], shape)
+        same = (st.nev == ref[3] and np.float32(st.fret) == ref[1]
+                and np.array_equal(aff, ref[0]))
+        k_s = wall_s(lambda: RL.launch(src, tgt, a), 2)
+        h_s = wall_s(lambda: RG.reg_ladder_host(src, tgt, *kn, batch_ls=True), 1)
+        sp = RL.split_medians(trace, RL.BODIES["K6"])
+        vs = (f"; rows {sp['rows'] / 1e3 / k6_ms:.2f}x an 8-probe K6 launch's device time "
+              f"({k6_ms * 1e3:.1f} us)" if k6_ms and sp["n"] else "")
+        print(f"  level {label} {shape} {engine} batch_ls: K9 {k_s:.4f} s ({st.nev} "
+              f"evaluations: {st.evals[2]} K6 passes, {st.evals[1]} on K4's body; "
+              f"{RL.stage_count(a)} launches), host loop {h_s:.4f} s ({ref[3]} evaluations); "
+              f"NCC {-float(st.fret):.7f} vs {-float(ref[1]):.7f}, matrices {d_m:.4f} voxel "
+              f"apart, bit for bit: {same}; every evaluation's sums bit for bit a K4/K6 "
+              f"launch, two K9 runs bit for bit [{card}]")
+        print(f"  level {label} {shape} {engine} batch_ls: K9 split, medians of {sp['n']} K6 "
+              f"evaluations (us): rows {sp['rows']:.2f} (release {sp['release']:.2f}; other "
+              f"blocks {sp['rows_others']:.2f}, block 0 {sp['rows_block0']:.2f}), hand-over "
+              f"{sp['handover']:.2f}, column sum {sp['colsum']:.2f}, step {sp['step']:.2f}, "
+              f"evaluation {sp['evaluation']:.2f}{vs} [{card}]")
+        if d_ev > K9_EVALS_SLACK or d_f > K9_NCC_TOL or d_m > K9_MATRIX_VOXELS:
+            res["faults"].append(f"level {label} {engine} batch_ls: K9 and the host loop "
+                                 f"disagree (evaluations {100 * d_ev:.1f}% apart, NCC "
+                                 f"{d_f:.3g}, matrices {d_m:.4f} voxel)")
+            print(f"  FAIL: {res['faults'][-1]}")
+        out[engine] = {"ms": k_s * 1e3, "plain_ms": h_s * 1e3, "evals": st.nev,
+                       "k6_passes": st.evals[2], "plain_evals": int(ref[3]),
+                       "bit_for_bit": bool(same), "k6_launch_ms": k6_ms, "split_us": sp}
+    return out
 
 
 def phasor_cases(vol, dev, card):
@@ -2106,21 +2235,25 @@ def zero_counts():
     K.LAUNCHES = KF.LAUNCHES = F.LAUNCHES = P.LAUNCHES = MR.LAUNCHES = 0
     F.LAUNCHES_SPECIALISED = dict.fromkeys("xyz", 0)
     C.K4_LAUNCHES = C.K5_LAUNCHES = C.K6_LAUNCHES = C.PLAIN_CALLS = 0
-    RL.K9_LAUNCHES = RL.K9_EVALS_K4 = RL.K9_EVALS_K5 = 0
-    RG.HOST_LADDERS = RD.HOST_LADDERS = 0
+    RL.K9_LAUNCHES = RL.K9_EVALS_K4 = RL.K9_EVALS_K5 = RL.K9_EVALS_K6 = RL.K9_LINES = 0
+    RG.HOST_LADDERS = RD.HOST_LADDERS = RD.HOST_LINES = 0
 
 
 def counts():
-    """The kernels' launch counters. K4 and K5 count their own launches
-    (the initial cost, the hybrid engine's line searches, the host loop);
-    K9 its stage launches, K9_K4 / K9_K5 the evaluations those launches
-    ran on K4's / K5's body; ladder_plain the ladders run as a host loop,
-    plain the K4/K5 plain-version calls."""
+    """The kernels' launch counters. K4, K5 and K6 count their own launches
+    (the initial cost, the hybrid engine's start and extrapolation points,
+    the host loop); K9 its stage launches (the hybrid engine's lines
+    among them, K9_lines), K9_K4 / K9_K5 / K9_K6 the evaluations those
+    launches ran on K4's / K5's / K6's body (a K6 pass: up to 8 matrices);
+    ladder_plain the ladders run as a host loop, lines_plain the hybrid
+    engine's lines run as a host loop, plain the K4/K5/K6 plain-version
+    calls."""
     return {"K1": K.LAUNCHES, "K2": KF.LAUNCHES, "K3": F.LAUNCHES,
             "K4": C.K4_LAUNCHES, "K5": C.K5_LAUNCHES, "K6": C.K6_LAUNCHES,
             "K7": P.LAUNCHES, "K8": MR.LAUNCHES, "K9": RL.K9_LAUNCHES,
-            "K9_K4": RL.K9_EVALS_K4, "K9_K5": RL.K9_EVALS_K5,
-            "ladder_plain": RG.HOST_LADDERS + RD.HOST_LADDERS, "plain": C.PLAIN_CALLS}
+            "K9_K4": RL.K9_EVALS_K4, "K9_K5": RL.K9_EVALS_K5, "K9_K6": RL.K9_EVALS_K6,
+            "K9_lines": RL.K9_LINES, "ladder_plain": RG.HOST_LADDERS + RD.HOST_LADDERS,
+            "lines_plain": RD.HOST_LINES, "plain": C.PLAIN_CALLS}
 
 
 def on_k9(n):
@@ -2132,9 +2265,18 @@ def on_k9(n):
 
 
 def corr_runs(n, kernel):
-    """Passes of K4's (or K5's) body in a run: its own launches and the
+    """Passes of K4's (K5's, K6's) body in a run: its own launches and the
     evaluations K9 ran on it."""
     return n[kernel] + n[f"K9_{kernel}"]
+
+
+def on_k9_probes(n):
+    """True where a run's batch_ls ladders (MIL_REG_BATCH_LS=1, the grad
+    engine) went through K9 with K6's body: K9 launched, with evaluations
+    on K4's and K6's bodies, no K6 launch of its own, no ladder on the host
+    loop and no plain-version call."""
+    return (n["K9"] > 0 and n["K9_K4"] > 0 and n["K9_K6"] > 0 and not n["K6"]
+            and not n["ladder_plain"] and not n["plain"])
 
 
 FUSED_ON = {"MIL_CONV_SEP_FUSED": "1", "MIL_REG_BATCH_LS": "1"}
@@ -2177,10 +2319,11 @@ def phase14_fusion(dev, card):
               f"[{card}]")
         if decon.shape != FUSION_SHAPE or not np.isfinite(decon).all():
             raise AssertionError(f"({label}) fused volume bad: {decon.shape}")
-        # (a): MIL_REG_BATCH_LS=1 keeps the ladder on the host loop (K6 from
-        # the host, one sync a batch of probes); (b) runs it in K9
-        if label == "a" and (n["K2"] != 2 * N_ITERS or n["K1"] != 0 or n["K6"] < 1
-                             or n["plain"] != 0 or n["K9"] or not n["ladder_plain"]):
+        # (a): MIL_REG_BATCH_LS=1 runs the ladders in K9, the finisher's
+        # line searches on K6's body (no K6 launch of its own, no host-loop
+        # ladder); (b) runs them in K9 over K4/K5's bodies
+        if label == "a" and (n["K2"] != 2 * N_ITERS or n["K1"] != 0
+                             or not on_k9_probes(n)):
             raise AssertionError(f"(a) took the wrong kernels: {n}")
         want = {"separable": (4 * N_ITERS, 0), "K3": (0, 4 * N_ITERS),
                 "torch.fft": (0, 0)}[route_b]
@@ -2242,14 +2385,14 @@ def phase14_fusion(dev, card):
     del otfs, reg_b
     torch.cuda.empty_cache()
     k6_shapes = reg_levels(dev, a_raw, b_raw, card)
-    return ({"k2": n_a["K2"], "k6": n_a["K6"], "k6_shapes": k6_shapes,
+    return ({"k2": n_a["K2"], "k6": n_a["K6"], "k9_k6": n_a["K9_K6"], "k6_shapes": k6_shapes,
              "tmx_b": runs_b_tmx, "ncc_b": runs_b_ncc}, (a_raw, b_raw))
 
 
 def reg_levels(dev, a_raw, b_raw, card):
     """Per pyramid level of the fusion's registration: syncs, evaluations
-    and host share, with K6 (MIL_REG_BATCH_LS=1) and without. Returns the
-    shapes of the levels where K6 launched."""
+    and host share, with K6's body (MIL_REG_BATCH_LS=1) and without.
+    Returns the shapes of the levels where K6's body ran (in K9)."""
     a_iso, b_iso = FU.preprocess_views(a_raw, b_raw, FUSION_PIXEL, FUSION_PIXEL, -1,
                                        dev, as_device=True)
     k6_shapes = []
@@ -2273,8 +2416,8 @@ def reg_levels(dev, a_raw, b_raw, card):
             d = {k: n[k] - prev[k] for k in n}
             prev = n
             # K9 evaluations count with their bodies; a K9 ladder syncs once
-            d4, d5, d6 = corr_runs(d, "K4"), corr_runs(d, "K5"), d["K6"]
-            syncs = d["K4"] + d["K5"] + d6 + (d["K9"] > 0)
+            d4, d5, d6 = corr_runs(d, "K4"), corr_runs(d, "K5"), corr_runs(d, "K6")
+            syncs = d["K4"] + d["K5"] + d["K6"] + (d["K9"] > 0)
             if d6:
                 k6_shapes.append(tuple(shape))
             factor = tuple(s // t for s, t in zip(FUSION_SHAPE, shape))
@@ -2287,8 +2430,9 @@ def reg_levels(dev, a_raw, b_raw, card):
                                         ("K5", lambda: C.corr3d(src, tgt, m, grad=False)),
                                         ("K6", lambda: C.corr3d_nprobe(src, tgt, eight))))
             kern_ms = d4 * t4 + d5 * t5 + d6 * t6
-            print(f"    level {name} {shape}: {syncs} syncs, {d4 + d5 + 8 * d6} "
-                  f"evaluations ({d4} K4, {d5} K5, {d6} K6 x 8; {d['K9']} K9 launches), "
+            print(f"    level {name} {shape}: {syncs} syncs, {d4 + d5 + d6} passes "
+                  f"({d4} K4, {d5} K5, {d6} K6 of up to 8 matrices; {d['K9']} K9 "
+                  f"launches), "
                   f"{secs:.3f} s, kernel "
                   f"{kern_ms:.3f} ms, host share {1 - kern_ms / 1e3 / secs:.3f} (device "
                   f"K4 {t4:.4f}, K5 {t5:.4f}, K6 {t6:.4f} ms per launch) [{card}]")
@@ -2300,7 +2444,7 @@ def reg_levels(dev, a_raw, b_raw, card):
 
 def phase15_fusion_cli(views, card):
     """spimFusion CLI on the Phase 14 views as 16-bit TIFFs, -bit 16 -otmx,
-    with K2 and K6 on."""
+    with K2 and K6's body on (MIL_REG_BATCH_LS=1: in K9)."""
     print(f"Phase 15: spimFusion CLI, raw {FUSION_RAW[2]} x {FUSION_RAW[1]} x "
           f"{FUSION_RAW[0]} 16-bit TIFFs, -bit 16 -otmx, K2 and K6 on")
     pa, pb = fusion_psfs()
@@ -2333,7 +2477,8 @@ def phase15_fusion_cli(views, card):
               f"launches {n}, matrix {err:.4f} voxel from the true one [{card}]")
         if out.shape != FUSION_SHAPE or out.dtype != np.uint16 or not out.any():
             raise AssertionError(f"spimFusion output {out.shape} {out.dtype}")
-        if n["K2"] != 2 * N_ITERS or n["K6"] < 1 or n["K1"] or n["plain"]:
+        # the ladders in K9, the finisher's line searches on K6's body
+        if n["K2"] != 2 * N_ITERS or n["K1"] or not on_k9_probes(n):
             raise AssertionError(f"spimFusion took the wrong kernels: {n}")
     torch.cuda.empty_cache()
 
@@ -3111,7 +3256,7 @@ def phase18_beyond_hbm(dev, card, main14, views):
     block_peak_factors(dev, moved, vol, tmx2, card)
     del vol, moved
 
-    hybrid_vs_grad(dev, card)
+    bhbm["hybrid_lines"] = hybrid_vs_grad(dev, card)
     phase18_fusion_cli(dev, card, main14, views)
     return bhbm
 
@@ -3119,30 +3264,58 @@ def phase18_beyond_hbm(dev, card, main14, views):
 def hybrid_vs_grad(dev, card):
     """Phase 18 (c): ``reg3d`` (choice 2, method 7, the automatic pyramid)
     on Phase 10's pair at HYBRID_SHAPE with the ``hybrid`` engine against
-    the ``grad`` engine."""
+    the ``grad`` engine: every line minimization of the hybrid engine one
+    K9 launch (K9_lines) and one sync, K5 launched only for its start and
+    extrapolation points (cost_eval_reg_device) and each level's initial
+    cost. Returns the hybrid run's K9 lines."""
     true_m = dof_to_matrix(REG_DOF, 6)
     vol_d = beads(HYBRID_SHAPE, SEED, dev)
     moved_d = affine_transform_3d(vol_d, true_m, HYBRID_SHAPE)
     found = {}
+    orig_eval = R.cost_eval_reg_device
     for engine in ("grad", "hybrid"):
+        evals, levels = [0], []
+
+        def cost_eval(*a, **kw):
+            evals[0] += 1
+            return orig_eval(*a, **kw)
+
+        R.cost_eval_reg_device = cost_eval
         zero_counts()
+        torch.cuda.synchronize()
         t = time.time()
-        _, tmx, rec = R.reg3d(vol_d, moved_d, 2, 7, engine=engine, device=dev,
-                              mem_mode=1, want_reg=False)
+        try:
+            _, tmx, rec = R.reg3d(vol_d, moved_d, 2, 7, engine=engine, device=dev,
+                                  mem_mode=1, want_reg=False,
+                                  on_level=lambda *a: levels.append(a))
+        finally:
+            R.cost_eval_reg_device = orig_eval
+        torch.cuda.synchronize()
+        wall = time.time() - t
         n = counts()
-        found[engine] = (tmx, rec[3], n)
+        found[engine] = (tmx, rec[3], n, evals[0], len(levels))
+        lines = n["K9_lines"]
+        syncs = (n["K4"] + n["K5"] + n["K6"] + n["K9_lines"]
+                 + (n["K9"] - n["K9_lines"] > 0) * len(levels))
         print(f"  (c) reg3d engine {engine} at {HYBRID_SHAPE}, method 7, pyramid: "
-              f"{time.time() - t:.3f} s, NCC {rec[3]:.6f}, {int(rec[5])} evaluations at "
-              f"full resolution, launches {n} [{card}]")
-    (tmx_g, ncc_g, _), (tmx_h, ncc_h, n_h) = found["grad"], found["hybrid"]
+              f"{wall:.3f} s, NCC {rec[3]:.6f}, {int(rec[5])} evaluations at full "
+              f"resolution, {lines} K9 lines ({n['K9_K5']} evaluations in them, "
+              f"{n['K9_K5'] / max(lines, 1):.1f} a line), {evals[0]} single evaluations "
+              f"(cost_eval_reg_device), {syncs} syncs in all (a K9 line: one launch, one "
+              f"sync), launches {n} [{card}]")
+    (tmx_g, ncc_g, _, _, _), (tmx_h, ncc_h, n_h, ev_h, lv_h) = found["grad"], found["hybrid"]
     apart = box_error(tmx_h, tmx_g, HYBRID_SHAPE)
     print(f"  (c) hybrid vs grad: NCC {ncc_h:.6f} vs {ncc_g:.6f}, matrices {apart:.4f} "
           "voxel apart")
-    if (abs(ncc_h - ncc_g) > 1e-3 or apart > 0.5 or n_h["K5"] < 1 or n_h["K4"]
-            or n_h["K9"] or n_h["plain"]):
-        raise AssertionError("(c) the hybrid engine disagrees with the grad engine")
+    if (abs(ncc_h - ncc_g) > 1e-3 or apart > 0.5 or n_h["K4"] or n_h["plain"]
+            or n_h["K9_lines"] < 1 or n_h["lines_plain"] or n_h["K9"] != n_h["K9_lines"]
+            or n_h["K9_K4"] or n_h["K9_K6"] or n_h["K6"] or n_h["ladder_plain"]
+            or not 0 < n_h["K5"] - ev_h <= LEVEL_HOST_CALLS * lv_h):
+        raise AssertionError(f"(c) the hybrid engine disagrees with the grad engine or "
+                             f"took the wrong kernels: {n_h}, {ev_h} single evaluations")
     del vol_d, moved_d
     torch.cuda.empty_cache()
+    return n_h["K9_lines"]
 
 
 def phase18_fusion_cli(dev, card, main14, views):

@@ -4,7 +4,8 @@ flag-compatible with the reference app (reference:src/spim_fusion.cpp:
 (or ``-gm -1`` beyond the device memory budget) takes the registration's
 and the decon's host-staged streaming tiers.
 ``MIL_CONV_SEP_FUSED=1`` runs the decon's iterations on K2 and
-``MIL_REG_BATCH_LS=1`` the registration finisher's line searches on K6.
+``MIL_REG_BATCH_LS=1`` the registration finisher's line searches on K6's
+body (inside K9's ladder on the card).
 
     python -m microimagelib_tpu_torch.cli.spim_fusion -i1 a.tif -i2 b.tif -fp1 pa.tif -fp2 pb.tif -o fused.tif -otmx b.tmx
 """

@@ -84,15 +84,14 @@
 // allocate nothing: the wrapper passes a workspace (a zeroed ticket, then
 // blocks x values doubles) it keeps per device and stream, and `out`.
 //
-// The plan, the task walk, the gather, the per-block body of K4/K5
-// (corr_block) and the reductions live in corr_body.cuh, which K9
-// (reg_ladder.cu) includes too: its evaluations run the same body.
+// The plan, the task walk, the gather, the per-block bodies of K4/K5
+// (corr_block) and K6 (corr_nprobe_block_with) and the reductions live in
+// corr_body.cuh, which K9 (reg_ladder.cu) includes too: its evaluations run
+// the same bodies.
 
 #include "corr_body.cuh"
 
 namespace {
-
-constexpr int kMaxProbes = 8;       // matrices per K6 launch (the ladder's 8)
 
 struct MatN {
   float m[kMaxProbes * 12];
@@ -112,60 +111,16 @@ corr_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   if (threadIdx.x == 0) *ticket = 0u;
 }
 
-// K6: K5's step with an inner loop over the n <= kMaxProbes matrices; each
-// matrix's operations in K5's order (its voxels one after the other, which
-// gives K5's sums: only the load schedule differs). K5's residency, so
-// K5's plan is one wave here too. Partial column 2i + k holds probe i's
-// value k.
+// K6: K5's sums for n <= kMaxProbes matrices in one pass
+// (corr_body.cuh::corr_nprobe_block_with). K5's residency, so K5's plan is
+// one wave here too. Partial column 2i + k holds probe i's value k.
 template <int VX, typename IDX>
 __global__ void __launch_bounds__(kThreads, kResidentSums)
 corr_nprobe_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
                    unsigned* __restrict__ ticket, double* __restrict__ partials,
                    double* __restrict__ out, MatN mats, int n, Geo g) {
-  float acc[kMaxProbes][2];
-#pragma unroll
-  for (int i = 0; i < kMaxProbes; ++i) acc[i][0] = acc[i][1] = 0.f;
-
-  const int lane = threadIdx.x & 31;
-  int z, y, seg;
-  const int nsteps = first_task(g, blockIdx.x, z, y, seg);
-
-  for (int k = 0; k < nsteps; ++k) {
-    const float yf = static_cast<float>(y), zf = static_cast<float>(z);
-    const int xb = seg * (32 * VX) + lane;
-    const float* tp = tgt + (static_cast<IDX>(z) * g.sy + y) * static_cast<IDX>(g.sx) + xb;
-    float t[VX];
-#pragma unroll
-    for (int j = 0; j < VX; ++j)
-      if (xb + 32 * j < g.sx) t[j] = __ldg(tp + 32 * j);
-#pragma unroll
-    for (int i = 0; i < kMaxProbes; ++i) {
-      if (i >= n) break;
-      const float* m = mats.m + 12 * i;
-      float kr[3];
-      row_coords(m, yf, zf, kr);
-#pragma unroll
-      for (int j = 0; j < VX; ++j) {
-        const int x = xb + 32 * j;
-        float c[8], fr[3];
-        if (x >= g.sx || !gather<IDX>(src, m, kr, static_cast<float>(x), g, c, fr)) continue;
-        const float s = lerp(lerp(lerp(c[0], c[1], fr[0]), lerp(c[2], c[3], fr[0]), fr[1]),
-                             lerp(lerp(c[4], c[5], fr[0]), lerp(c[6], c[7], fr[0]), fr[1]),
-                             fr[2]);
-        acc[i][0] = __fmaf_rn(s, s, acc[i][0]);
-        acc[i][1] = __fmaf_rn(s, t[j], acc[i][1]);
-      }
-    }
-    next_task(g, z, y, seg);
-  }
-
-  double d[2 * kMaxProbes];
-#pragma unroll
-  for (int i = 0; i < kMaxProbes; ++i) {
-    d[2 * i] = static_cast<double>(acc[i][0]);
-    d[2 * i + 1] = static_cast<double>(acc[i][1]);
-  }
-  block_sum<2 * kMaxProbes>(d, 2 * n, partials + blockIdx.x, gridDim.x);
+  corr_nprobe_block_with<VX, IDX, const float*>(src, tgt, mats.m, n, g, blockIdx.x,
+                                                partials + blockIdx.x, gridDim.x);
   if (!last_block(ticket)) return;
   sum_columns<2 * kMaxProbes>(partials, gridDim.x, 2 * n, out);
   if (threadIdx.x == 0) *ticket = 0u;

@@ -1,10 +1,10 @@
-// The per-block body of K4 and K5 (the fused affine resample + NCC sums,
-// csrc/corr.cu) and what it needs: the launch plan (make_plan, mirrored in
-// kernels/corr.py::launch_plan), the task walk, the gather, the block's
-// fixed-order float64 reduction and the last block's column sum. Included
-// by corr.cu (K4, K5, K6) and reg_ladder.cu (K9), so every K9 evaluation
-// computes a K4/K5 launch's block rows and column sums bit for bit. The
-// design notes are corr.cu's and reg_ladder.cu's.
+// The per-block bodies of K4, K5 and K6 (the fused affine resample + NCC
+// sums, csrc/corr.cu) and what they need: the launch plan (make_plan,
+// mirrored in kernels/corr.py::launch_plan), the task walk, the gather, the
+// block's fixed-order float64 reduction and the last block's column sum.
+// Included by corr.cu (K4, K5, K6) and reg_ladder.cu (K9), so every K9
+// evaluation computes a K4/K5/K6 launch's block rows and column sums bit
+// for bit. The design notes are corr.cu's and reg_ladder.cu's.
 
 #pragma once
 
@@ -23,6 +23,7 @@ constexpr int kResidentSums = 6;
 constexpr int kResidentGrad = 4;
 constexpr int kMinBlocksPerSm = 2;  // the fill the plan aims for
 constexpr long long kMaxBlocks = 2147483647;
+constexpr int kMaxProbes = 8;       // matrices per K6 pass (the line search's 8)
 
 struct Mat {
   float m[12];
@@ -379,6 +380,88 @@ __device__ __forceinline__ void corr_block_with(const float* __restrict__ src,
 #pragma unroll
   for (int k = 0; k < NV; ++k) d[k] = static_cast<double>(acc[k]);
   block_sum<NV>(d, NV, partials, stride);
+}
+
+// K9's matrices for corr_nprobe_block_with: up to kMaxProbes matrices of
+// SharedMat's 16 floats in shared memory.
+struct SharedMats {
+  const float* m;
+  __device__ __forceinline__ SharedMat at(int i) const { return SharedMat{m + 16 * i}; }
+};
+
+// One matrix's step of K6's body: K5's ss and st of the step's VX voxels
+// added to acc, the targets t read once for all the matrices.
+template <int VX, typename IDX>
+__device__ __forceinline__ void nprobe_matrix(const float* __restrict__ src, const float* m,
+                                              float yf, float zf, int xb, const float (&t)[VX],
+                                              const Geo& g, float (&acc)[2]) {
+  float kr[3];
+  row_coords(m, yf, zf, kr);
+#pragma unroll
+  for (int j = 0; j < VX; ++j) {
+    const int x = xb + 32 * j;
+    float c[8], fr[3];
+    if (x >= g.sx || !gather<IDX>(src, m, kr, static_cast<float>(x), g, c, fr)) continue;
+    const float s = lerp(lerp(lerp(c[0], c[1], fr[0]), lerp(c[2], c[3], fr[0]), fr[1]),
+                         lerp(lerp(c[4], c[5], fr[0]), lerp(c[6], c[7], fr[0]), fr[1]), fr[2]);
+    acc[0] = __fmaf_rn(s, s, acc[0]);
+    acc[1] = __fmaf_rn(s, t[j], acc[1]);
+  }
+}
+
+// One block's share of K6: K5's ss and st for each of n <= kMaxProbes
+// matrices in one pass, K5's step with an inner loop over the matrices,
+// each matrix's operations in K5's order (its voxels one after the other,
+// which gives K5's sums: only the load schedule differs); the target voxel
+// is read once for all of them. Partial column 2i + k holds matrix i's
+// value k (k = 0: ss, 1: st), at partials[(2i + k) * stride]. MATS is
+// `const float*` (K6, corr.cu: the kernel parameter, 12 floats a matrix) or
+// SharedMats (K9, reg_ladder.cu). Every thread of the block must call it.
+template <int VX, typename IDX, class MATS>
+__device__ __forceinline__ void corr_nprobe_block_with(const float* __restrict__ src,
+                                                       const float* __restrict__ tgt,
+                                                       MATS mats, int n, const Geo& g,
+                                                       long long block,
+                                                       double* __restrict__ partials,
+                                                       size_t stride) {
+  constexpr bool kShared = !std::is_same<MATS, const float*>::value;
+  float acc[kMaxProbes][2];
+#pragma unroll
+  for (int i = 0; i < kMaxProbes; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  const int lane = threadIdx.x & 31;
+  int z, y, seg;
+  const int nsteps = first_task(g, block, z, y, seg);
+
+  for (int k = 0; k < nsteps; ++k) {
+    const float yf = static_cast<float>(y), zf = static_cast<float>(z);
+    const int xb = seg * (32 * VX) + lane;
+    const float* tp = tgt + (static_cast<IDX>(z) * g.sy + y) * static_cast<IDX>(g.sx) + xb;
+    float t[VX];
+#pragma unroll
+    for (int j = 0; j < VX; ++j)
+      if (xb + 32 * j < g.sx) t[j] = __ldg(tp + 32 * j);
+#pragma unroll
+    for (int i = 0; i < kMaxProbes; ++i) {
+      if (i >= n) break;
+      if constexpr (kShared) {
+        float m[12];
+        mats.at(i).row(m);
+        nprobe_matrix<VX, IDX>(src, m, yf, zf, xb, t, g, acc[i]);
+      } else {
+        nprobe_matrix<VX, IDX>(src, mats + 12 * i, yf, zf, xb, t, g, acc[i]);
+      }
+    }
+    next_task(g, z, y, seg);
+  }
+
+  double d[2 * kMaxProbes];
+#pragma unroll
+  for (int i = 0; i < kMaxProbes; ++i) {
+    d[2 * i] = static_cast<double>(acc[i][0]);
+    d[2 * i + 1] = static_cast<double>(acc[i][1]);
+  }
+  block_sum<2 * kMaxProbes>(d, 2 * n, partials, stride);
 }
 
 // K4/K5's body: the matrix a kernel parameter.

@@ -9,7 +9,9 @@
 //     steps);
 //   * mnbrak / brent / linmin / powell_minimize: ops/powell_device.py
 //     (GOLD, GLIMIT, TINY, MNBRAK_MAX 60, brent ITMAX 100 at tol 0.01 with
-//     the q == 0 escape, `max_sweeps`);
+//     the q == 0 escape, `max_sweeps`); linmin_nprobe, the batched line
+//     search of 8 probes a call (_linmin_nprobe: LS_LADDER, 3 refine
+//     rounds), which powell_minimize takes where a batched cost is given;
 //   * the shared rules: the cost >= 1.001 abort and the `it_limit` cap on
 //     evaluations, checked where the host loop checks them;
 //   * dof_to_matrix / params_to_matrix / matrix_to_params and the
@@ -19,8 +21,10 @@
 //   * the NCC cost and its gradient from the float64 sums of K4/K5
 //     (models/registration_grad.py::_make_cost_grad_m, _stage_vg), and
 //   * the affMethod 1-7 ladder of both engines (models/registration_grad.py
-//     ::reg_ladder_grad, models/registration_device.py::reg_ladder_device)
-//     as a list of stages.
+//     ::reg_ladder_grad, models/registration_device.py::reg_ladder_device),
+//     with or without `batch_ls`, as a list of stages, and the hybrid
+//     engine's single line minimization (linmin_reg_device) as a ladder of
+//     one line stage.
 // The JAX package runs the same control flow as lax loops inside one jit
 // (microimagelib_tpu/ops/lbfgs.py, ops/powell_device.py). Every value is a
 // float32 as there; the cost and its gradient are formed in float64 from
@@ -34,10 +38,14 @@
 // below 1 rad.
 //
 // The optimizers are templated on the cost: `float operator()(const float*
-// p)` for Powell, `float operator()(const float* p, float* g)` for L-BFGS.
-// The ladder is templated on an evaluator of the sums, `void operator()(
-// const float* m12, bool grad, double* sums)` with sums = ss, st and, with
-// `grad`, gs(12) and gt(12) (K5 / K4's packed result).
+// p)` for Powell, `float operator()(const float* p, float* g)` for L-BFGS,
+// and the batched cost `void operator()(const float* ps, int n, float* f)`
+// (n points, rows of kMaxN floats) for the probe line search. The ladder is
+// templated on an evaluator of the sums, `void operator()(const float* m12,
+// bool grad, double* sums)` with sums = ss, st and, with `grad`, gs(12)
+// and gt(12) (K5 / K4's packed result), and `void probes(const float* m12s,
+// int n, double* sums)` with sums = ss, st of each of n <= kProbes matrices
+// (K6's packed result), which every evaluation of a probe stage takes.
 
 #pragma once
 
@@ -70,6 +78,9 @@ constexpr int kBrentItmax = 100;
 constexpr int kPowellItmax = 100;
 constexpr int kMnbrakMax = 60;
 constexpr float kLinminTol = 0.01f;
+// the probe line search (ops/powell_device.py LS_LADDER, LS_REFINE_ROUNDS)
+constexpr int kProbes = 8;
+constexpr int kLsRefineRounds = 3;
 
 MIL_HD inline float qnan() {
   union {
@@ -482,12 +493,119 @@ MIL_HD int linmin(C& cost, int n, float* p, float* xi, float& fmin) {
   return nev1 + nev2;
 }
 
+// LS_LADDER as float32 (np.array(LS_LADDER, np.float32)).
+MIL_HD inline float ls_ladder(int i) {
+  const float t[kProbes] = {-2.618f, -1.0f, -0.382f, 0.382f, 1.0f, 1.618f, 2.618f, 4.236f};
+  return t[i];
+}
+
+// numpy's argmin of n float32 values: the first minimum, or the first NaN.
+MIL_HD inline int argmin_np(const float* f, int n) {
+  int b = 0;
+  for (int i = 0; i < n; ++i) {
+    if (f[i] != f[i]) return i;
+    if (f[i] < f[b]) b = i;
+  }
+  return b;
+}
+
+// The probes p + al[i] xi (the product rounded, then the sum, as numpy
+// forms p[None] + al[:, None] * xi[None]) through the batched cost.
+template <class CB>
+MIL_HD void probe_line(CB& cost_batch, int n, const float* p, const float* xi,
+                       const float* al, float* f) {
+  float ps[kProbes][kMaxN];
+  for (int i = 0; i < kProbes; ++i)
+    for (int j = 0; j < n; ++j) ps[i][j] = p[j] + al[i] * xi[j];
+  cost_batch(&ps[0][0], kProbes, f);
+}
+
+// The batched line search (_linmin_nprobe): one round of the golden ladder
+// around alpha = 0 (the incoming point, cost fret, a candidate too), then
+// kLsRefineRounds rounds of a grid over the bracket, expanded golden-style
+// past an edge where the best probe sits on it. p += xb xi, xi *= xb, fret
+// the best cost. Returns the evaluations (kProbes a round).
+template <class CB>
+MIL_HD int linmin_nprobe(CB& cost_batch, int n, float* p, float* xi, float& fret) {
+  constexpr int kAll = kProbes + 1;
+  const float denom = static_cast<float>(kAll);
+  float al[kProbes], fv[kProbes];
+  for (int i = 0; i < kProbes; ++i) al[i] = ls_ladder(i);
+  probe_line(cost_batch, n, p, xi, al, fv);
+  // alpha = 0 first, then the ladder; numpy's stable argsort of the alphas
+  float all_a[kAll], all_f[kAll];
+  int order[kAll];
+  all_a[0] = 0.f;
+  all_f[0] = fret;
+  for (int i = 0; i < kProbes; ++i) {
+    all_a[i + 1] = al[i];
+    all_f[i + 1] = fv[i];
+  }
+  for (int i = 0; i < kAll; ++i) order[i] = i;
+  for (int i = 1; i < kAll; ++i)
+    for (int j = i; j > 0 && all_a[order[j - 1]] > all_a[order[j]]; --j) {
+      const int t = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = t;
+    }
+  float a_s[kAll], f_s[kAll];
+  for (int i = 0; i < kAll; ++i) {
+    a_s[i] = all_a[order[i]];
+    f_s[i] = all_f[order[i]];
+  }
+  const int b = argmin_np(f_s, kAll);
+  float lo = b > 0 ? a_s[b - 1] : a_s[0] - (a_s[1] - a_s[0]) * kGold;
+  float hi = b < kAll - 1 ? a_s[b + 1] : a_s[kAll - 1] + (a_s[kAll - 1] - a_s[kAll - 2]) * kGold;
+  float xb = a_s[b], fb = f_s[b];
+  int nev = kProbes;
+  float steps[kProbes];
+  for (int i = 0; i < kProbes; ++i) steps[i] = static_cast<float>(i + 1) / denom;
+  for (int r = 0; r < kLsRefineRounds; ++r) {
+    float grid[kProbes];
+    for (int i = 0; i < kProbes; ++i) grid[i] = lo + (hi - lo) * steps[i];
+    probe_line(cost_batch, n, p, xi, grid, fv);
+    const int gb = argmin_np(fv, kProbes);
+    const bool better = fv[gb] < fb;
+    if (better) {
+      xb = grid[gb];
+      fb = fv[gb];
+    }
+    const float width = hi - lo;
+    const float stepw = width / denom;
+    // best on an edge: expand golden-style past it instead of shrinking
+    const float lo2 = better && gb == 0 ? lo - width * kGold : xb - stepw;
+    hi = better && gb == kProbes - 1 ? hi + width * kGold : xb + stepw;
+    lo = lo2;
+    nev += kProbes;
+  }
+  for (int i = 0; i < n; ++i) {
+    xi[i] = xi[i] * xb;
+    p[i] = p[i] + xi[i];
+  }
+  fret = fb;
+  return nev;
+}
+
+// No batched cost: Powell's line searches are linmin's.
+struct NoBatch {
+  MIL_HD void operator()(const float*, int, float*) {}
+};
+
+// A line search along xit from p: the probe search over cost_batch where
+// one is given (fret in: the cost at p), else linmin over cost.
+template <class C, class CB>
+MIL_HD int powell_line(C& cost, CB* cost_batch, int n, float* p, float* xit, float& fret) {
+  if (cost_batch != nullptr) return linmin_nprobe(*cost_batch, n, p, xit, fret);
+  return linmin(cost, n, p, xit, fret);
+}
+
 // Powell's direction-set search over n <= kMaxN parameters from p (in
-// place). max_sweeps <= 0 runs to Powell's own ftol convergence. nev as
-// for lbfgs_minimize. Returns f at p.
-template <class C>
-MIL_HD float powell_minimize(C& cost, int n, float* p, float ftol, int it_limit, int& nev,
-                             int max_sweeps) {
+// place), its line searches the probe search where cost_batch is given.
+// max_sweeps <= 0 runs to Powell's own ftol convergence. nev as for
+// lbfgs_minimize. Returns f at p.
+template <class C, class CB>
+MIL_HD float powell_minimize(C& cost, CB* cost_batch, int n, float* p, float ftol,
+                             int it_limit, int& nev, int max_sweeps) {
   const int itmax = max_sweeps <= 0 ? kPowellItmax
                                     : (max_sweeps < kPowellItmax ? max_sweeps : kPowellItmax);
   float fret = cost(p);
@@ -507,7 +625,7 @@ MIL_HD float powell_minimize(C& cost, int n, float* p, float ftol, int it_limit,
     for (int i = 0; i < n && !stop; ++i) {
       for (int j = 0; j < n; ++j) xit[j] = xi[i][j];
       const float fptt = fret;
-      nev += linmin(cost, n, p, xit, fret);
+      nev += powell_line(cost, cost_batch, n, p, xit, fret);
       for (int j = 0; j < n; ++j) xi[i][j] = xit[j];
       if (fabsf(fptt - fret) > delta) {
         delta = fabsf(fptt - fret);
@@ -528,7 +646,7 @@ MIL_HD float powell_minimize(C& cost, int n, float* p, float ftol, int it_limit,
         const float a = fp - fret - delta, b = fp - fptt;
         const float t = 2.0f * (fp - 2.0f * fret + fptt) * (a * a) - delta * (b * b);
         if (t < 0.f) {
-          nev += linmin(cost, n, p, xit, fret);
+          nev += powell_line(cost, cost_batch, n, p, xit, fret);
           for (int j = 0; j < n; ++j) {
             xi[ibig][j] = xi[n - 1][j];
             xi[n - 1][j] = xit[j];
@@ -539,6 +657,13 @@ MIL_HD float powell_minimize(C& cost, int n, float* p, float ftol, int it_limit,
     done = stop || converged || nev >= it_limit || fret >= kCostAbort;
   }
   return fret;
+}
+
+template <class C>
+MIL_HD float powell_minimize(C& cost, int n, float* p, float ftol, int it_limit, int& nev,
+                             int max_sweeps) {
+  return powell_minimize(cost, static_cast<NoBatch*>(nullptr), n, p, ftol, it_limit, nev,
+                         max_sweeps);
 }
 
 // ---------------------------------------------------------------------------
@@ -760,17 +885,21 @@ MIL_HD inline float ncc_cost_grad(const double* s, double sd_t, float* gm) {
 
 // The ladder's inputs; kernels/reg_ladder.py::LadderArgs mirrors the layout.
 struct LadderArgs {
-  float p_init[12];    // the initial matrix parameters (affMethod 5)
+  float p_init[12];    // the initial matrix parameters (affMethod 5); the line's start
+  float xi[12];        // the line's direction (engine 2)
   float ftol;
   float s_lin;         // preconditioning of linear entries: 2 / mean extent
   double sd_t;         // the target's SD (sqrt of its energy)
   int aff_method;      // 1..7
-  int engine;          // 0: grad (L-BFGS stages, optional Powell finisher); 1: device (Powell)
+  int engine;          // 0: grad (L-BFGS stages, optional Powell finisher); 1: device
+                       // (Powell); 2: one line minimization (the hybrid engine's)
   int finish;          // grad: end with the Powell finisher
   int finish_sweeps;   // the finisher's sweep cap; <= 0: run to Powell's ftol
   int it_limit;        // the evaluation cap shared by the stages
   int ls_max_iters;    // L-BFGS steps a stage
   int ls_patience;     // L-BFGS ftol-stall patience
+  int batch_ls;        // Powell's line searches probe kProbes points a call (K6's sums)
+  int line_ndof;       // engine 2: the line's parameters, 3, 6, 7, 9 or 12
   int pad;
 };
 
@@ -779,80 +908,101 @@ struct LadderArgs {
 struct LadderState {
   float p[12];            // the point, in the parameters of the last stage run
   float aff[12];          // the final matrix (set by ladder_finish)
+  float xi[12];           // engine 2: the line's direction scaled by its step
   float stage_costs[4];   // the cost after each ladder step (NaN where none)
   float fret;
   int ndof;               // parameters of p: 3, 6, 7, 9 (DOF vector) or 12
-  int nev;                // evaluations so far (the it_limit count)
+  int nev;                // evaluations so far (the it_limit count; a probe round 8)
   int stage;              // stages run
-  int evals[2];           // evaluations on the K5 sums, on the K4 sums
+  int evals[3];           // passes of the K5, the K4 and the K6 sums
   int error;              // 0, or the first error a stage met
-  int pad;
 };
 
+// The sums a stage evaluates: Powell over K5's, L-BFGS over K4's, Powell
+// with the probe line search over K6's (every evaluation, the single ones
+// too: K6's sums of one matrix are K5's).
+constexpr int kBodyK5 = 0;
+constexpr int kBodyK4 = 1;
+constexpr int kBodyK6 = 2;
+constexpr int kEngineLine = 2;
+
 struct Stage {
-  int lbfgs;        // 1: L-BFGS over K4's sums; 0: Powell over K5's
+  int body;         // kBodyK5, kBodyK4 or kBodyK6
   int ndof;         // 3, 6, 7, 9 or 12
   float ftol;
   int slot;         // stage_costs slot
   int max_sweeps;   // Powell's sweep cap (<= 0: none)
+  int line;         // 1: one line minimization from p_init along xi (on K5's sums)
 };
 
 constexpr int kMaxStages = 5;
 
+MIL_HD inline bool valid_ndof(int n) { return n == 3 || n == 6 || n == 7 || n == 9 || n == 12; }
+
 // The stages of the ladder (models/registration_grad.py:80-184 for engine
-// 0, models/registration_device.py:198-259 for engine 1). Returns their
-// count, 0 for an unknown method or engine.
+// 0, models/registration_device.py:198-259 for engine 1; batch_ls: the
+// Powell stages over K6's sums, engine 0's finisher alone), or the line
+// stage (engine 2, models/registration_device.py::linmin_reg_device).
+// Returns their count, 0 for an unknown method, engine or line.
 MIL_HD inline int ladder_stages(const LadderArgs& a, Stage* st) {
-  const int m = a.aff_method;
-  if (m < 1 || m > 7 || a.engine < 0 || a.engine > 1) return 0;
-  const int lb = a.engine == 0 ? 1 : 0;
   int n = 0;
-  auto add = [&](int lbfgs, int ndof, float ftol, int slot, int sweeps) {
-    st[n].lbfgs = lbfgs;
+  auto add = [&](int body, int ndof, float ftol, int slot, int sweeps, int line) {
+    st[n].body = body;
     st[n].ndof = ndof;
     st[n].ftol = ftol;
     st[n].slot = slot;
     st[n].max_sweeps = sweeps;
+    st[n].line = line;
     ++n;
   };
+  if (a.engine == kEngineLine) {
+    if (valid_ndof(a.line_ndof)) add(kBodyK5, a.line_ndof, a.ftol, 0, 0, 1);
+    return n;
+  }
+  const int m = a.aff_method;
+  if (m < 1 || m > 7 || a.engine < 0 || a.engine > 1) return 0;
+  const int pw = a.batch_ls ? kBodyK6 : kBodyK5;
+  const int lb = a.engine == 0 ? kBodyK4 : pw;
   int last_slot = 0, last_ndof = 12;
   if (m <= 4) {
     last_ndof = m == 1 ? 3 : m == 2 ? 6 : m == 3 ? 7 : 9;
-    add(lb, last_ndof, a.ftol, 0, 0);
+    add(lb, last_ndof, a.ftol, 0, 0, 0);
   } else if (m == 5) {
-    add(lb, 12, a.ftol, 0, 0);
+    add(lb, 12, a.ftol, 0, 0, 0);
   } else if (m == 6) {
-    add(lb, 6, 0.01f, 0, 0);
-    add(lb, 12, a.ftol, 1, 0);
+    add(lb, 6, 0.01f, 0, 0, 0);
+    add(lb, 12, a.ftol, 1, 0, 0);
     last_slot = 1;
   } else {
-    add(lb, 3, 0.01f, 0, 0);
-    add(lb, 6, 0.01f, 1, 0);
-    add(lb, 9, 0.005f, 2, 0);
-    add(lb, 12, a.ftol, 3, 0);
+    add(lb, 3, 0.01f, 0, 0, 0);
+    add(lb, 6, 0.01f, 1, 0, 0);
+    add(lb, 9, 0.005f, 2, 0, 0);
+    add(lb, 12, a.ftol, 3, 0, 0);
     last_slot = 3;
   }
-  if (lb && a.finish) add(0, last_ndof, a.ftol, last_slot, a.finish_sweeps);
+  if (a.engine == 0 && a.finish) add(pw, last_ndof, a.ftol, last_slot, a.finish_sweeps, 0);
   return n;
 }
 
 // The state before the first stage: the identity in the first stage's
-// parameters (affMethod 5: p_init).
+// parameters (affMethod 5: p_init; the line stage: p_init's first ndof).
 MIL_HD inline void ladder_init(const LadderArgs& a, LadderState& s) {
   Stage st[kMaxStages];
   const int n = ladder_stages(a, st);
   s.ndof = n ? st[0].ndof : 12;
+  const bool given = a.aff_method == 5 || a.engine == kEngineLine;
   for (int i = 0; i < 12; ++i) {
-    s.p[i] = a.aff_method == 5 ? a.p_init[i] : (i >= 6 && i < s.ndof && s.ndof < 12 ? 1.0f : 0.f);
+    s.p[i] = given ? (i < s.ndof ? a.p_init[i] : 0.f)
+                   : (i >= 6 && i < s.ndof && s.ndof < 12 ? 1.0f : 0.f);
     s.aff[i] = 0.f;
+    s.xi[i] = 0.f;
   }
   for (int i = 0; i < 4; ++i) s.stage_costs[i] = qnan();
   s.fret = qnan();
   s.nev = 0;
   s.stage = 0;
-  s.evals[0] = s.evals[1] = 0;
+  s.evals[0] = s.evals[1] = s.evals[2] = 0;
   s.error = n ? 0 : 1;
-  s.pad = 0;
 }
 
 // The stage's start point from the state: the same parameters, a DOF
@@ -877,8 +1027,9 @@ MIL_HD inline void stage_scale(const Stage& st, float s_lin, float* sc) {
     sc[i] = st.ndof == 12 ? (i < 3 ? 1.0f : s_lin) : (i >= 6 ? s_lin : 1.0f);
 }
 
-// Powell's cost over a stage's parameters.
-template <class E>
+// Powell's cost over a stage's parameters: K5's sums, or (PROBES) K6's of
+// the one matrix.
+template <class E, bool PROBES = false>
 struct StageCost {
   E* ev;
   int ndof;
@@ -887,8 +1038,30 @@ struct StageCost {
     float m[12];
     double s[26];
     stage_matrix(p, ndof, m);
-    (*ev)(m, false, s);
+    if constexpr (PROBES) {
+      ev->probes(m, 1, s);
+    } else {
+      (*ev)(m, false, s);
+    }
     return ncc_cost(s[0], s[1], sd_t);
+  }
+};
+
+// The probe line search's batched cost over a stage's parameters: the n
+// points' matrices in one pass of K6's sums (the host loop's
+// _dof_cost_batch / _p12_cost_batch: each row's matrix as the single cost
+// builds it).
+template <class E>
+struct StageCostBatch {
+  E* ev;
+  int ndof;
+  double sd_t;
+  MIL_HD void operator()(const float* ps, int n, float* f) {
+    float m[kProbes * 12];
+    double s[2 * kProbes];
+    for (int i = 0; i < n; ++i) stage_matrix(ps + i * kMaxN, ndof, m + 12 * i);
+    ev->probes(m, n, s);
+    for (int i = 0; i < n; ++i) f[i] = ncc_cost(s[2 * i], s[2 * i + 1], sd_t);
   }
 };
 
@@ -912,15 +1085,16 @@ struct StageValueGrad {
   }
 };
 
-// Run one stage of kind LBFGS (st.lbfgs must agree) from the state and
-// write its result into it. K9 instantiates one kind per stage kernel.
-template <bool LBFGS, class E>
+// Run one stage of body BODY (st.body must agree) from the state and write
+// its result into it. K9 instantiates one body per stage kernel; the line
+// stage runs on K5's.
+template <int BODY, class E>
 MIL_HD void run_stage_kind(const LadderArgs& a, const Stage& st, LadderState& s, E& ev) {
   float x[kMaxN];
   stage_start(st, s, x);
   int nev = s.nev;
   float f;
-  if constexpr (LBFGS) {
+  if constexpr (BODY == kBodyK4) {
     float sc[kMaxN];
     stage_scale(st, a.s_lin, sc);
     for (int i = 0; i < st.ndof; ++i) x[i] = x[i] / sc[i];
@@ -928,9 +1102,22 @@ MIL_HD void run_stage_kind(const LadderArgs& a, const Stage& st, LadderState& s,
     f = lbfgs_minimize(vg, st.ndof, x, st.ftol, a.it_limit, nev, a.ls_max_iters,
                        a.ls_patience);
     for (int i = 0; i < st.ndof; ++i) x[i] = x[i] * sc[i];
+  } else if constexpr (BODY == kBodyK6) {
+    StageCost<E, true> cost{&ev, st.ndof, a.sd_t};
+    StageCostBatch<E> batch{&ev, st.ndof, a.sd_t};
+    f = powell_minimize(cost, &batch, st.ndof, x, st.ftol, a.it_limit, nev, st.max_sweeps);
   } else {
     StageCost<E> cost{&ev, st.ndof, a.sd_t};
-    f = powell_minimize(cost, st.ndof, x, st.ftol, a.it_limit, nev, st.max_sweeps);
+    if (st.line) {
+      // ops/powell_device.py::_linmin from p_init along xi: the evaluations
+      // of this line alone
+      float xi[kMaxN];
+      for (int i = 0; i < st.ndof; ++i) xi[i] = a.xi[i];
+      nev = linmin(cost, st.ndof, x, xi, f);
+      for (int i = 0; i < 12; ++i) s.xi[i] = i < st.ndof ? xi[i] : 0.f;
+    } else {
+      f = powell_minimize(cost, st.ndof, x, st.ftol, a.it_limit, nev, st.max_sweeps);
+    }
   }
   for (int i = 0; i < 12; ++i) s.p[i] = i < st.ndof ? x[i] : 0.f;
   s.ndof = st.ndof;
@@ -943,10 +1130,12 @@ MIL_HD void run_stage_kind(const LadderArgs& a, const Stage& st, LadderState& s,
 // Run one stage from the state and write its result into it.
 template <class E>
 MIL_HD void run_stage(const LadderArgs& a, const Stage& st, LadderState& s, E& ev) {
-  if (st.lbfgs) {
-    run_stage_kind<true>(a, st, s, ev);
+  if (st.body == kBodyK4) {
+    run_stage_kind<kBodyK4>(a, st, s, ev);
+  } else if (st.body == kBodyK6) {
+    run_stage_kind<kBodyK6>(a, st, s, ev);
   } else {
-    run_stage_kind<false>(a, st, s, ev);
+    run_stage_kind<kBodyK5>(a, st, s, ev);
   }
 }
 

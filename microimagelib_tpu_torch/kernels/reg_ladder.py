@@ -7,20 +7,25 @@ or of the ``device`` engine (Powell stages over K5's) on a pair of
 mean-subtracted (z, y, x) float32 volumes and returns (aff 12-vector, fret,
 stage costs (4,), evaluations), the contract of
 ``models/registration_grad.py::reg_ladder_grad`` and
-``models/registration_device.py::reg_ladder_device``.
+``models/registration_device.py::reg_ladder_device``. With ``batch_ls``
+its Powell stages (the grad engine's finisher alone) take the 8-probe line
+search over K6's sums, as ``MIL_REG_BATCH_LS=1`` asks. :func:`reg_line`
+runs the hybrid engine's one line minimization (mnbrak + brent over K5's
+sums) and returns (p', xi', f', evaluations), the contract of
+``models/registration_device.py::linmin_reg_device``.
 
 A CUDA pair runs the hand-written kernel ``csrc/reg_ladder.cu`` (which
 replaces the JAX package's jitted ladders,
 ``microimagelib_tpu/models/registration_grad.py:111`` and
-``microimagelib_tpu/models/registration_device.py:126``): one cooperative
-launch per optimizer stage on the caller's stream, every evaluation inside
-it, and one sync at the end; a failed build or launch raises. The plain
-version is the host loop (``ops/lbfgs.py``, ``ops/powell_device.py`` and
-the ladder bodies, one K4/K5 call and one sync per evaluation):
-``models/registration_grad.py::reg_ladder_grad_host`` and
-``models/registration_device.py::reg_ladder_device_host``, which
-``reg_ladder_grad`` / ``reg_ladder_device`` run for a CPU pair. The
-optimizers' source,
+``microimagelib_tpu/models/registration_device.py:126`` and the jitted
+line minimization ``:243``): one cooperative launch per optimizer stage
+(or per line) on the caller's stream, every evaluation inside it, and one
+sync at the end; a failed build or launch raises. The plain version is the
+host loop (``ops/lbfgs.py``, ``ops/powell_device.py`` and the ladder
+bodies, one K4/K5/K6 call and one sync per evaluation or batch of probes):
+``models/registration_grad.py::reg_ladder_grad_host``,
+``models/registration_device.py::reg_ladder_device_host`` and the host
+``_linmin``, which the models run for a CPU pair. The optimizers' source,
 ``csrc/reg_opt.cuh``, also builds for the host (``native/reg_opt.py``),
 where the CPU tests hold it against the JAX package.
 """
@@ -37,29 +42,41 @@ import torch
 from microimagelib_tpu_torch.kernels import build
 from microimagelib_tpu_torch.kernels import corr as C
 
-__all__ = ["reg_ladder", "launch", "ladder_args", "kernel_attrs", "LadderArgs",
-           "LadderState", "K9_LAUNCHES", "K9_EVALS_K4", "K9_EVALS_K5", "ENGINES",
-           "TRACE_WORDS", "STAMP_AT", "STAMPS", "INSTANTIATIONS", "stage_count",
-           "trace_split", "split_medians", "record_ladders", "args_of"]
+__all__ = ["reg_ladder", "reg_line", "launch", "ladder_args", "line_args", "kernel_attrs",
+           "LadderArgs", "LadderState", "K9_LAUNCHES", "K9_EVALS_K4", "K9_EVALS_K5",
+           "K9_EVALS_K6", "K9_LINES", "ENGINES", "BODIES", "LINE_MODES", "TRACE_WORDS",
+           "STAMP_AT", "STAMPS", "MATS_AT", "INSTANTIATIONS", "stage_count", "trace_split",
+           "split_medians", "trace_matrices", "record_ladders", "args_of"]
 
-# stage launches of K9 (one per optimizer stage), and the evaluations those
-# launches made on K4's body (L-BFGS stages) and on K5's (Powell stages)
+# stage launches of K9 (one per optimizer stage or line), and the
+# evaluations those launches made on K4's body (L-BFGS stages), on K5's
+# (Powell stages and lines) and on K6's (the probe stages: each a pass over
+# up to 8 matrices); the line launches among K9_LAUNCHES
 K9_LAUNCHES = 0
 K9_EVALS_K4 = 0
 K9_EVALS_K5 = 0
-ENGINES = {"grad": 0, "device": 1}
-# doubles a trace record: kind (1 = K4), the matrix (12), the sums (26), pad,
-# then the %globaltimer stamps (ns, int64 bits in the float64 slots) named
-# in STAMPS, from word STAMP_AT
+K9_EVALS_K6 = 0
+K9_LINES = 0
+ENGINES = {"grad": 0, "device": 1, "line": 2}
+# a stage's body (reg_opt.cuh kBodyK5, kBodyK4, kBodyK6)
+BODIES = {"K5": 0, "K4": 1, "K6": 2}
+# linmin_reg_device's modes and their parameters
+LINE_MODES = {"dof3": 3, "dof6": 6, "dof7": 7, "dof9": 9, "p12": 12}
+# doubles a trace record: kind (the body: 0 K5, 1 K4, 2 K6), the matrix
+# (12), the sums (26: K5's 2, K4's 26, K6's ss, st of each matrix), the
+# matrices of the pass (1; K6: up to 8), K6's matrices 1.. from word
+# MATS_AT, then the %globaltimer stamps (ns, int64 bits in the float64
+# slots) named in STAMPS, from word STAMP_AT
 STAMPS = ("publish", "start", "arrive", "row0", "seen", "summed", "next")
-STAMP_AT = 40
+MATS_AT = 40
+STAMP_AT = MATS_AT + 12 * (C.MAX_PROBES - 1)
 TRACE_WORDS = STAMP_AT + len(STAMPS)
-# the stage kernels (grad, vx, wide), in the order of csrc/reg_ladder.cu's
-# MIL_K9_STAGE_KINDS: one a (GRAD, VX, IDX) of K4/K5's plan
-INSTANTIATIONS = tuple((grad, vx, wide) for grad in (1, 0) for wide in (0, 1)
+# the stage kernels (body, vx, wide), in the order of csrc/reg_ladder.cu's
+# MIL_K9_STAGE_KINDS: one a (BODY, VX, IDX) of K4/K5's plan (K6 on K5's)
+INSTANTIATIONS = tuple((body, vx, wide) for body in (1, 0, 2) for wide in (0, 1)
                        for vx in (4, 2, 1))
 # LadderState.error codes
-ERRORS = {1: "unknown method or engine", 2: "a block's wait ran past its bound",
+ERRORS = {1: "unknown method, engine or line", 2: "a block's wait ran past its bound",
           3: "an evaluation of the wrong kind"}
 
 _lib = None
@@ -68,32 +85,36 @@ _work = {}
 
 class LadderArgs(ctypes.Structure):
     """csrc/reg_opt.cuh::LadderArgs."""
-    _fields_ = [("p_init", ctypes.c_float * 12), ("ftol", ctypes.c_float),
-                ("s_lin", ctypes.c_float), ("sd_t", ctypes.c_double),
-                ("aff_method", ctypes.c_int), ("engine", ctypes.c_int),
-                ("finish", ctypes.c_int), ("finish_sweeps", ctypes.c_int),
-                ("it_limit", ctypes.c_int), ("ls_max_iters", ctypes.c_int),
-                ("ls_patience", ctypes.c_int), ("pad", ctypes.c_int)]
+    _fields_ = [("p_init", ctypes.c_float * 12), ("xi", ctypes.c_float * 12),
+                ("ftol", ctypes.c_float), ("s_lin", ctypes.c_float),
+                ("sd_t", ctypes.c_double), ("aff_method", ctypes.c_int),
+                ("engine", ctypes.c_int), ("finish", ctypes.c_int),
+                ("finish_sweeps", ctypes.c_int), ("it_limit", ctypes.c_int),
+                ("ls_max_iters", ctypes.c_int), ("ls_patience", ctypes.c_int),
+                ("batch_ls", ctypes.c_int), ("line_ndof", ctypes.c_int),
+                ("pad", ctypes.c_int)]
 
 
 class LadderState(ctypes.Structure):
     """csrc/reg_opt.cuh::LadderState."""
     _fields_ = [("p", ctypes.c_float * 12), ("aff", ctypes.c_float * 12),
-                ("stage_costs", ctypes.c_float * 4), ("fret", ctypes.c_float),
-                ("ndof", ctypes.c_int), ("nev", ctypes.c_int), ("stage", ctypes.c_int),
-                ("evals", ctypes.c_int * 2), ("error", ctypes.c_int), ("pad", ctypes.c_int)]
+                ("xi", ctypes.c_float * 12), ("stage_costs", ctypes.c_float * 4),
+                ("fret", ctypes.c_float), ("ndof", ctypes.c_int), ("nev", ctypes.c_int),
+                ("stage", ctypes.c_int), ("evals", ctypes.c_int * 3), ("error", ctypes.c_int)]
 
 
 def ladder_args(engine, aff_method, p_init12, ftol, it_limit, sd_t, shape, finish=True,
-                finish_sweeps=None, ls_max_iters=None, ls_patience=None):
+                finish_sweeps=None, ls_max_iters=None, ls_patience=None, batch_ls=False):
     """The :class:`LadderArgs` of a ladder: ``engine`` 'grad' or 'device';
     ``finish_sweeps`` None (or <= 0) runs the finisher to Powell's ftol;
     ``ls_max_iters``/``ls_patience`` None read the MIL_LBFGS_* knobs
-    (``ops/lbfgs.py::lbfgs_env``). ``shape`` gives the preconditioning of
-    linear entries, 2 / (mean extent), as the host loop takes it."""
+    (``ops/lbfgs.py::lbfgs_env``); ``batch_ls``: the Powell stages' line
+    searches take 8 probes a pass over K6's sums. ``shape`` gives the
+    preconditioning of linear entries, 2 / (mean extent), as the host loop
+    takes it."""
     from microimagelib_tpu_torch.ops.lbfgs import lbfgs_env
 
-    if engine not in ENGINES:
+    if engine not in ENGINES or engine == "line":
         raise ValueError(f"unknown ladder engine {engine!r}")
     env_mi, env_pa = lbfgs_env()
     a = LadderArgs()
@@ -108,6 +129,27 @@ def ladder_args(engine, aff_method, p_init12, ftol, it_limit, sd_t, shape, finis
     a.it_limit = int(it_limit)
     a.ls_max_iters = env_mi if ls_max_iters is None else int(ls_max_iters)
     a.ls_patience = env_pa if ls_patience is None else int(ls_patience)
+    a.batch_ls = int(bool(batch_ls))
+    return a
+
+
+def line_args(p, xi, mode, sd_t):
+    """The :class:`LadderArgs` of the line stage: one line minimization of
+    the cost of ``mode`` ('dof3', 'dof6', 'dof7', 'dof9' or 'p12') along
+    ``xi`` from ``p`` (float32, the mode's parameters)."""
+    if mode not in LINE_MODES:
+        raise ValueError(f"unknown cost mode {mode!r}")
+    n = LINE_MODES[mode]
+    p = np.asarray(p, np.float32).reshape(-1)
+    xi = np.asarray(xi, np.float32).reshape(-1)
+    if p.size != n or xi.size != n:
+        raise ValueError(f"mode {mode} takes {n} parameters, got p {p.size}, xi {xi.size}")
+    a = LadderArgs()
+    a.p_init[:n] = [float(v) for v in p]
+    a.xi[:n] = [float(v) for v in xi]
+    a.sd_t = float(sd_t)
+    a.engine = ENGINES["line"]
+    a.line_ndof = n
     return a
 
 
@@ -126,13 +168,13 @@ def _library():
         lib.mil_reg_ladder_attrs.restype = i
         lib.mil_reg_ladder_kinds.argtypes = [p]
         lib.mil_reg_ladder_kinds.restype = i
-        sizes = (ctypes.c_int * 5)()
+        sizes = (ctypes.c_int * 6)()
         lib.mil_reg_ladder_sizes(sizes)
         kinds = (ctypes.c_int * (3 * max(1, sizes[4])))()
         lib.mil_reg_ladder_kinds(kinds)
         got = (tuple(sizes), tuple(tuple(kinds[3 * k:3 * k + 3]) for k in range(sizes[4])))
         want = ((ctypes.sizeof(LadderArgs), ctypes.sizeof(LadderState), TRACE_WORDS, STAMP_AT,
-                 len(INSTANTIATIONS)), INSTANTIATIONS)
+                 len(INSTANTIATIONS), MATS_AT), INSTANTIATIONS)
         if got != want:
             raise RuntimeError(f"csrc/reg_ladder.cu's layouts {got} differ from "
                                f"kernels/reg_ladder.py's {want}")
@@ -140,17 +182,18 @@ def _library():
     return _lib
 
 
-def kernel_attrs(grad, vx, wide=0, device=None):
+def kernel_attrs(body, vx, wide=0, device=None):
     """What a stage kernel compiled to on the current (or the given) CUDA
-    device: ``grad`` True for the L-BFGS stage (K4's body and launch
-    bounds), False for the Powell stage (K5's); ``vx`` and ``wide`` as
+    device: ``body`` 1 (or True) for the L-BFGS stage (K4's body and launch
+    bounds), 0 (False) for the Powell stage and the line (K5's), 2 for the
+    probe stage (K6's body, K5's bounds); ``vx`` and ``wide`` as
     ``kernels/corr.py::launch_plan`` gives them. A dict of registers and
     spilled (local) bytes a thread, static shared bytes and resident blocks
     per SM."""
     lib = _library()
     vals = (ctypes.c_int * 4)()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        err = lib.mil_reg_ladder_attrs(int(bool(grad)), int(vx), int(wide), vals)
+        err = lib.mil_reg_ladder_attrs(int(body), int(vx), int(wide), vals)
     build.check(lib, err, "reg_ladder kernel attributes")
     return dict(zip(("registers", "spill_bytes", "static_smem", "blocks_per_sm"), vals))
 
@@ -180,10 +223,10 @@ def launch(src, tgt, args, trace_cap=0):
     :class:`LadderArgs`), then one sync. Returns the final
     :class:`LadderState` and, with ``trace_cap`` > 0, the (n, TRACE_WORDS)
     float64 trace of the first n <= trace_cap evaluations (the test hook:
-    kind, matrix and sums of each, and the stamps :func:`trace_split`
+    kind, matrices and sums of each, and the stamps :func:`trace_split`
     reads). Raises on a refused launch or an error
     the kernel reports."""
-    global K9_LAUNCHES, K9_EVALS_K4, K9_EVALS_K5
+    global K9_LAUNCHES, K9_EVALS_K4, K9_EVALS_K5, K9_EVALS_K6, K9_LINES
     C._check(src, tgt)
     if not src.is_cuda:
         raise ValueError(f"K9 runs on CUDA tensors, not {src.device}")
@@ -201,18 +244,32 @@ def launch(src, tgt, args, trace_cap=0):
                                  trace.data_ptr() if trace is not None else None,
                                  int(trace_cap), stream, ctypes.byref(n_launched))
     K9_LAUNCHES += n_launched.value
+    if args.engine == ENGINES["line"]:
+        K9_LINES += n_launched.value
     build.check(lib, err, "reg_ladder kernel launch")
     raw = work[state_at:state_at + -(-ctypes.sizeof(LadderState) // 8)].cpu()
     state = LadderState.from_buffer_copy(raw.numpy().tobytes()[:ctypes.sizeof(LadderState)])
     K9_EVALS_K5 += state.evals[0]
     K9_EVALS_K4 += state.evals[1]
+    K9_EVALS_K6 += state.evals[2]
     if state.error:
         raise RuntimeError(f"reg_ladder kernel: error {state.error} "
                            f"({ERRORS.get(state.error, 'unknown')})")
     if trace is None:
         return state, None
-    n = min(int(trace_cap), state.evals[0] + state.evals[1])
+    n = min(int(trace_cap), sum(state.evals))
     return state, trace[:n].cpu().numpy()
+
+
+def trace_matrices(record):
+    """The (n, 12) float32 matrices of one trace record's pass (n = 1 for
+    K4's and K5's body, up to 8 for K6's) and its (n, 2) or (26,) float64
+    sums."""
+    n = max(1, int(record[39]))
+    mats = np.concatenate([record[1:13], record[MATS_AT:MATS_AT + 12 * (n - 1)]])
+    sums = record[13:13 + 2 * n] if int(record[0]) == BODIES["K6"] else \
+        record[13:13 + (26 if int(record[0]) == BODIES["K4"] else 2)]
+    return mats.reshape(n, 12).astype(np.float32), sums
 
 
 def trace_split(trace):
@@ -240,8 +297,8 @@ def trace_split(trace):
 
 def split_medians(trace, kind=None):
     """The medians of :func:`trace_split` over the trace's evaluations (or
-    those of ``kind``: 1 for K4's body, 0 for K5's), and their count under
-    ``n``."""
+    those of ``kind``: 1 for K4's body, 0 for K5's, 2 for K6's), and their
+    count under ``n``."""
     if kind is not None:
         trace = trace[trace[:, 0] == kind]
     out = {k: float(np.median(v)) if len(v) else float("nan")
@@ -271,11 +328,14 @@ def record_ladders():
         globals()["reg_ladder"] = orig
 
 
-def args_of(call):
-    """The :class:`LadderArgs` of a call :func:`record_ladders` recorded."""
-    return ladder_args(call["engine"], call["aff_method"], call["p_init12"], call["ftol"],
-                       call["it_limit"], call["sd_t"], tuple(call["src"].shape), call["finish"],
-                       call["finish_sweeps"], call["ls_max_iters"], call["ls_patience"])
+def args_of(call, **change):
+    """The :class:`LadderArgs` of a call :func:`record_ladders` recorded
+    (with the arguments in ``change`` replaced, e.g. ``engine``,
+    ``batch_ls``)."""
+    c = {**call, **change}
+    return ladder_args(c["engine"], c["aff_method"], c["p_init12"], c["ftol"], c["it_limit"],
+                       c["sd_t"], tuple(c["src"].shape), c["finish"], c["finish_sweeps"],
+                       c["ls_max_iters"], c["ls_patience"], c["batch_ls"])
 
 
 def _result(state):
@@ -284,7 +344,8 @@ def _result(state):
 
 
 def reg_ladder(src, tgt, sd_t, p_init12, aff_method, ftol, it_limit, engine="grad",
-               finish=True, finish_sweeps=None, ls_max_iters=None, ls_patience=None):
+               finish=True, finish_sweeps=None, ls_max_iters=None, ls_patience=None,
+               batch_ls=False):
     """The ladder in K9 on a CUDA pair. Returns (aff float32 12-vector,
     fret, stage costs (4,), evaluations). A CPU pair raises: its ladder is
     the host loop, which ``models/registration_grad.py::reg_ladder_grad``
@@ -293,13 +354,29 @@ def reg_ladder(src, tgt, sd_t, p_init12, aff_method, ftol, it_limit, engine="gra
     if aff_method not in (1, 2, 3, 4, 5, 6, 7):
         raise ValueError("Wrong affine registration method")
     args = ladder_args(engine, aff_method, p_init12, ftol, it_limit, sd_t, src.shape,
-                       finish, finish_sweeps, ls_max_iters, ls_patience)
+                       finish, finish_sweeps, ls_max_iters, ls_patience, batch_ls)
     return _result(launch(src, tgt, args)[0])
 
 
+def reg_line(src, tgt, sd_t, p, xi, mode):
+    """One line minimization in K9 on a CUDA pair (one launch, one sync):
+    mnbrak + brent of the registration cost of ``mode`` along ``xi`` from
+    ``p``. Returns (p' float32, xi scaled by the step, f', evaluations), as
+    the host loop's ``ops/powell_device.py::_linmin``. A CPU pair raises:
+    its line is that host loop."""
+    C._check(src, tgt)
+    args = line_args(p, xi, mode, sd_t)
+    state = launch(src, tgt, args)[0]
+    n = args.line_ndof
+    return (np.array(state.p[:n], np.float32), np.array(state.xi[:n], np.float32),
+            np.float32(state.fret), int(state.nev))
+
+
 def stage_count(args):
-    """Stages (launches) of a ladder: the host mirror of
+    """Stages (launches) of a ladder or a line: the host mirror of
     ``reg_opt.cuh::ladder_stages``."""
+    if args.engine == ENGINES["line"]:
+        return 1
     per = {1: 1, 2: 1, 3: 1, 4: 1, 5: 1, 6: 2, 7: 4}[args.aff_method]
     return per + int(args.engine == 0 and bool(args.finish))
 

@@ -9,8 +9,9 @@ reference:src/spim_fusion.cpp:336-363):
      (x, y, z) -> (x, round(y*py1/px1), round(z*pz1/px1))
   2. view B: scale each axis by its pixel ratio, optionally rotate +-90
      about Y (swapping x/z extents), resample to the isotropic grid
-  3. register B onto A (regChoice / affMethod as reg3d; K4/K5, or K6 for
-     the Powell finisher's line searches under ``MIL_REG_BATCH_LS=1``)
+  3. register B onto A (regChoice / affMethod as reg3d; its ladders in K9
+     over K4/K5's bodies, the Powell finisher's line searches over K6's
+     under ``MIL_REG_BATCH_LS=1``)
   4. joint RL deconvolution of A and registered B (K1 pairs, or K2 under
      ``MIL_CONV_SEP_FUSED=1``)
 

@@ -1,14 +1,18 @@
 """The affMethod DOF-escalation ladder over Powell (the JAX package's
-``models/registration_device.py``): the host drives
-:func:`~microimagelib_tpu_torch.ops.powell_device.powell_device` over the
-device cost, one fused resample + NCC call (K5) per evaluation — or, with
-``batch_ls`` (``MIL_REG_BATCH_LS=1``), 8 probes per line-search call in one
-launch of K6 and one sync.
+``models/registration_device.py``). On a CUDA pair on the kernel route the
+whole ladder runs in K9 (``kernels/reg_ladder.py``: one launch per stage,
+one sync), its evaluations on K5's body, or, with ``batch_ls``
+(``MIL_REG_BATCH_LS=1``), its line searches 8 probes a pass on K6's. Its
+plain version, :func:`reg_ladder_device_host`, drives
+:func:`~microimagelib_tpu_torch.ops.powell_device.powell_device` from the
+host over the device cost, one fused resample + NCC call (K5) and one sync
+per evaluation, or one K6 call per 8 probes.
 
 The ``hybrid`` engine keeps Powell's outer loop on the host
 (``ops/powell.py``) and hands each whole line minimization to
 :func:`linmin_reg_device`, the float32 mnbrak + brent of
-``ops/powell_device.py`` over the same device cost.
+``ops/powell_device.py`` over the same device cost: one K9 launch and one
+sync a line on the kernel route, else the host loop.
 
 The matrix builders are torch twins of ``ops/matrix.py`` on CPU float32
 tensors: the Powell ladder evaluates them without a gradient, and the
@@ -32,8 +36,10 @@ from microimagelib_tpu_torch.ops.corr import (
 from microimagelib_tpu_torch.ops.powell_device import _linmin, powell_device
 
 _F32 = torch.float32
-# ladders run as a host loop (reg_ladder_device_host)
+# ladders run as a host loop (reg_ladder_device_host), and line
+# minimizations (linmin_reg_device)
 HOST_LADDERS = 0
+HOST_LINES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -219,11 +225,11 @@ def reg_ladder_device(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
     Returns (aff_coef float32 12-vector, fret, stage costs (4,), total
     evaluations), as the JAX version does. A CUDA pair on the kernel route
     runs the whole ladder in K9 (``kernels/reg_ladder.py``: one launch per
-    stage, one sync); everything else, ``batch_ls`` (K6 from the host)
-    included, runs :func:`reg_ladder_device_host`."""
-    if on_kernel_route(src_ms, ncc_impl) and not batch_ls:
+    stage, one sync), with ``batch_ls`` its line searches on K6's body;
+    everything else runs :func:`reg_ladder_device_host`."""
+    if on_kernel_route(src_ms, ncc_impl):
         return RL.reg_ladder(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol, it_limit,
-                             "device")
+                             "device", batch_ls=batch_ls)
     return reg_ladder_device_host(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
                                   it_limit, ncc_impl, batch_ls)
 
@@ -301,9 +307,15 @@ def _cost_for_mode(src_ms, tgt_ms, sd_t, mode, ncc_impl=None):
 
 def linmin_reg_device(src_ms, tgt_ms, sd_t, p, xi, mode, ncc_impl=None):
     """One whole line minimization of the registration cost along ``xi``
-    from ``p``, in float32 with one K5 call per evaluation (the JAX
-    package's one-program ``linmin_reg_device``). Returns (p_new,
-    xi_scaled, f_min, n_evals)."""
+    from ``p``, in float32 (the JAX package's one-program
+    ``linmin_reg_device``): on a CUDA pair on the kernel route one K9
+    launch and one sync (``kernels/reg_ladder.py::reg_line``), else the
+    host loop, one K5 call per evaluation (counted in :data:`HOST_LINES`).
+    Returns (p_new, xi_scaled, f_min, n_evals)."""
+    global HOST_LINES
+    if on_kernel_route(src_ms, ncc_impl):
+        return RL.reg_line(src_ms, tgt_ms, sd_t, p, xi, mode)
+    HOST_LINES += 1
     cost = _cost_for_mode(src_ms, tgt_ms, sd_t, mode, ncc_impl)
     return _linmin(cost, np.asarray(p, np.float32), np.asarray(xi, np.float32))
 

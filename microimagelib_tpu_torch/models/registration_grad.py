@@ -92,13 +92,13 @@ def reg_ladder_grad(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol,
 
     A CUDA pair on the kernel route (``ops.corr.resolve_ncc_impl``) runs
     the whole ladder in K9 (``kernels/reg_ladder.py``: one launch per
-    stage, one sync); everything else runs :func:`reg_ladder_grad_host`,
-    as does ``batch_ls`` (the
-    finisher's line searches as 8-probe K6 calls from the host). Arguments
-    as there."""
-    if on_kernel_route(src_ms, ncc_impl) and not batch_ls:
+    stage, one sync), with ``batch_ls`` the finisher's line searches on
+    K6's body; everything else runs :func:`reg_ladder_grad_host`.
+    Arguments as there."""
+    if on_kernel_route(src_ms, ncc_impl):
         return RL.reg_ladder(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol, it_limit,
-                             "grad", finish, finish_sweeps, ls_max_iters, ls_patience)
+                             "grad", finish, finish_sweeps, ls_max_iters, ls_patience,
+                             batch_ls)
     return reg_ladder_grad_host(src_ms, tgt_ms, sd_t, p_init12, aff_method, ftol, it_limit,
                                 ncc_impl, finish, batch_ls, finish_sweeps, ls_max_iters,
                                 ls_patience)

@@ -14,6 +14,10 @@ extern "C" {
 typedef float (*mil_cost_fn)(const float* p, void* ctx);
 typedef float (*mil_vg_fn)(const float* p, float* g, void* ctx);
 typedef int (*mil_sums_fn)(const float* m12, int grad, double* sums, void* ctx);
+// n points of a batched cost, rows of mil_reg::kMaxN floats
+typedef void (*mil_batch_fn)(const float* ps, int n, float* f, void* ctx);
+// the K6 sums (ss, st a matrix) of n <= kProbes matrices
+typedef int (*mil_probes_fn)(const float* m12s, int n, double* sums, void* ctx);
 
 }  // extern "C"
 
@@ -31,10 +35,17 @@ struct VgCb {
   float operator()(const float* p, float* g) { return fn(p, g, ctx); }
 };
 
-// The sums through the callback; a nonzero return stops the ladder (the
+struct BatchCb {
+  mil_batch_fn fn;
+  void* ctx;
+  void operator()(const float* ps, int n, float* f) { fn(ps, n, f, ctx); }
+};
+
+// The sums through the callbacks; a nonzero return stops the ladder (the
 // evaluator then answers 2.0 with a zero gradient, which ends every stage).
 struct SumsCb {
   mil_sums_fn fn;
+  mil_probes_fn probes_fn;
   void* ctx;
   LadderState* s;
   void operator()(const float* m, bool grad, double* out) {
@@ -42,6 +53,13 @@ struct SumsCb {
     if (!s->error) s->error = fn(m, grad ? 1 : 0, out, ctx);
     if (s->error) {
       for (int k = 0; k < 26; ++k) out[k] = 0.0;
+    }
+  }
+  void probes(const float* m, int n, double* out) {
+    s->evals[2] += 1;
+    if (!s->error) s->error = probes_fn(m, n, out, ctx);
+    if (s->error) {
+      for (int k = 0; k < 2 * n; ++k) out[k] = 0.0;
     }
   }
 };
@@ -52,14 +70,29 @@ bool valid_n(int n) { return n >= 1 && n <= mil_reg::kMaxN; }
 
 extern "C" {
 
-// Powell over n parameters from p (in place); returns 0, or 1 for a bad n.
+// Powell over n parameters from p (in place), its line searches the
+// probe search over batch_fn where one is given (else linmin); returns 0,
+// or 1 for a bad n.
 int mil_reg_powell(int n, float* p, float ftol, int it_limit, int nev0, int max_sweeps,
-                   mil_cost_fn fn, void* ctx, float* fret, int* nev) {
+                   mil_cost_fn fn, mil_batch_fn batch_fn, void* ctx, float* fret, int* nev) {
   if (!valid_n(n)) return 1;
   CostCb cost{fn, ctx};
+  BatchCb batch{batch_fn, ctx};
   int count = nev0;
-  *fret = mil_reg::powell_minimize(cost, n, p, ftol, it_limit, count, max_sweeps);
+  *fret = mil_reg::powell_minimize(cost, batch_fn != nullptr ? &batch : nullptr, n, p, ftol,
+                                   it_limit, count, max_sweeps);
   *nev = count;
+  return 0;
+}
+
+// The probe line search along xi from p (both in place: p += xb xi, xi *=
+// xb); *fret in: the cost at p, out: the best cost. Returns 0, or 1 for a
+// bad n.
+int mil_reg_linmin_nprobe(int n, float* p, float* xi, float* fret, mil_batch_fn batch_fn,
+                          void* ctx, int* nev) {
+  if (!valid_n(n)) return 1;
+  BatchCb batch{batch_fn, ctx};
+  *nev = mil_reg::linmin_nprobe(batch, n, p, xi, *fret);
   return 0;
 }
 
@@ -78,7 +111,7 @@ int mil_reg_lbfgs(int n, float* p, float ftol, int it_limit, int nev0, int max_i
 // Jacobian, jac[k * ndof + i] = d m_k / d p_i. Returns 0, or 1 for a bad
 // ndof.
 int mil_reg_stage_matrix(const float* p, int ndof, float* m, float* jac) {
-  if (ndof != 3 && ndof != 6 && ndof != 7 && ndof != 9 && ndof != 12) return 1;
+  if (!mil_reg::valid_ndof(ndof)) return 1;
   mil_reg::stage_matrix(p, ndof, m);
   mil_reg::stage_jacobian(p, ndof, jac);
   return 0;
@@ -87,29 +120,31 @@ int mil_reg_stage_matrix(const float* p, int ndof, float* m, float* jac) {
 // The matrix of a stage's parameters and the pullback of gm through it
 // (gp[i] = sum_k gm[k] d m_k / d p_i). Returns 0, or 1 for a bad ndof.
 int mil_reg_stage_pullback(const float* p, int ndof, const float* gm, float* m, float* gp) {
-  if (ndof != 3 && ndof != 6 && ndof != 7 && ndof != 9 && ndof != 12) return 1;
+  if (!mil_reg::valid_ndof(ndof)) return 1;
   mil_reg::stage_pullback(p, ndof, gm, m, gp);
   return 0;
 }
 
-// The whole ladder over the sums callback; the result in *out. Returns
-// out->error (0 on success, 1 for an unknown method or engine, else the
-// callback's first nonzero return).
-int mil_reg_ladder(const LadderArgs* args, mil_sums_fn fn, void* ctx, LadderState* out) {
-  SumsCb ev{fn, ctx, out};
+// The whole ladder (or the line stage) over the sums callbacks; the result
+// in *out. Returns out->error (0 on success, 1 for an unknown method,
+// engine or line, else a callback's first nonzero return).
+int mil_reg_ladder(const LadderArgs* args, mil_sums_fn fn, mil_probes_fn probes_fn, void* ctx,
+                   LadderState* out) {
+  SumsCb ev{fn, probes_fn, ctx, out};
   mil_reg::run_ladder(*args, *out, ev);
   return out->error;
 }
 
-// The ladder's stages: out[5 i .. 5 i + 4] = lbfgs, ndof, slot, max_sweeps,
-// ftol x 1e6 (rounded) of stage i. Returns their count.
+// The ladder's stages: out[6 i .. 6 i + 5] = body (0 K5, 1 K4, 2 K6),
+// ndof, slot, max_sweeps, ftol x 1e6 (rounded), line of stage i. Returns
+// their count.
 int mil_reg_stages(const LadderArgs* args, int* out) {
   mil_reg::Stage st[mil_reg::kMaxStages];
   const int n = mil_reg::ladder_stages(*args, st);
   for (int i = 0; i < n; ++i) {
-    const int v[5] = {st[i].lbfgs, st[i].ndof, st[i].slot, st[i].max_sweeps,
-                      static_cast<int>(st[i].ftol * 1e6f + 0.5f)};
-    for (int k = 0; k < 5; ++k) out[5 * i + k] = v[k];
+    const int v[6] = {st[i].body, st[i].ndof, st[i].slot, st[i].max_sweeps,
+                      static_cast<int>(st[i].ftol * 1e6f + 0.5f), st[i].line};
+    for (int k = 0; k < 6; ++k) out[6 * i + k] = v[k];
   }
   return n;
 }

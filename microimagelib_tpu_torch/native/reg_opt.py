@@ -1,6 +1,8 @@
 """The host build of K9's optimizers (``csrc/reg_opt.cuh`` through
-``native/reg_opt.cpp``): the L-BFGS and Powell stages, the matrix builders
-and the whole affMethod ladder as the card runs them inside K9, compiled by
+``native/reg_opt.cpp``): the L-BFGS and Powell stages (Powell with the
+8-probe line search too), the matrix builders, the whole affMethod ladder
+(with ``batch_ls``) and the hybrid engine's line stage as the card runs them
+inside K9, compiled by
 the host C++ compiler, with costs and sums from Python callbacks (ctypes).
 The CPU tests use it to hold the card's optimizer source against the JAX
 package; the port's own CPU path is the host loop
@@ -43,6 +45,12 @@ VG_FN = ctypes.CFUNCTYPE(ctypes.c_float, ctypes.POINTER(ctypes.c_float),
                          ctypes.POINTER(ctypes.c_float), ctypes.c_void_p)
 SUMS_FN = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
                            ctypes.POINTER(ctypes.c_double), ctypes.c_void_p)
+BATCH_FN = ctypes.CFUNCTYPE(None, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                            ctypes.POINTER(ctypes.c_float), ctypes.c_void_p)
+PROBES_FN = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_double), ctypes.c_void_p)
+# the row pitch of a batched cost's points (reg_opt.cuh kMaxN)
+MAX_N = 12
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -87,11 +95,12 @@ def load():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.mil_reg_powell.argtypes = [i, p, f, i, i, i, COST_FN, p, p, p]
+            lib.mil_reg_powell.argtypes = [i, p, f, i, i, i, COST_FN, BATCH_FN, p, p, p]
+            lib.mil_reg_linmin_nprobe.argtypes = [i, p, p, p, BATCH_FN, p, p]
             lib.mil_reg_lbfgs.argtypes = [i, p, f, i, i, i, i, VG_FN, p, p, p]
             lib.mil_reg_stage_matrix.argtypes = [p, i, p, p]
             lib.mil_reg_stage_pullback.argtypes = [p, i, p, p, p]
-            lib.mil_reg_ladder.argtypes = [p, SUMS_FN, p, p]
+            lib.mil_reg_ladder.argtypes = [p, SUMS_FN, PROBES_FN, p, p]
             lib.mil_reg_sizes.argtypes = [p]
             lib.mil_reg_stages.argtypes = [p, p]
             lib.mil_reg_torch_trig.argtypes = [p, i, p, p]
@@ -136,9 +145,19 @@ def compose(a, b, g):
     return o.reshape(3, 4), ga.reshape(3, 4), gb.reshape(3, 4)[:, :3]
 
 
-def powell(cost, p0, ftol, it_limit, nev0=0, max_sweeps=None):
+def _batch_cb(cost_batch, n):
+    """A BATCH_FN over ``cost_batch``: (P, n) float32 -> (P,) float32."""
+    def cb(ps, k, f, _ctx):
+        pts = np.ctypeslib.as_array(ps, (k, MAX_N))[:, :n].copy()
+        np.ctypeslib.as_array(f, (k,))[:] = np.asarray(cost_batch(pts), np.float32)
+    return BATCH_FN(cb)
+
+
+def powell(cost, p0, ftol, it_limit, nev0=0, max_sweeps=None, cost_batch=None):
     """Powell over ``cost``: (n,) float32 numpy -> float32; as
-    ``ops/powell_device.py::powell_device``. Returns (p, f, evaluations)."""
+    ``ops/powell_device.py::powell_device``, whose line searches are the
+    8-probe search over ``cost_batch`` ((P, n) float32 -> (P,) float32)
+    where one is given. Returns (p, f, evaluations)."""
     lib = load()
     p = _f32(p0).copy()
     n = p.size
@@ -148,11 +167,27 @@ def powell(cost, p0, ftol, it_limit, nev0=0, max_sweeps=None):
 
     fret, nev = ctypes.c_float(), ctypes.c_int()
     err = lib.mil_reg_powell(n, _ptr(p), float(np.float32(ftol)), int(it_limit), int(nev0),
-                             0 if max_sweeps is None else int(max_sweeps), COST_FN(cb), None,
+                             0 if max_sweeps is None else int(max_sweeps), COST_FN(cb),
+                             BATCH_FN() if cost_batch is None else _batch_cb(cost_batch, n), None,
                              ctypes.byref(fret), ctypes.byref(nev))
     if err:
         raise ValueError(f"Powell takes 1 to 12 parameters, got {n}")
     return p, np.float32(fret.value), nev.value
+
+
+def linmin_nprobe(cost_batch, p, xi, fret):
+    """The 8-probe line search along ``xi`` from ``p`` (cost ``fret``); as
+    ``ops/powell_device.py::_linmin_nprobe``. Returns (p', xi', f',
+    evaluations)."""
+    lib = load()
+    p, xi = _f32(p).copy(), _f32(xi).copy()
+    if p.size != xi.size:
+        raise ValueError(f"p has {p.size} entries, xi {xi.size}")
+    f, nev = ctypes.c_float(float(np.float32(fret))), ctypes.c_int()
+    if lib.mil_reg_linmin_nprobe(p.size, _ptr(p), _ptr(xi), ctypes.byref(f),
+                                 _batch_cb(cost_batch, p.size), None, ctypes.byref(nev)):
+        raise ValueError(f"the line search takes 1 to 12 parameters, got {p.size}")
+    return p, xi, np.float32(f.value), nev.value
 
 
 def lbfgs(value_and_grad, p0, ftol, it_limit, nev0=0, max_iters=200, patience=3):
@@ -202,21 +237,28 @@ def stage_pullback(p, ndof, gm):
 
 
 def stages(args):
-    """The ladder's stages as (lbfgs, ndof, slot, max_sweeps, ftol x 1e6)
-    tuples (``reg_opt.cuh::ladder_stages``)."""
+    """The ladder's stages as (body, ndof, slot, max_sweeps, ftol x 1e6,
+    line) tuples (``reg_opt.cuh::ladder_stages``; body 0 = Powell over K5's
+    sums, 1 = L-BFGS over K4's, 2 = Powell with the probe line search over
+    K6's; line 1 = the single line stage)."""
     lib = load()
-    out = (ctypes.c_int * 25)()
+    out = (ctypes.c_int * 30)()
     n = lib.mil_reg_stages(ctypes.byref(args), out)
-    return [tuple(out[5 * i:5 * i + 5]) for i in range(n)]
+    return [tuple(out[6 * i:6 * i + 6]) for i in range(n)]
 
 
-def ladder(args, sums):
-    """The whole ladder of ``args`` (a :class:`LadderArgs`) with ``sums``:
-    (12,) float32 matrix, grad flag -> float64 sums (2 or 26 values, K5's
-    or K4's packed result). Returns the final :class:`LadderState`."""
+def ladder(args, sums, probes=None):
+    """The whole ladder of ``args`` (a :class:`LadderArgs`; engine 2: the
+    line stage) with ``sums``: (12,) float32 matrix, grad flag -> float64
+    sums (2 or 26 values, K5's or K4's packed result), and ``probes``: (n,
+    12) float32 matrices -> (n, 2) float64 sums (K6's; None: ``sums`` of
+    each). Returns the final :class:`LadderState`."""
     lib = load()
     state = LadderState()
     failure = []
+    if probes is None:
+        def probes(ms):
+            return np.stack([np.asarray(sums(m, False), np.float64)[:2] for m in ms])
 
     def cb(m, grad, out, _ctx):
         try:
@@ -228,7 +270,20 @@ def ladder(args, sums):
             failure.append(e)
             return 100
 
-    lib.mil_reg_ladder(ctypes.byref(args), SUMS_FN(cb), None, ctypes.byref(state))
+    def cb_probes(ms, n, out, _ctx):
+        try:
+            v = np.asarray(probes(np.ctypeslib.as_array(ms, (n, 12)).copy()),
+                           np.float64).reshape(-1)
+            if v.size != 2 * n:
+                raise ValueError(f"{n} probes gave {v.size} sums")
+            np.ctypeslib.as_array(out, (2 * n,))[:] = v
+            return 0
+        except Exception as e:
+            failure.append(e)
+            return 100
+
+    lib.mil_reg_ladder(ctypes.byref(args), SUMS_FN(cb), PROBES_FN(cb_probes), None,
+                       ctypes.byref(state))
     if failure:
         raise failure[0]
     if state.error:

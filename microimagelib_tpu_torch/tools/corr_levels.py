@@ -1,6 +1,6 @@
-"""Time the registration cost kernels K5 (NCC sums) and K4 (sums and
-gradient) per call at the levels of the registration pyramids, on one
-CUDA device.
+"""Time the registration cost kernels K5 (NCC sums), K4 (sums and
+gradient) and K6 (K5's sums of 8 line-search probes in one launch) per
+call at the levels of the registration pyramids, on one CUDA device.
 
     python microimagelib_tpu_torch/tools/corr_levels.py [--root DIR] [--levels ZxYxX,...]
         [--reps N] [--matrix reg128|identity]
@@ -10,14 +10,16 @@ call (``torch.profiler``: the time per launch of each kernel the call
 launches, summed), the ms per call of calls back to back (CUDA events),
 the wrapper's host microseconds per call (host clock, no sync between
 calls) and the least time the card could take (8 bytes per valid voxel
-over 3.35 TB/s; the bound is by bytes at these sizes). The first line is
-the card's name and power limit.
+over 3.35 TB/s; K6: the larger of that and its 43 float32 operations per
+valid voxel and probe over 67 TFLOP/s). The first line is the card's name
+and power limit.
 
 ``--root DIR`` imports ``microimagelib_tpu_torch`` from the checkout at
 DIR (default: the one holding this file), so that two versions of the
 kernels can be timed in turns on one card, each in its own process, e.g.
 a parent commit unpacked by ``git archive`` beside the working tree. Only
-the package's public ``kernels.corr.corr3d`` and ``ops.matrix`` are used.
+the package's public ``kernels.corr.corr3d``, ``corr3d_nprobe`` and
+``ops.matrix`` are used.
 The inputs are uniform random volumes from a numpy seed and the matrix of
 ``bench_all.py``'s reg128 case (its rotations take each warp's 32
 neighbouring voxels across source rows and planes), or with
@@ -36,6 +38,11 @@ LEVELS = ((16, 32, 128), (32, 64, 256), (64, 128, 512), (128, 256, 512),
           (256, 512, 512), (320, 512, 320))
 REG_DOF = [2.0, -1.5, 1.0, 2.0, -1.0, 1.5, 1, 1, 1]
 HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# K6's probes: the line search's ladder (ops/powell_device.py LS_LADDER)
+# along a direction of small translations and linear entries
+LADDER = (-2.618, -1.0, -0.382, 0.382, 1.0, 1.618, 2.618, 4.236)
+STEP = (0.002, 0, 0.001, 0.5, 0, 0.001, 0, -0.3, 0, 0, 0.002, 0.2)
 
 
 def card_line():
@@ -69,15 +76,18 @@ def main(argv=None):
     print(card)
     dof = REG_DOF if args.matrix == "reg128" else [0, 0, 0, 0, 0, 0, 1, 1, 1]
     m = np.asarray(dof_to_matrix(dof, 6), np.float32)
+    eight = np.stack([m + np.float32(a) * np.asarray(STEP, np.float32) for a in LADDER])
     for text in args.levels.split(","):
         shape = tuple(int(n) for n in text.split("x"))
         rng = np.random.default_rng(0)
         src = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
         tgt = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
         valid = float(C.corr3d_torch(torch.ones_like(src), src, m)[0])
-        for grad in (False, True):
+        for kernel in ("K5", "K4", "K6"):
             def call():
-                return C.corr3d(src, tgt, m, grad=grad)
+                if kernel == "K6":
+                    return C.corr3d_nprobe(src, tgt, eight)
+                return C.corr3d(src, tgt, m, grad=kernel == "K4")
 
             call()
             torch.cuda.synchronize()
@@ -101,11 +111,13 @@ def main(argv=None):
             torch.cuda.synchronize()
             print(json.dumps({
                 "root": args.root, "matrix": args.matrix, "level": list(shape),
-                "kernel": "K4" if grad else "K5",
+                "kernel": kernel,
                 "device_ms": sum(kernels.values()) if kernels else None,
                 "kernels": len(kernels),
                 "event_ms": start.elapsed_time(end) / args.reps,
-                "host_us": host_us, "bound_ms": 8 * valid / HBM_BYTES_PER_S * 1e3,
+                "host_us": host_us,
+                "bound_ms": max(8 * valid / HBM_BYTES_PER_S,
+                                43 * 8 * valid / FP32_OPS_PER_S if kernel == "K6" else 0) * 1e3,
                 "card": card}))
         del src, tgt
         torch.cuda.empty_cache()

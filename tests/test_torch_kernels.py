@@ -810,21 +810,102 @@ def test_reg_ladder_kernel_matches_host_loop(cuda, engine, method, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("grad", [False, True], ids=["powell", "lbfgs"])
+@pytest.mark.parametrize("grad", [False, True, 2], ids=["powell", "lbfgs", "probes"])
 def test_reg_ladder_kernel_fits_its_launch_bounds(cuda, grad):
-    """The stage kernel of every (GRAD, VX, IDX) instantiation of the body
-    keeps K5's (Powell) or K4's (L-BFGS) residency and register cap, so its
-    plans' blocks are co-resident for the cooperative launch; every (vx,
-    wide) the plan can give has an instantiation."""
+    """The stage kernel of every (BODY, VX, IDX) instantiation of the body
+    keeps K5's (Powell, and the probe stages over K6's body) or K4's
+    (L-BFGS) residency and register cap, so its plans' blocks are
+    co-resident for the cooperative launch; every (vx, wide) the plan can
+    give has an instantiation."""
     from microimagelib_tpu_torch.kernels import reg_ladder as RL
 
     kinds = [k for k in RL.INSTANTIATIONS if k[0] == int(grad)]
     assert sorted((vx, wide) for _g, vx, wide in kinds) == sorted(
         (vx, wide) for vx in (4, 2, 1) for wide in (0, 1))
+    resident = C.RESIDENT[grad is True]
     for _g, vx, wide in kinds:
         at = RL.kernel_attrs(grad, vx, wide)
-        assert at["blocks_per_sm"] >= C.RESIDENT[grad]
-        assert at["registers"] <= 65536 // (128 * C.RESIDENT[grad])
+        assert at["blocks_per_sm"] >= resident
+        assert at["registers"] <= 65536 // (128 * resident)
+
+
+def _ladder_start(cuda, shape):
+    src, tgt, sd_t = (x.to(cuda) if isinstance(x, torch.Tensor) else x
+                      for x in _blob_pair(shape, (0.6, -0.8, 0.3), 7))
+    return src, tgt, sd_t, np.array([0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0, 1], np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["grad", "device"])
+@pytest.mark.parametrize("method", [1, 7])
+@pytest.mark.parametrize("shape", [(16, 32, 128), (24, 40, 100), (32, 64, 256)])
+def test_reg_ladder_probe_stages_equal_the_host_loop(cuda, engine, method, shape):
+    """MIL_REG_BATCH_LS=1 in K9 (the Powell stages over K6's body) against
+    its plain version, the host loop over K5 and K6 launches, from the same
+    start: the same point, cost, stage costs and evaluations, bit for bit;
+    every traced probe evaluation's sums bit for bit a K6 launch on its
+    matrices; two runs bit for bit."""
+    from microimagelib_tpu_torch.kernels import reg_ladder as RL
+    from microimagelib_tpu_torch.models import registration_grad as RG
+
+    src, tgt, sd_t, p0 = _ladder_start(cuda, shape)
+    args = RL.ladder_args(engine, method, p0, 1e-4, 3000, sd_t, shape, True, 1,
+                          batch_ls=True)
+    before = (RL.K9_LAUNCHES, RL.K9_EVALS_K6, C.K6_LAUNCHES)
+    st, trace = RL.launch(src, tgt, args, trace_cap=10000)
+    assert RL.K9_LAUNCHES - before[0] == RL.stage_count(args)
+    assert RL.K9_EVALS_K6 - before[1] == st.evals[2] > 0 and C.K6_LAUNCHES == before[2]
+    st2, _ = RL.launch(src, tgt, args)
+    assert bytes(st) == bytes(st2)
+    assert len(trace) == sum(st.evals) and (st.evals[1] > 0) == (engine == "grad")
+    assert st.evals[0] == 0
+    for r in trace:
+        mats, sums = RL.trace_matrices(r)
+        if int(r[0]) == RL.BODIES["K6"]:
+            out = C.corr3d_nprobe(src, tgt, mats).cpu().numpy().reshape(-1)
+        else:
+            out = C.corr3d(src, tgt, mats[0], grad=bool(r[0])).cpu().numpy()
+        np.testing.assert_array_equal(out.view(np.int64), sums.view(np.int64))
+    assert max(int(r[39]) for r in trace) == 8
+    aff, fret, stage, nev = RG.reg_ladder_host(src, tgt, sd_t, p0, method, 1e-4, 3000,
+                                               engine, True, 1, batch_ls=True)
+    assert st.nev == nev and np.float32(st.fret) == fret
+    np.testing.assert_array_equal(np.array(st.aff, np.float32), aff)
+    np.testing.assert_array_equal(np.array(st.stage_costs, np.float32), stage)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dof3", "dof6", "dof7", "dof9", "p12"])
+@pytest.mark.parametrize("shape", [(16, 32, 128), (24, 40, 100)])
+def test_reg_line_equals_the_host_linmin(cuda, mode, shape):
+    """The hybrid engine's line in K9 (one launch, K5's body) against the
+    host loop's _linmin over K5 launches, bit for bit, for each mode; the
+    model's linmin_reg_device takes it on a CUDA pair."""
+    from microimagelib_tpu_torch.kernels import reg_ladder as RL
+    from microimagelib_tpu_torch.models import registration_device as RD
+    from microimagelib_tpu_torch.ops.powell_device import _linmin
+
+    src, tgt, sd_t, p12 = _ladder_start(cuda, shape)
+    n = RL.LINE_MODES[mode]
+    if mode == "p12":
+        p = p12
+        xi = np.array([0.6, -0.8, 0.4, 0.002, -0.001, 0.0015, 0.001, 0.002, -0.001, 0.0005,
+                       0.001, -0.002], np.float32)
+    else:
+        p = np.array([0, 0, 0, 0, 0, 0, 1, 1, 1], np.float32)[:n]
+        xi = np.array([0.6, -0.8, 0.4, 1.5, -0.7, 0.5, 0.01, -0.008, 0.012], np.float32)[:n]
+    before = (RL.K9_LINES, RL.K9_EVALS_K5, C.K5_LAUNCHES, RD.HOST_LINES)
+    got = RL.reg_line(src, tgt, sd_t, p, xi, mode)
+    assert RL.K9_LINES == before[0] + 1 and RL.K9_EVALS_K5 - before[1] == got[3]
+    assert C.K5_LAUNCHES == before[2]
+    want = _linmin(RD._cost_for_mode(src, tgt, sd_t, mode), p, xi)
+    assert C.K5_LAUNCHES - before[2] == want[3]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    via_model = RD.linmin_reg_device(src, tgt, sd_t, p, xi, mode)
+    assert RL.K9_LINES == before[0] + 2 and RD.HOST_LINES == before[3]
+    for a, b in zip(via_model, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 @pytest.mark.cuda
@@ -833,18 +914,25 @@ def test_reg_ladder_trace_stamps_are_in_order(cuda, engine):
     """Every traced evaluation's stamps run publish <= latest row start <=
     the other blocks' last arrival, publish <= block 0's row done, both <=
     block 0 sees the count <= column sum done <= next publish, and the next
-    publish is the following evaluation's publish within a stage."""
+    publish is the following evaluation's publish within a stage; the
+    batch_ls ladder's probe evaluations too."""
+    for batch_ls in (False, True):
+        _trace_stamps_in_order(cuda, engine, batch_ls)
+
+
+def _trace_stamps_in_order(cuda, engine, batch_ls):
     from microimagelib_tpu_torch.kernels import reg_ladder as RL
 
     shape = (24, 40, 100)
     src, tgt, sd_t = (x.to(cuda) if isinstance(x, torch.Tensor) else x
                       for x in _blob_pair(shape, (0.6, -0.8, 0.3), 7))
     p0 = np.array([0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0, 1], np.float32)
-    args = RL.ladder_args(engine, 7, p0, 1e-4, 3000, sd_t, shape)
+    args = RL.ladder_args(engine, 7, p0, 1e-4, 3000, sd_t, shape, batch_ls=batch_ls)
     st, trace = RL.launch(src, tgt, args, trace_cap=10000)
     t = np.ascontiguousarray(trace[:, RL.STAMP_AT:]).view(np.int64)
     pub, start, arrive, row0, seen, summed, nxt = t.T
-    assert len(t) == st.nev and (pub > 0).all()
+    assert len(t) == sum(st.evals) and (pub > 0).all()
+    assert (st.nev == len(t)) != (batch_ls and st.evals[2] > 0)
     assert (pub <= start).all() and (start <= arrive).all() and (pub <= row0).all()
     assert (np.maximum(arrive, row0) <= seen).all()
     assert (seen <= summed).all() and (summed <= nxt).all()

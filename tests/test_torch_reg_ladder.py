@@ -250,18 +250,23 @@ def test_torch_3x3_products_take_the_order_reg_opt_assumes():
 def test_stage_plan(engine, finish, method):
     """The stages K9 launches: the host mirror's count, the ladder's DOF
     steps, the L-BFGS stages then the finisher on the grad engine, and the
-    stage ftols 0.01 / 0.01 / 0.005 / ftol."""
-    args = RL.ladder_args(engine, method, matrix_to_params(IDENTITY), 1e-4, 3000, 1.0,
-                          SHAPE, finish=finish, finish_sweeps=1)
-    st = H.stages(args)
-    assert len(st) == RL.stage_count(args)
-    ndofs = {1: [3], 2: [6], 3: [7], 4: [9], 5: [12], 6: [6, 12], 7: [3, 6, 9, 12]}[method]
-    ftols = {1: [100], 6: [10000, 100], 7: [10000, 10000, 5000, 100]}.get(method, [100])
-    kind = 1 if engine == "grad" else 0
-    want = [(kind, n, i, 0, f) for i, (n, f) in enumerate(zip(ndofs, ftols))]
-    if engine == "grad" and finish:
-        want.append((0, ndofs[-1], len(ndofs) - 1, 1, 100))
-    assert st == want
+    stage ftols 0.01 / 0.01 / 0.005 / ftol; with batch_ls the Powell stages
+    (the grad engine's finisher alone) on K6's sums (body 2), the L-BFGS
+    stages still on K4's (body 1), the device engine's otherwise on K5's
+    (body 0)."""
+    for batch_ls in (False, True):
+        args = RL.ladder_args(engine, method, matrix_to_params(IDENTITY), 1e-4, 3000, 1.0,
+                              SHAPE, finish=finish, finish_sweeps=1, batch_ls=batch_ls)
+        st = H.stages(args)
+        assert len(st) == RL.stage_count(args)
+        ndofs = {1: [3], 2: [6], 3: [7], 4: [9], 5: [12], 6: [6, 12], 7: [3, 6, 9, 12]}[method]
+        ftols = {1: [100], 6: [10000, 100], 7: [10000, 10000, 5000, 100]}.get(method, [100])
+        powell = 2 if batch_ls else 0
+        kind = 1 if engine == "grad" else powell
+        want = [(kind, n, i, 0, f, 0) for i, (n, f) in enumerate(zip(ndofs, ftols))]
+        if engine == "grad" and finish:
+            want.append((powell, ndofs[-1], len(ndofs) - 1, 1, 100, 0))
+        assert st == want
 
 
 @pytest.fixture(scope="module")
@@ -289,7 +294,7 @@ def test_ladder_matches_jax(pair, method, engine):
 
     st = H.ladder(args, sums)
     aff = np.array(st.aff, np.float32)
-    assert list(st.evals) == evals and st.nev == sum(evals)
+    assert list(st.evals) == evals + [0] and st.nev == sum(evals)
     assert abs(-st.fret - jrec[3]) <= 1e-3, (-st.fret, jrec[3])
     np.testing.assert_allclose(aff[[3, 7, 11]], jtmx[[3, 7, 11]], atol=0.35)
     assert R.checkmatrix(aff, SHAPE[2], SHAPE[1], SHAPE[0])

@@ -53,23 +53,34 @@ def test_trace_layout_mirrors_the_source():
     k = _constexpr_ints(LADDER)
     assert (k["kStampAt"], k["kStamps"], k["kTraceWords"]) == (
         RL.STAMP_AT, len(RL.STAMPS), RL.TRACE_WORDS)
-    # kind, the matrix and the 26 sums fit before the stamps
+    # kind, the matrix and the 26 sums fit before the stamps, and so do the
+    # matrix count and K6's other matrices
     assert RL.STAMP_AT >= 1 + 12 + 26
+    assert k["kMatsAt"] == RL.MATS_AT >= 1 + 12 + 26 + 1
+    assert k["kTraceProbes"] == C.MAX_PROBES
+    assert RL.MATS_AT + 12 * (C.MAX_PROBES - 1) <= RL.STAMP_AT
 
 
 def test_stage_kernels_mirror_the_source():
-    """MIL_K9_STAGE_KINDS lists one kernel a (GRAD, VX, IDX), in the
-    wrapper's order, and covers every (vx, wide) K4/K5's plan can give."""
+    """MIL_K9_STAGE_KINDS lists one kernel a (BODY, VX, IDX), in the
+    wrapper's order, and covers every (vx, wide) K4/K5's plan can give, for
+    K4's body (1), K5's (0) and K6's (2, on K5's plan)."""
     block = re.search(r"#define MIL_K9_STAGE_KINDS\(X\)(.*?)\n\n", LADDER, re.S).group(1)
-    kinds = [(int(g == "true"), int(v), int(i == "long long"))
-             for g, v, i in re.findall(r"X\((true|false), (\d), (int|long long)\)", block)]
+    kinds = [(int(b), int(v), int(i == "long long"))
+             for b, v, i in re.findall(r"X\((\d), (\d), (int|long long)\)", block)]
     assert tuple(kinds) == RL.INSTANTIATIONS
-    assert len(set(kinds)) == len(kinds) == 12
+    assert len(set(kinds)) == len(kinds) == 18
+    assert RL.BODIES == {"K5": 0, "K4": 1, "K6": 2}
+    body_ids = {name: int(v) for name, v in re.findall(r"constexpr int kBody(K\d) = (\d);",
+                                                          OPT)}
+    assert body_ids == RL.BODIES
     for shape in ((16, 32, 128), (24, 40, 100), (64, 128, 512), (256, 512, 512),
                   (3, 5, 7), (1100, 1400, 1400)):
         for grad in (True, False):
             p = C.launch_plan(shape, grad)
             assert (int(grad), p["vx"], p["wide"]) in RL.INSTANTIATIONS
+            if not grad:
+                assert (2, p["vx"], p["wide"]) in RL.INSTANTIATIONS
 
 
 def test_ladder_structs_mirror_the_source():
@@ -79,10 +90,13 @@ def test_ladder_structs_mirror_the_source():
     assert _struct_bytes(OPT, "LadderArgs") == ctypes.sizeof(RL.LadderArgs)
     assert _struct_bytes(OPT, "LadderState") == ctypes.sizeof(RL.LadderState)
     assert ctypes.sizeof(RL.LadderState) <= 8 * k["kStateWords"]
-    # the control words: whole lines, among them one for each copy of the
-    # published matrix; the state after them starts on a line
+    # the control words: whole lines, among them kReleaseLines for each copy
+    # of the published matrices (K6's 8 matrices and the generation); the
+    # state after them starts on a line
     assert (k["kSyncWords"] * 8) % k["kLine"] == 0
     assert k["kSyncWords"] * 8 > k["kCopies"] * k["kLine"] >= k["kLine"]
+    assert k["kReleaseLines"] * k["kLine"] >= 16 + 4 * 12 * k["kTraceProbes"]
+    assert k["kSyncWords"] * 8 >= k["kCopies"] * k["kReleaseLines"] * k["kLine"]
 
 
 def test_trace_split_reads_the_stamps():
@@ -125,20 +139,20 @@ def test_trace_split_reads_the_stamps():
 
 
 def test_body_takes_the_plan_instantiation():
-    """A stage kernel and a row function of each (GRAD, VX, IDX), no
+    """A stage kernel and a row function of each (BODY, VX, IDX), no
     run-time switch over vx or 64-bit offsets inside a body, the optimizer
-    one function a stage kind; the source is relocatable device code, so
-    the twelve kernels share that one compiled copy."""
+    one function a body; the source is relocatable device code, so a
+    body's six kernels share that one compiled copy."""
     from microimagelib_tpu_torch.kernels import build
 
     for name in ("__global__ void __launch_bounds__\\([^)]*\\)\nreg_stage_kernel",
                  "__device__ __noinline__ void stage_row"):
-        assert re.search(r"template <bool GRAD, int VX, typename IDX>\n" + name + r"\(",
+        assert re.search(r"template <int BODY, int VX, typename IDX>\n" + name + r"\(",
                          LADDER), name
-    assert re.search(r"template <bool GRAD>\n__device__ __noinline__ void drive\(", LADDER)
+    assert re.search(r"template <int BODY>\n__device__ __noinline__ void drive\(", LADDER)
     assert "-rdc=true" in build.FILE_FLAGS["reg_ladder.cu"]
     kinds = re.search(r"kStageKinds\[\] = \{MIL_K9_STAGE_KINDS\(MIL_K9_KIND\)\}", LADDER)
-    assert kinds and "reg_stage_kernel<G, V, I>" in LADDER
+    assert kinds and "reg_stage_kernel<B, V, I>" in LADDER
 
 
 def _sum_columns_model(partials):
