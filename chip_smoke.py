@@ -137,7 +137,13 @@ with nvcc (sm_90a, one nvcc per source, in parallel), then:
      run, no host-loop ladder), the decon's
      kernel (auto's route for the surrogate's PSF) launched 40 times a
      timepoint, K8 launched once per rotating MIP and no plain MIP route
-     called, no plain-version call; tp/min; the rotating MIP about y alone
+     called, no plain-version call; tp/min; per timepoint the transfers'
+     stages (the main thread's waits ``fetch`` and ``slot_wait``, the
+     copies' device times ``fetch_copy`` and ``upload_copy`` with their
+     GB/s) and the pinned bytes the batch's rings hold; for timepoint 1 a
+     synchronous ``.cpu()`` of the device outputs taken where the batch
+     starts its copy, which every array handed to the TIFF writer must
+     equal bit for bit; the rotating MIP about y alone
      at 320^3 on auto's route (K8) and on the gather route. (b) Phase 14's raw views as 16-bit TIFFs for 2
      timepoints (t1: view B moved by BATCH_DRIFT) through regMode 3 from
      the 2-D MIP start (choice 4) and regMode 1 from the phasor start
@@ -2740,7 +2746,10 @@ def rl_iteration_ms(img_d, psf, fwd, bp, card, label):
           + ", ".join(f"{k} {v:.3f}" for k, v in res.items()))
     return res
 
-STAGES = ("read", "wait", "preprocess", "registration", "decon", "mp", "fetch", "write")
+STAGES = ("read", "wait", "upload", "upload_copy", "preprocess", "registration", "decon",
+          "mp", "slot_wait", "fetch", "fetch_copy", "write")
+# Phase 17 (a)'s timepoint whose outputs are also fetched synchronously
+GATE_TIMEPOINT = 1
 
 
 class TimepointCounts:
@@ -2754,7 +2763,8 @@ class TimepointCounts:
 
     def __enter__(self):
         def snap(*args, **kw):
-            torch.cuda.synchronize()
+            # the compute stream only: the batch's copy streams keep running
+            torch.cuda.current_stream().synchronize()
             self.snaps.append(counts())
             return self._orig(*args, **kw)
 
@@ -2854,6 +2864,101 @@ def print_timepoints(label, timings, launches, card):
         print(f"  ({label}) timepoint {t}: seconds {steps}; launches {n} [{card}]")
 
 
+class BatchRings:
+    """Records the host rings ``spim_fusion_batch`` makes (the upload ring,
+    then the output ring) while it is entered. With ``gate`` = t, the
+    outputs of timepoint t (the output ring's fetch number t) are also
+    copied with a synchronous ``.cpu()`` where the batch starts its copy,
+    and every array the batch hands to the TIFF writer for timepoint t is
+    kept, for :meth:`check_gate`."""
+
+    def __init__(self, gate=None):
+        self.gate = gate
+        self.made, self.sync, self.written = [], {}, {}
+        self._orig = (PB.HostRing, PB.writetifstack)
+
+    def __enter__(self):
+        real_ring, real_write = self._orig
+
+        def make(*args, **kw):
+            ring = real_ring(*args, **kw)
+            calls = []
+
+            def fetch(slot, outs, _real=ring.fetch):
+                if len(calls) == self.gate:
+                    self.sync = {k: v.cpu().numpy() for k, v in outs.items()}
+                calls.append(len(outs))
+                return _real(slot, outs)
+
+            ring.fetch = fetch
+            self.made.append(ring)
+            return ring
+
+        def write(path, arr, bits):
+            if self.gate is not None and os.path.basename(path).endswith(f"_{self.gate}.tif"):
+                self.written[os.path.basename(path)] = np.array(arr, copy=True)
+            return real_write(path, arr, bits)
+
+        PB.HostRing, PB.writetifstack = make, write
+        return self
+
+    def __exit__(self, *exc):
+        PB.HostRing, PB.writetifstack = self._orig
+        for ring in self.made:   # no ring -> wrapper -> ring cycle: a dropped
+            del ring.fetch       # ring's pinned slots go back to torch at once
+
+    def slot_bytes(self):
+        """(bytes of one upload slot, of one output slot): one timepoint's
+        views and outputs."""
+        return tuple(ring.bytes_held // sum(ring.slots_allocated().values())
+                     for ring in self.made)
+
+    def pinned_bytes(self):
+        return sum(ring.bytes_held for ring in self.made)
+
+    def layout(self):
+        """Slots allocated per ring (upload, output) and the bytes of one."""
+        return ", ".join(f"{name} {sum(ring.slots_allocated().values())} x {b} B"
+                         for name, ring, b in zip(("upload", "output"), self.made,
+                                                  self.slot_bytes()))
+
+    def check_gate(self, label):
+        """The gated timepoint's written arrays against the synchronous
+        fetch, bit for bit: the decon, MP_XY (the whole flat MP) and the
+        MIP about y."""
+        t = self.gate
+        want = {f"Decon_{t}.tif": self.sync["decon"],
+                f"MP_3D_Yaxis_{t}.tif": self.sync["mip_y"],
+                f"MP_XY_{t}.tif": self.sync["mp"].reshape(self.sync["decon"].shape[1:])}
+        if set(self.sync) != {"decon", "mp", "mip_y"} or set(self.written) != set(want):
+            raise AssertionError(f"{label} gate: fetched {sorted(self.sync)}, written "
+                                 f"{sorted(self.written)}")
+        for name, arr in want.items():
+            got = self.written[name]
+            if got.shape != arr.shape or got.dtype != arr.dtype or not np.array_equal(got, arr):
+                raise AssertionError(f"{label} gate: {name} written differs from a "
+                                     f"synchronous .cpu() of the device output")
+        print(f"  {label} timepoint {t}'s written arrays equal a synchronous .cpu() of "
+              f"its device outputs bit for bit: "
+              + ", ".join(f"{k} {v.shape}" for k, v in want.items()))
+
+
+def print_transfers(label, timings, rings, card):
+    """Per timepoint the batch's transfer stages: the main thread's waits
+    and the copies' device times with their rates, and the pinned bytes."""
+    up_b, out_b = rings.slot_bytes()
+    for t in sorted(timings):
+        st = timings[t]
+        print(f"  ({label}) timepoint {t} transfers: fetch {1e3 * st['fetch']:.3f} ms "
+              f"(main thread's wait), fetch_copy {1e3 * st['fetch_copy']:.3f} ms = "
+              f"{out_b / st['fetch_copy'] / 1e9:.2f} GB/s for {out_b / 1e6:.1f} MB, "
+              f"upload {1e3 * st['upload']:.3f} ms, upload_copy "
+              f"{1e3 * st['upload_copy']:.3f} ms = {up_b / st['upload_copy'] / 1e9:.2f} GB/s "
+              f"for {up_b / 1e6:.1f} MB, slot_wait {1e3 * st['slot_wait']:.3f} ms [{card}]")
+    print(f"  ({label}) pinned host bytes held by the batch's rings: {rings.pinned_bytes()} "
+          f"({rings.layout()}) [{card}]")
+
+
 def decon_launches(route, n_tp):
     """(K1, K3) launches of n_tp dual-view decons of N_ITERS iterations on
     auto's route: two K1 launches, or two K3 calls, per view and iteration."""
@@ -2898,7 +3003,7 @@ def phase17_batch(dev, card, views):
     zero_counts()
     buf = io.StringIO()
     with TimepointCounts() as tc, LaunchShapes() as shapes_a, PlainMips() as plain_mips, \
-            contextlib.redirect_stdout(buf):
+            BatchRings(gate=GATE_TIMEPOINT) as rings, contextlib.redirect_stdout(buf):
         res = E2E.run(E2E_TPS, E2E_XY, device=dev, timings=timings)
     torch.cuda.synchronize()
     total = counts()
@@ -2911,6 +3016,9 @@ def phase17_batch(dev, card, views):
           f"{res['build_s']:.3f} s); final NCCs {[round(v, 6) for v in res['nccs']]}; "
           f"launches {total} [{card}]")
     print_timepoints("a", timings, per_tp, card)
+    print_transfers("a", timings, rings, card)
+    rings.check_gate("(a)")
+    del rings   # its pinned slots go to the uninstrumented run below
     k1, k3 = decon_launches(route, E2E_TPS)
     if (not on_k9(total) or total["K1"] != k1 or total["K3"] != k3
             or len(per_tp) != E2E_TPS):
@@ -2923,11 +3031,12 @@ def phase17_batch(dev, card, views):
     shapes_a.check("(a)")
     # the same run with no timings, no counter snapshots and no shape
     # records: the batch's own throughput
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), BatchRings() as rings_own:
         res_own = E2E.run(E2E_TPS, E2E_XY, device=dev)
     print(f"  (a) uninstrumented, after the run above: {res_own['wall_s']:.3f} s in the "
           f"batch for {E2E_TPS} timepoints, {res_own['tp_per_min']:.3f} tp/min; final "
-          f"NCCs {[round(v, 6) for v in res_own['nccs']]} [{card}]")
+          f"NCCs {[round(v, 6) for v in res_own['nccs']]}; pinned host bytes "
+          f"{rings_own.pinned_bytes()} [{card}]")
     est = torch.rand(grid, device=dev) * 100
     frames = PP.mip3d_frames(est, 2, 36)
     mip_ms = alone_cuda_ms(lambda: PP.mip3d_frames(est, 2, 36), 5)

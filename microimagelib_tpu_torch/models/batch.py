@@ -5,8 +5,20 @@
   * TIFF reads for the NEXT timepoint are prefetched on a background
     thread while the card processes the current one, and TIFF writes
     (decon volume, registered views, MPs and MIPs) are retired on a writer
-    pool. The writer threads receive numpy arrays only: every result is
-    fetched with ``.cpu()`` on the main thread.
+    pool.
+  * The transfers overlap the card's work, as the JAX package's
+    ``copy_to_host_async`` and asynchronous uploads do
+    (``utils/host_ring.py``): the reader puts each timepoint's views into a
+    reused pinned slot, and the main thread uploads them on a copy stream
+    that the compute stream waits on. As soon as a timepoint's outputs are
+    queued, a second copy stream copies them into a reused pinned slot;
+    each writer job waits on that copy's event, and the slot returns to
+    its ring when the last write that reads it has finished. The main
+    thread waits on a copy only for the log's time-cost line, one
+    timepoint late in the chained path, so the copies and writes of
+    timepoint t overlap the card's work on t+1. At most ``OUTPUT_SLOTS``
+    and ``UPLOAD_SLOTS`` slots per shape bound the host memory. On the CPU
+    the same rings hold plain tensors and copy at once.
   * OTFs are computed once per grid and reused across timepoints.
   * Registration semantics as the reference's: regMode 0-3, the
     checkmatrix + costValueBar=0.1 retry cascade (swap regChoice 2<->4,
@@ -72,11 +84,25 @@ from microimagelib_tpu_torch.parallel.distributed import (
 from microimagelib_tpu_torch.parallel.sharded import rl_decon_dual_batch_dp
 from microimagelib_tpu_torch.utils.device import require_cuda
 from microimagelib_tpu_torch.utils.envflags import env_on
+from microimagelib_tpu_torch.utils.host_ring import HostRing, fill
 
 __all__ = ["BatchConfig", "spim_fusion_batch", "spim_fusion_batch_multicolor",
            "find_color_folders", "COST_VALUE_BAR"]
 
 COST_VALUE_BAR = 0.1  # reference:src/spim_fusion_batch.cpp:563
+# host slots per output shape set: one timepoint's outputs being copied,
+# one waiting to be collected (the chained path's one-late collection), and
+# one for the writes of the timepoint before, which may still run
+OUTPUT_SLOTS = 3
+# pinned slots per pair of raw view shapes: the reader's queue holds two
+# timepoints and the reader fills a third
+UPLOAD_SLOTS = 3
+# the files of a timepoint's outputs: (name in the slot, file name, tree key)
+_OUTPUT_FILES = (("decon", "Decon_{t}.tif", "decon"),
+                 ("reg_a", "{name1}reg_{t}.tif", "reg_a"),
+                 ("reg_b", "{name2}reg_{t}.tif", "reg_b"),
+                 ("mip_x", "MP_3D_Xaxis_{t}.tif", "mp3d_x"),
+                 ("mip_y", "MP_3D_Yaxis_{t}.tif", "mp3d_y"))
 
 
 def _warm_method(aff_method):
@@ -210,8 +236,10 @@ def _register_with_cascade(a_iso, b_iso, reg_choice, aff_method, flag_tmx, tmx_i
 
 
 def _sync(dev):
+    """Wait for the work queued on ``dev``'s current (compute) stream; the
+    copy streams keep running."""
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
 
 
 def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None):
@@ -225,12 +253,19 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
     ``MIL_MULTIHOST=1`` runs this process's round-robin share of the
     timepoints (regMode 2 chains timepoints and raises ValueError).
     ``timings``, when given a dict, receives per timepoint the seconds of
-    each stage (the card is synchronized between stages): 'read' (the
-    reader's file reads), 'wait' (the main thread's wait for them),
-    'preprocess', 'registration', 'decon', 'mp' (2-D MPs and rotating
-    MIPs), 'fetch' (copies to the host) and 'write' (the writer pool's
-    TIFF writes), and for regMode 1 at the test timepoint 'test
-    registration' (its read, preprocess and registration)."""
+    each stage (the compute stream is synchronized between stages, the
+    copy streams are not): 'read' (the reader's file reads and its copy
+    into an upload slot, not its wait for a free slot), 'wait' (the main
+    thread's wait for them),
+    'upload' (the main thread's time to start the views' upload),
+    'upload_copy' (the upload's device time, from events on its copy
+    stream), 'preprocess', 'registration', 'decon', 'mp' (2-D MPs and
+    rotating MIPs), 'slot_wait' (the main thread's wait for a free output
+    slot), 'fetch' (the main thread's wait for the outputs' copy to the
+    host), 'fetch_copy' (that copy's device time, from events on its copy
+    stream; on the CPU both copies give host seconds) and 'write' (the
+    writer pool's TIFF writes), and for regMode 1 at the test timepoint
+    'test registration' (its read, preprocess and registration)."""
     multihost = env_on("MIL_MULTIHOST")
     if multihost and cfg.reg_mode == 2:
         raise ValueError(
@@ -290,16 +325,38 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
     stats = {} if timings is None else timings
     stats_lock = threading.Lock()
 
+    def add_stat(t, name, seconds):
+        with stats_lock:
+            d = stats.setdefault(t, {})
+            d[name] = d.get(name, 0.0) + seconds
+
     def stage(t, name, since, sync=True):
         """Seconds since ``since`` into stats[t][name] (after a sync of the
-        card when timings are asked for and ``sync``); returns now."""
+        compute stream when timings are asked for and ``sync``); returns
+        now."""
         if timings is not None and sync:
             _sync(dev)
         now = time.time()
-        with stats_lock:
-            d = stats.setdefault(t, {})
-            d[name] = d.get(name, 0.0) + now - since
+        add_stat(t, name, now - since)
         return now
+
+    # host slots: the raw views on their way to the card, the outputs on
+    # their way to the writers (each ring copies on a stream of its own)
+    in_ring = HostRing(dev, UPLOAD_SLOTS, timed=timings is not None)
+    out_ring = HostRing(dev, OUTPUT_SLOTS, timed=timings is not None)
+
+    def load_views(t):
+        """Timepoint t's views read into an upload slot (held until
+        uploaded); 'read' leaves out the wait for a free slot."""
+        t_r = time.time()
+        a, b = read_pair(t)
+        read_s = time.time() - t_r
+        slot = in_ring.acquire({"a": (a.shape, torch.float32),
+                                "b": (b.shape, torch.float32)})
+        t_f = time.time()
+        fill(slot, {"a": a, "b": b})
+        add_stat(t, "read", read_s + time.time() - t_f)
+        return slot
 
     # --- background reader: prefetch the next timepoint ---
     read_q: "queue.Queue" = queue.Queue(maxsize=2)
@@ -307,25 +364,28 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
     def reader(tp_list):
         for t in tp_list:
             try:
-                t_r = time.time()
-                a, b = read_pair(t)
-                stage(t, "read", t_r, sync=False)
-                read_q.put((t, a, b))
+                read_q.put((t, load_views(t)))
             except Exception as e:  # surface read failures in order
-                read_q.put((t, e, None))
+                read_q.put((t, e))
         read_q.put(None)
 
     writer_pool = ThreadPoolExecutor(max_workers=2) if cfg.overlap_io else None
     pending = []
 
-    def write_async(t, path, arr):
-        """Write numpy ``arr`` (never a device tensor) as a TIFF."""
+    def write_async(t, path, arr, slot):
+        """Write ``arr``, a numpy view of ``slot``, as a TIFF once the slot's
+        copy is done; the write holds the slot until it ends."""
+        slot.hold()
+        transfer = slot.transfer
+
         def job():
-            t_w = time.time()
-            writetifstack(path, arr, cfg.bit_per_sample)
-            with stats_lock:
-                d = stats.setdefault(t, {})
-                d["write"] = d.get("write", 0.0) + time.time() - t_w
+            try:
+                transfer.wait()
+                t_w = time.time()
+                writetifstack(path, arr, cfg.bit_per_sample)
+                add_stat(t, "write", time.time() - t_w)
+            finally:
+                slot.release()
         if writer_pool is not None:
             pending.append(writer_pool.submit(job))
         else:
@@ -341,9 +401,16 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
                                  for p in (psf1, psf2, psf1_bp, psf2_bp)]
         return otf_state["otfs"]
 
-    def iso_views(a_in, b_in):
-        return preprocess_views(a_in, b_in, cfg.pixel1, cfg.pixel2, cfg.im_rotation,
-                                dev, verbose=cfg.verbose, as_device=True)
+    def iso_views(t, slot):
+        """Upload an upload slot's views and isotropize them on the card."""
+        t_u = time.time()
+        views, transfer = in_ring.upload(slot)
+        stage(t, "upload", t_u, sync=False)
+        iso = preprocess_views(views["a"], views["b"], cfg.pixel1, cfg.pixel2,
+                               cfg.im_rotation, dev, verbose=cfg.verbose, as_device=True)
+        if timings is not None:
+            add_stat(t, "upload_copy", transfer.seconds())
+        return iso
 
     def apply_and_pad(a_iso, b_iso, tmx12):
         """View B center-aligned to the target grid (the matrix's source
@@ -358,9 +425,18 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
                 for v in (a_iso, reg_b)]
         return reg_b, pads, grid
 
-    def outputs(t, est, t_mark):
-        """The 2-D MPs and rotating MIPs of the decon on the card; returns
-        the device tensors to fetch."""
+    def fetch(t, outs):
+        """Start copying the device tensors ``outs`` to a host slot, after
+        the work queued so far; returns the slot, held for :func:`collect`."""
+        t_s = time.time()
+        slot = out_ring.acquire({k: (v.shape, v.dtype) for k, v in outs.items()})
+        stage(t, "slot_wait", t_s, sync=False)
+        out_ring.fetch(slot, outs)
+        return slot
+
+    def outputs(t, est, extra, t_mark):
+        """Queue the 2-D MPs and rotating MIPs of the decon on the card and
+        start copying them, the decon and ``extra`` to a host slot."""
         outs = {"decon": est}
         if cfg.save_mp_z or cfg.save_mp_x or cfg.save_mp_y:
             outs["mp"] = _mp2d_flat(est, cfg.save_mp_z, cfg.save_mp_x, cfg.save_mp_y)
@@ -368,32 +444,39 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
             outs["mip_x"] = mip3d_frames(est, 1, 36)
         if cfg.save_3d_y:
             outs["mip_y"] = mip3d_frames(est, 2, 36)
+        outs.update(extra)
         stage(t, "mp", t_mark)
-        return outs
+        return fetch(t, outs)
 
-    def collect(t, outs, t0_tp, log_time=True):
-        """Fetch a timepoint's outputs on this thread and queue their
-        writes."""
-        t_f = time.time()
-        host = {k: v.cpu().numpy() for k, v in outs.items()}
-        stage(t, "fetch", t_f)
-        dec = host["decon"]
-        write_async(t, os.path.join(paths["decon"], f"Decon_{t}.tif"), dec)
-        for key, name, path_key in (("reg_a", f"{cfg.name1}reg_{t}.tif", "reg_a"),
-                                    ("reg_b", f"{cfg.name2}reg_{t}.tif", "reg_b"),
-                                    ("mip_x", f"MP_3D_Xaxis_{t}.tif", "mp3d_x"),
-                                    ("mip_y", f"MP_3D_Yaxis_{t}.tif", "mp3d_y")):
-            if key in host:
-                write_async(t, os.path.join(paths[path_key], name), host[key])
+    def collect(t, slot, t0_tp=None):
+        """Queue the writes of a fetched slot's arrays (each waits for the
+        copy) and drop this thread's hold on it; with ``t0_tp``, wait for
+        the copy and log the timepoint's time cost."""
+        host = slot.arrays()
+        files = [(os.path.join(paths[path_key], name.format(t=t, name1=cfg.name1,
+                                                             name2=cfg.name2)), host[key])
+                 for key, name, path_key in _OUTPUT_FILES if key in host]
         if "mp" in host:
-            mps = _split_mp2d(host["mp"], dec.shape, cfg.save_mp_z, cfg.save_mp_x,
-                              cfg.save_mp_y)
-            for key, name, path_key in (("xy", f"MP_XY_{t}.tif", "mp_xy"),
-                                        ("yz", f"MP_YZ_{t}.tif", "mp_yz"),
-                                        ("zx", f"MP_ZX_{t}.tif", "mp_zx")):
-                if key in mps:
-                    write_async(t, os.path.join(paths[path_key], name), mps[key])
-        if log_time:
+            mps = _split_mp2d(host["mp"], host["decon"].shape, cfg.save_mp_z,
+                              cfg.save_mp_x, cfg.save_mp_y)
+            files += [(os.path.join(paths[path_key], name), mps[key])
+                      for key, name, path_key in (("xy", f"MP_XY_{t}.tif", "mp_xy"),
+                                                  ("yz", f"MP_YZ_{t}.tif", "mp_yz"),
+                                                  ("zx", f"MP_ZX_{t}.tif", "mp_zx"))
+                      if key in mps]
+        transfer = slot.transfer
+        try:
+            for path, arr in files:
+                write_async(t, path, arr, slot)
+        finally:
+            slot.release()
+        if t0_tp is not None or timings is not None:
+            t_f = time.time()
+            transfer.wait()
+            stage(t, "fetch", t_f, sync=False)
+            if timings is not None:
+                add_stat(t, "fetch_copy", transfer.seconds())
+        if t0_tp is not None:
             dt = time.time() - t0_tp
             _log(log_path, f"...Time cost for current image is {dt:2.3f} s\n")
             if cfg.verbose:
@@ -410,7 +493,7 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
         if reg_mode == 1:
             t = cfg.img_test
             t_mark = time.time()
-            a_iso, b_iso = iso_views(*read_pair(t))
+            a_iso, b_iso = iso_views(t, load_views(t))
             _log(log_path, f"\n*** Registration on test image number: {t} \n")
             tmx_apply, _ = _register_with_cascade(
                 a_iso, b_iso, reg_choice, aff_method, flag_itmx, tmx_initial, cfg,
@@ -460,7 +543,7 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
                     est = crop_center(est, out_shape)
             stage(ts[0], "decon", t_dec)
             for i, t_out in enumerate(ts):
-                collect(t_out, outputs(t_out, est[i], time.time()), 0.0, log_time=False)
+                collect(t_out, outputs(t_out, est[i], {}, time.time()))
             _log(log_path, f"\t... Deconvolution (group of {len(ts)}) time cost: "
                            f"{time.time() - t_dec:2.3f} s\n")
             group.clear()
@@ -471,21 +554,19 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
                 item = read_q.get()
                 if item is None:
                     break
-                t_got, a_in, b_in = item
-                if isinstance(a_in, Exception):
-                    raise a_in
+                t_got, views = item
+                if isinstance(views, Exception):
+                    raise views
                 assert t_got == t
             else:
-                t_r = time.time()
-                a_in, b_in = read_pair(t)
-                stage(t, "read", t_r)
+                views = load_views(t)
             t_mark = stage(t, "wait", t0)
             if cfg.verbose:
                 print(f"\n*** Image time point number: {t} ")
             _log(log_path, f"\n*** Image time point number: {t} \n... Registration...\n")
 
-            a_iso, b_iso = iso_views(a_in, b_in)
-            del a_in, b_in
+            a_iso, b_iso = iso_views(t, views)
+            del views
             t_mark = stage(t, "preprocess", t_mark)
             sz, sy, sx = a_iso.shape
 
@@ -538,10 +619,8 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
                 # grouped decon: the registered views are written now, the
                 # group's decon and outputs when it is full
                 _log(log_path, "... Deconvolution...\n")
-                for key, v in extra.items():
-                    name = cfg.name1 if key == "reg_a" else cfg.name2
-                    write_async(t, os.path.join(paths[key], f"{name}reg_{t}.tif"),
-                                v.cpu().numpy())
+                if extra:
+                    collect(t, fetch(t, extra))
                 group.append((t, pad_a, pad_b, (sz, sy, sx), grid))
                 if len(group) == group_size:
                     flush_group()
@@ -561,18 +640,17 @@ def spim_fusion_batch(cfg: BatchConfig, mesh=None, *, device=None, timings=None)
             if tuple(est.shape) != (sz, sy, sx):
                 est = crop_center(est, (sz, sy, sx))
             t_mark = stage(t, "decon", t_mark)
-            outs = outputs(t, est, t_mark)
-            outs.update(extra)
+            slot = outputs(t, est, extra, t_mark)
             del a_iso, reg_b, est, extra
             processed.append(t)
             if chained:
                 _log(log_path, "\t... fused apply+decon+MIP program\n")
                 if in_flight is not None:
                     collect(*in_flight)
-                in_flight = (t, outs, t0)
+                in_flight = (t, slot, t0)
             else:
                 _log(log_path, f"\t... Deconvolution time cost: {time.time() - t_dec:2.3f} s\n")
-                collect(t, outs, t0)
+                collect(t, slot, t0)
 
         if in_flight is not None:
             collect(*in_flight)
