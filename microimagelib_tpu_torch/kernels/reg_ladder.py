@@ -41,6 +41,7 @@ import torch
 
 from microimagelib_tpu_torch.kernels import build
 from microimagelib_tpu_torch.kernels import corr as C
+from microimagelib_tpu_torch.utils.trace import spanned
 
 __all__ = ["reg_ladder", "reg_line", "launch", "ladder_args", "line_args", "kernel_attrs",
            "LadderArgs", "LadderState", "K9_LAUNCHES", "K9_EVALS_K4", "K9_EVALS_K5",
@@ -218,6 +219,7 @@ def _workspace(lib, device, stream, shape):
     return w, int(out[1])
 
 
+@spanned("mil.reg.ladder")
 def launch(src, tgt, args, trace_cap=0):
     """K9 on a CUDA pair: one cooperative launch per stage of ``args`` (a
     :class:`LadderArgs`), then one sync. Returns the final

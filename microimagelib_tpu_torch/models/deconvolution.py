@@ -65,6 +65,7 @@ from microimagelib_tpu_torch.utils.device import (
     resolve_device,
 )
 from microimagelib_tpu_torch.utils.envflags import env_on
+from microimagelib_tpu_torch.utils.trace import span, spanned, to_host
 
 SMALLVALUE = 0.01
 
@@ -273,6 +274,7 @@ def _initial_dual(img_a, img_b, const_initial):
     return img_a, img_b, (img_a + img_b) * 0.5
 
 
+@spanned("mil.rl.loop")
 def _rl_loop(step, est0, n_iters, accel, stop_tol=None):
     """Run up to ``n_iters`` RL iterations of ``step``: plain fixed-count
     loop, or — with ``accel`` — Biggs-Andrews vector extrapolation
@@ -287,7 +289,8 @@ def _rl_loop(step, est0, n_iters, accel, stop_tol=None):
     if not accel and stop_tol is None:
         est = est0
         for _ in range(n_iters):
-            est = step(est)
+            with span("mil.rl.iter"):
+                est = step(est)
         return est
 
     def rel(x2, x1):
@@ -299,7 +302,8 @@ def _rl_loop(step, est0, n_iters, accel, stop_tol=None):
         for _ in range(n_iters):
             if not r > stop_tol:
                 break
-            x2 = step(x)
+            with span("mil.rl.iter"):
+                x2 = step(x)
             r = rel(x2, x)
             x = x2
         return x
@@ -316,7 +320,8 @@ def _rl_loop(step, est0, n_iters, accel, stop_tol=None):
             alpha = torch.where(den > 0, (g1 * g2).sum() / den,
                                 torch.zeros_like(den)).clamp(0.0, 0.9999)
         y = torch.clamp_min(x1 + alpha * (x1 - x2), SMALLVALUE)
-        x = step(y)
+        with span("mil.rl.iter"):
+            x = step(y)
         x1, x2, g1, g2 = x, x1, x - y, g1
         if stop_tol is not None:
             r = rel(x1, x2)
@@ -545,9 +550,10 @@ def hbm_budget_bytes(device=None):
     if device.type != "cuda":
         return None
     device = require_cuda(device)
-    return float(torch.cuda.mem_get_info(device)[0]
-                 + torch.cuda.memory_reserved(device)
-                 - torch.cuda.memory_allocated(device))
+    with span("mil.mem_query"):
+        return float(torch.cuda.mem_get_info(device)[0]
+                     + torch.cuda.memory_reserved(device)
+                     - torch.cuda.memory_allocated(device))
 
 
 def _resolve_mem_mode(mem_mode, fft_shape, dual, device, verbose=False):
@@ -601,6 +607,7 @@ def _fft_grid(shape_zyx, tpu_friendly=True):
     return tuple(snap_fft_size(int(s), tpu_friendly) for s in shape_zyx)
 
 
+@spanned("mil.decon")
 def decon_singleview(img, psf, n_iters=20, const_initial=False, psf_bp=None,
                      device=None, mem_mode=-1, verbose=False, records=None,
                      tpu_friendly_fft=True):
@@ -667,11 +674,12 @@ def decon_singleview(img, psf, n_iters=20, const_initial=False, psf_bp=None,
     if records is not None:
         records[3] = free_memory_mb(device)
     out = crop_center(est, img_shape) if fft_shape != img_shape else est
-    out_np = out.cpu().numpy()
+    out_np = to_host(out)
     _finish_records(records, mode, device, t0, t1, t2, time.time())
     return out_np
 
 
+@spanned("mil.decon")
 def decon_dualview(img_a, img_b, psf_a, psf_b, n_iters=10, const_initial=False,
                    psf_bp_a=None, psf_bp_b=None, device=None, mem_mode=-1,
                    verbose=False, records=None, tpu_friendly_fft=True):
@@ -736,7 +744,7 @@ def decon_dualview(img_a, img_b, psf_a, psf_b, n_iters=10, const_initial=False,
     if records is not None:
         records[3] = free_memory_mb(device)
     out = crop_center(est, shape_a) if fft_shape != shape_a else est
-    out_np = out.cpu().numpy()
+    out_np = to_host(out)
     _finish_records(records, mode, device, t0, t1, t2, time.time())
     return out_np
 

@@ -39,6 +39,7 @@ from microimagelib_tpu_torch.models.registration import _reg_device, checkmatrix
 from microimagelib_tpu_torch.ops.basics import rot_by_y_axis
 from microimagelib_tpu_torch.ops.resample import resize3d_separable
 from microimagelib_tpu_torch.utils.device import resolve_device
+from microimagelib_tpu_torch.utils.trace import span, spanned, to_host
 
 __all__ = ["imresize3d", "imoperation3d", "fusion_sizes", "preprocess_views",
            "fusion_dualview"]
@@ -122,6 +123,7 @@ def preprocess_views(img_a, img_b, pixel_a, pixel_b, im_rotation, device=None,
     return a.cpu().numpy(), b.cpu().numpy()
 
 
+@spanned("mil.fusion")
 def fusion_dualview(img_a, img_b, psf_a, psf_b,
                     pixel_a=(0.1625, 0.1625, 1.0), pixel_b=(0.1625, 0.1625, 1.0),
                     im_rotation=-1, reg_choice=2, aff_method=7, flag_tmx=False,
@@ -152,21 +154,23 @@ def fusion_dualview(img_a, img_b, psf_a, psf_b,
         records = np.zeros(22, dtype=np.float64)
     # the views' device, as the registration resolves it
     _mode, dev = _reg_device(tuple(np.shape(img_a)), mem_mode, device)
-    a_iso, b_iso = preprocess_views(img_a, img_b, pixel_a, pixel_b,
-                                    im_rotation, dev, verbose, as_device=True)
+    with span("mil.fusion.preprocess"):
+        a_iso, b_iso = preprocess_views(img_a, img_b, pixel_a, pixel_b,
+                                        im_rotation, dev, verbose, as_device=True)
 
-    reg_b, out_tmx, reg_records = reg3d(
-        a_iso, b_iso, reg_choice, aff_method, flag_tmx, tmx,
-        ftol, it_limit, device=dev, mem_mode=mem_mode, verbose=verbose,
-        as_device=True)
-    sz, sy, sx = a_iso.shape
-    if reg_choice in (2, 3, 4) and not checkmatrix(out_tmx, sx, sy, sz):
-        if verbose:
-            print("\t... registration result rejected by checkmatrix, retrying plain affine")
+    with span("mil.fusion.reg"):
         reg_b, out_tmx, reg_records = reg3d(
-            a_iso, b_iso, 2, aff_method, flag_tmx, tmx,
+            a_iso, b_iso, reg_choice, aff_method, flag_tmx, tmx,
             ftol, it_limit, device=dev, mem_mode=mem_mode, verbose=verbose,
             as_device=True)
+        sz, sy, sx = a_iso.shape
+        if reg_choice in (2, 3, 4) and not checkmatrix(out_tmx, sx, sy, sz):
+            if verbose:
+                print("\t... registration result rejected by checkmatrix, retrying plain affine")
+            reg_b, out_tmx, reg_records = reg3d(
+                a_iso, b_iso, 2, aff_method, flag_tmx, tmx,
+                ftol, it_limit, device=dev, mem_mode=mem_mode, verbose=verbose,
+                as_device=True)
     records[0:11] = np.asarray(reg_records[:11], dtype=np.float64)
     del b_iso
 
@@ -174,10 +178,11 @@ def fusion_dualview(img_a, img_b, psf_a, psf_b,
         save_reg_callback(_host_np(a_iso), _host_np(reg_b))
 
     decon_records = np.zeros(10, dtype=np.float64)
-    decon = decon_dualview(
-        a_iso, reg_b, psf_a, psf_b, n_iters=n_iters, const_initial=const_initial,
-        psf_bp_a=psf_bp_a, psf_bp_b=psf_bp_b, device=dev, mem_mode=mem_mode,
-        verbose=verbose, records=decon_records)
+    with span("mil.fusion.decon"):
+        decon = decon_dualview(
+            a_iso, reg_b, psf_a, psf_b, n_iters=n_iters, const_initial=const_initial,
+            psf_bp_a=psf_bp_a, psf_bp_b=psf_bp_b, device=dev, mem_mode=mem_mode,
+            verbose=verbose, records=decon_records)
     records[11:21] = decon_records
     records[21] = time.time() - t0
-    return decon, out_tmx, reg_b, _host_np(a_iso)
+    return decon, out_tmx, reg_b, to_host(a_iso)

@@ -25,6 +25,7 @@ set fits the budget, else mode 2.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
@@ -84,6 +85,7 @@ from microimagelib_tpu_torch.utils.device import (
     resolve_device,
 )
 from microimagelib_tpu_torch.utils.envflags import env_on
+from microimagelib_tpu_torch.utils.trace import span, spanned, to_host
 
 NDIM = 12      # the affine matrix's free parameters (reference ``NDIM``)
 
@@ -624,6 +626,7 @@ def reg2d(img1, img2, reg_choice=2, flag_tmx=False, tmx=None, ftol=1e-4,
 # 3D affine registration core
 # --------------------------------------------------------------------------
 
+@spanned("mil.reg.final_transform")
 def _final_transform(img2, aff_coef, out_shape, mem_mode, device=None):
     """Final re-sample of the ORIGINAL source: a tensor on its device, or
     for mode 2 host numpy, streamed through ``device`` in z blocks from a
@@ -864,7 +867,7 @@ def reg3d_affine(img1, img2, aff_method=7, flag_tmx=False, tmx=None, ftol=1e-4,
         reg = _final_transform(img2, aff_coef, img1.shape, mem_mode, dev)
         if isinstance(reg, np.ndarray) or want_reg == "device":
             return reg
-        return reg.cpu().numpy()
+        return to_host(reg)
 
     if aff_method == 0:
         if flag_tmx and tmx is not None:
@@ -1178,27 +1181,30 @@ def reg3d_affine_pyramid(img1, img2, aff_method=7, flag_tmx=False, tmx=None,
                             mem_mode, want_reg=want_reg)
     levels = pyramid_levels(factor)
 
-    def timed(label, shape, fn):
+    @contextlib.contextmanager
+    def level(label, shape):
+        """One level's ``mil.reg.level`` span; with ``on_level``, a sync
+        at its end and the call."""
         t = time.time()
-        out = fn()
-        if on_level is not None:
-            if dev.type == "cuda":
+        with span("mil.reg.level"):
+            yield
+            if on_level is not None and dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+        if on_level is not None:
             on_level(label, shape, time.time() - t)
-        return out
 
-    c1 = _mean_pool(img1, factor)
-    c2 = _mean_pool(img2, factor)
+    with span("mil.reg.pool"):
+        c1 = _mean_pool(img1, factor)
+        c2 = _mean_pool(img2, factor)
     tmx_c = (_tmx_full_to_coarse(tmx, factor)
              if (flag_tmx and tmx is not None) else None)
     if verbose:
         print(f"\t... pyramid: coarse search at 1/{_pool_factors(factor)} "
               f"resolution {tuple(c1.shape)}")
-    _, m_coarse, rec_c = timed(f"coarse {levels[0]}", tuple(c1.shape),
-                               lambda: reg3d_affine(
-                                   c1, c2, aff_method, flag_tmx, tmx_c, ftol,
-                                   it_limit, verbose, None, dev, engine,
-                                   mem_mode, want_reg=False))
+    with level(f"coarse {levels[0]}", tuple(c1.shape)):
+        _, m_coarse, rec_c = reg3d_affine(c1, c2, aff_method, flag_tmx, tmx_c, ftol,
+                                          it_limit, verbose, None, dev, engine,
+                                          mem_mode, want_reg=False)
     del c1, c2
     m_init = _tmx_coarse_to_full(m_coarse, factor)
     # polish with the REQUESTED transform model (dofNum is Powell's exact
@@ -1209,26 +1215,25 @@ def reg3d_affine_pyramid(img1, img2, aff_method=7, flag_tmx=False, tmx=None,
     mid_finish = (os.environ.get("MIL_REG_FINISH_LEVEL", "mid") == "mid"
                   and bool(mids))
     for fm in mids:
-        m1 = _mean_pool(img1, fm)
-        m2 = _mean_pool(img2, fm)
+        with span("mil.reg.pool"):
+            m1 = _mean_pool(img1, fm)
+            m2 = _mean_pool(img2, fm)
         if verbose:
             print(f"\t... pyramid: mid polish at 1/{fm} resolution")
         init = _tmx_full_to_coarse(m_init, fm)
-        _, m_mid, _rec_m = timed(f"mid {fm}", tuple(m1.shape),
-                                 lambda: reg3d_affine(
-                                     m1, m2, polish_method, True, init, ftol,
-                                     it_limit, verbose, None, dev, engine,
-                                     mem_mode, want_reg=False))
+        with level(f"mid {fm}", tuple(m1.shape)):
+            _, m_mid, _rec_m = reg3d_affine(m1, m2, polish_method, True, init, ftol,
+                                            it_limit, verbose, None, dev, engine,
+                                            mem_mode, want_reg=False)
         del m1, m2
         m_init = _tmx_coarse_to_full(m_mid, fm)
     if verbose:
         print(f"\t... pyramid: full-resolution polish (method {polish_method})")
-    reg, m_full, records = timed(
-        "full", tuple(img1.shape),
-        lambda: reg3d_affine(img1, img2, polish_method, True, m_init, ftol,
-                             it_limit, verbose, records, dev, engine,
-                             mem_mode, want_reg=want_reg,
-                             grad_finish=(False if mid_finish else None)))
+    with level("full", tuple(img1.shape)):
+        reg, m_full, records = reg3d_affine(
+            img1, img2, polish_method, True, m_init, ftol, it_limit, verbose, records,
+            dev, engine, mem_mode, want_reg=want_reg,
+            grad_finish=(False if mid_finish else None))
     records[2] = rec_c[3]  # coarse-stage NCC as the intermediate record
     return reg, m_full, records
 
@@ -1237,6 +1242,7 @@ def reg3d_affine_pyramid(img1, img2, aff_method=7, flag_tmx=False, tmx=None,
 # reg3d dispatcher
 # --------------------------------------------------------------------------
 
+@spanned("mil.reg")
 def reg3d(img1, img2, reg_choice=2, aff_method=7, flag_tmx=False, tmx=None,
           ftol=1e-4, it_limit=3000, device=None, mem_mode=-1, verbose=False,
           records=None, engine="auto", pyramid="auto", *, as_device=False,
@@ -1361,7 +1367,7 @@ def reg3d(img1, img2, reg_choice=2, aff_method=7, flag_tmx=False, tmx=None,
     records[7] = time.time() - t0
     records[10] = free_memory_mb(dev)
     if isinstance(reg, torch.Tensor) and not as_device:
-        reg = reg.cpu().numpy()
+        reg = to_host(reg)
     return reg, out_tmx, records
 
 

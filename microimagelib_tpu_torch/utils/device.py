@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from microimagelib_tpu_torch.utils.trace import span
+
 
 def query_device(verbose=True):
     """Return a list of CUDA device-description dicts; print them if
@@ -95,4 +97,5 @@ def free_memory_mb(device=None):
         return -1.0
     if not torch.cuda.is_available():
         return -1.0
-    return torch.cuda.mem_get_info(torch.device(device))[0] / 1048576.0
+    with span("mil.mem_query"):
+        return torch.cuda.mem_get_info(torch.device(device))[0] / 1048576.0
