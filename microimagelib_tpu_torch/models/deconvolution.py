@@ -617,7 +617,13 @@ def decon_singleview(img, psf, n_iters=20, const_initial=False, psf_bp=None,
     img, psf: (z, y, x) arrays (img may be a tensor). ``psf_bp`` switches
     to the unmatched back projector (reference ``flagUnmatch``);
     otherwise the back projector is the flipped PSF. Returns the
-    deconvolved volume with img's shape as float32 numpy.
+    deconvolved volume with img's shape as float32 numpy. In memory mode
+    1 on CUDA the array lies in pinned host memory from torch's caching
+    host allocator (:func:`~microimagelib_tpu_torch.utils.trace.to_host`),
+    the caller's own until dropped, when its block goes back to the
+    allocator for the next result; a live result holds its size rounded
+    up to a power of two (a 512^3 float32 volume is 2^29 bytes, a block of
+    its own size; a (320, 512, 320) one, 210 MB, takes 256 MiB).
 
     ``records`` (len-10, optional) is filled with the reference telemetry
     layout: [0] memory mode used, [1..5] free device memory snapshots MB
@@ -689,9 +695,10 @@ def decon_dualview(img_a, img_b, psf_a, psf_b, n_iters=10, const_initial=False,
     167-188). Unmatched back projectors apply only when BOTH are given,
     matching the reference's single ``flagUnmatch``; otherwise each view
     back-projects with its flipped PSF. Returns float32 numpy with the
-    views' shape. ``records`` and ``mem_mode`` as in
-    :func:`decon_singleview` (``verbose`` prints only the streaming
-    mode's line, as in the JAX package)."""
+    views' shape, in pinned host memory in memory mode 1 on CUDA, as in
+    :func:`decon_singleview`. ``records`` and ``mem_mode`` as there
+    (``verbose`` prints only the streaming mode's line, as in the JAX
+    package)."""
     t0 = time.time()
     shape_a = tuple(img_a.shape)
     shape_b = tuple(img_b.shape)

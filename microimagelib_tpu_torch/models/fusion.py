@@ -136,7 +136,12 @@ def fusion_dualview(img_a, img_b, psf_a, psf_b,
     ``reg_b`` stays on the device (a tensor, like reg3d's
     ``as_device=True``): it feeds the decon without a host round trip; in
     memory mode 2 it is host numpy, from the streamed transform.
-    ``a_iso`` and ``decon`` are numpy.
+    ``a_iso`` and ``decon`` are numpy; on CUDA (memory mode 1) each lies
+    in a block of pinned host memory from torch's caching host allocator
+    (:func:`~microimagelib_tpu_torch.utils.trace.to_host`), the caller's
+    own until dropped, when the block goes back to the allocator for the
+    next timepoint. A live timepoint holds each array's size rounded up
+    to a power of two: two 256 MiB blocks for (320, 512, 320) float32.
 
     The registration fallback of the reference: if ``checkmatrix``
     rejects the result of choice 2, 3 or 4, the registration is repeated

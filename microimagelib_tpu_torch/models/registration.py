@@ -1256,6 +1256,11 @@ def reg3d(img1, img2, reg_choice=2, aff_method=7, flag_tmx=False, tmx=None,
     (reference:src/api_reg.cpp:398-407). Returns (registered, tmx12,
     records); ``as_device=True`` leaves the registered volume a tensor on
     the device, ``want_reg=False`` skips the final transform (None).
+    Without ``as_device`` a volume registered on CUDA comes back as numpy
+    in a block of pinned host memory from torch's caching host allocator
+    (:func:`~microimagelib_tpu_torch.utils.trace.to_host`), the caller's
+    own until dropped; the block holds the volume's size rounded up to a
+    power of two.
     ``pyramid='auto'`` pools above 96^3 voxels unless engine='host';
     ``on_level`` goes to :func:`reg3d_affine_pyramid`."""
     t0 = time.time()

@@ -1,8 +1,9 @@
 """The port's spans and counters (``utils/trace.py``) on the CPU at small
 shapes: off without a profiler, nested as the layers are under one, the
 same outputs either way, every span name listed, the counters read from
-their modules. One test needs the card (``-m cuda``; skips elsewhere):
-the copies' bytes and the memory queries there. This file imports no JAX:
+their modules, ``to_host`` on CPU tensors. The tests marked ``cuda``
+need the card (skip elsewhere): the copies' bytes and the memory queries
+there, and ``to_host``'s pinned blocks. This file imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_trace.py -m cuda
 """
@@ -22,6 +23,7 @@ from microimagelib_tpu_torch.kernels import corr as C
 from microimagelib_tpu_torch.models import deconvolution as D
 from microimagelib_tpu_torch.models import fusion as FU
 from microimagelib_tpu_torch.models import registration as R
+from microimagelib_tpu_torch.ops.basics import crop_center
 from microimagelib_tpu_torch.ops.matrix import identity_tmx
 from microimagelib_tpu_torch.utils import trace
 
@@ -248,6 +250,125 @@ def test_a_span_left_by_an_exception_closes(fresh):
             pass
     spans = trace.snapshot()["spans"]
     assert spans["mil.reg"]["calls"] == 1 and spans["mil.decon"]["within"] == {}
+
+
+def _copied(kind, dtype, device="cpu"):
+    """A tensor for ``to_host``: (6, 10, 12) contiguous, or its (4, 6, 8)
+    centre as ``crop_center``'s strided view."""
+    vals = np.random.default_rng(7).random((6, 10, 12)) * 60000
+    t = torch.from_numpy(vals.astype(dtype)).to(device)
+    return t if kind == "contiguous" else crop_center(t, (4, 6, 8))
+
+
+def _to_host_counts():
+    return trace.TO_HOST_PINNED, trace.TO_HOST_PLAIN
+
+
+TO_HOST_CASES = [(k, d) for k in ("contiguous", "crop_center") for d in (np.float32, np.uint16)]
+
+
+@pytest.mark.parametrize("kind,dtype", TO_HOST_CASES)
+def test_to_host_on_the_cpu_is_numpy(fresh, kind, dtype):
+    t = _copied(kind, dtype)
+    want = t.cpu().numpy()
+    pinned, plain = _to_host_counts()
+    got = trace.to_host(t)
+    assert _to_host_counts() == (pinned, plain + 1)
+    assert got.dtype == want.dtype == np.dtype(dtype) and got.shape == want.shape
+    assert np.array_equal(got, want)
+    # under the profiler the span names the result's bytes
+    got, _prof, spans = _traced(lambda: trace.to_host(t))
+    assert np.array_equal(got, want)
+    assert spans["mil.to_host"]["calls"] == 1 and spans["mil.to_host"]["bytes"] == want.nbytes
+    assert _to_host_counts() == (pinned, plain + 2)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (to_host's pinned blocks)")
+    return torch.device("cuda", 0)
+
+
+def _is_pinned(a):
+    return torch.from_numpy(a).is_pinned()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype", TO_HOST_CASES)
+def test_to_host_on_the_card_is_pinned_and_bit_equal(fresh, card, kind, dtype):
+    t = _copied(kind, dtype, card)
+    want = t.cpu().numpy()
+    pinned, plain = _to_host_counts()
+    got = trace.to_host(t)
+    assert _to_host_counts() == (pinned + 1, plain)
+    assert _is_pinned(got) and got.flags.c_contiguous and got.flags.writeable
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+    got, _prof, spans = _traced(lambda: trace.to_host(t), cuda=True)
+    assert got.tobytes() == want.tobytes()
+    assert spans["mil.to_host"]["bytes"] == want.nbytes and spans["mil.to_host"]["device_s"] > 0
+
+
+@pytest.mark.cuda
+def test_to_host_results_own_their_memory(card):
+    """Two live results share nothing, and a result stays as it was after
+    a later kernel overwrites its source."""
+    t = _copied("contiguous", np.float32, card)
+    want = t.cpu().numpy()
+    a, b = trace.to_host(t), trace.to_host(t)
+    assert not np.shares_memory(a, b)
+    a[...] = -1.0
+    assert np.array_equal(b, want)
+    torch.cuda._sleep(10 ** 6)          # the overwrite queued behind a spin
+    t.mul_(0.0).add_(3.0)
+    torch.cuda.synchronize()
+    assert np.array_equal(b, want) and (a == -1.0).all()
+    assert (t == 3.0).all()
+
+
+@pytest.mark.cuda
+def test_to_host_takes_the_dropped_block_again(card):
+    """Over five calls, each result dropped, the host allocator pins no
+    new block after the first; a block is the size rounded up to a power
+    of two."""
+    stats = torch.cuda.host_memory_stats()
+    if "num_host_alloc" not in stats:
+        pytest.skip("this torch's host_memory_stats gives no allocation count")
+    t = torch.ones((33, 65, 129), dtype=torch.float32, device=card)   # 1.1 MB, odd size
+    before = stats["num_host_alloc"]
+    counts = []
+    for _ in range(5):
+        a = trace.to_host(t)
+        assert _is_pinned(a) and a.sum() == t.numel()
+        del a
+        counts.append(torch.cuda.host_memory_stats()["num_host_alloc"])
+    assert counts[0] <= before + 1
+    assert counts == [counts[0]] * 5
+    live = [trace.to_host(t) for _ in range(2)]
+    s = torch.cuda.host_memory_stats()
+    assert s["num_host_alloc"] >= counts[0]
+    if "allocated_bytes.current" in s:
+        nbytes = t.numel() * t.element_size()
+        assert s["allocated_bytes.current"] >= 2 * (1 << (nbytes - 1).bit_length())
+    del live
+
+
+@pytest.mark.cuda
+def test_decon_and_fusion_return_pinned_arrays(fresh, card):
+    img = _blobs((12, 16, 20), seed=1)
+    pinned, plain = _to_host_counts()
+    out = D.decon_singleview(img, _gauss((5, 5, 5), 1.0), n_iters=3, device=card, mem_mode=-1)
+    assert _is_pinned(out) and out.shape == img.shape
+    assert _to_host_counts() == (pinned + 1, plain)
+    vol = _blobs((16, 16, 16), n=6, seed=3)
+    decon, _tmx, _reg_b, a_iso = FU.fusion_dualview(
+        vol, vol, _gauss((5, 5, 5), 1.0), _gauss((5, 5, 5), 1.0), (1.0, 1.0, 1.0),
+        (1.0, 1.0, 1.0), im_rotation=0, aff_method=1, it_limit=100, n_iters=2,
+        device=card, mem_mode=-1)
+    assert _is_pinned(decon) and _is_pinned(a_iso)
+    assert not np.shares_memory(decon, a_iso)
+    assert _to_host_counts() == (pinned + 3, plain)
 
 
 @pytest.mark.cuda

@@ -12,9 +12,11 @@ calls and traced rate, the span totals of the program's trace module
 (none for a program without it) with each span's calls per completed
 call, the benchmark's own spans (host seconds of ``fusion.reg3d`` and
 ``fusion.decon_dualview``, device seconds of ``decon.rl_loop``), the
-seconds of K9's stage kernels in the profiler's trace, and the device-idle
+seconds of K9's stage kernels in the profiler's trace, the device-idle
 seconds by label (``milbench/trace.py::idle_gaps``, every label), with
-the share labelled ``... > python``.
+the share labelled ``... > python``, and the trace module's ``TO_HOST_*``
+counters over the window per completed call (none where the program
+lacks them).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ def keep():
     def keep_spans(self, *a, **k):
         spans_init(self, *a, **k)
         seen["spans"] = self
+        seen["to_host0"] = to_host_counters()     # the window starts after the warm-up
 
     def keep_view(cls, *a, **k):
         seen["view"] = tv = from_profiler(cls, *a, **k)
@@ -70,6 +73,16 @@ def keep():
     harness.Spans.__init__ = keep_spans
     TraceView.from_profiler = classmethod(keep_view)
     return seen
+
+
+def to_host_counters():
+    """The program's ``TO_HOST_*`` counters, {} where it has none."""
+    try:
+        from microimagelib_tpu_torch.utils import trace
+    except ImportError:
+        return {}
+    return {a: getattr(trace, a) for a in ("TO_HOST_PINNED", "TO_HOST_PLAIN")
+            if hasattr(trace, a)}
 
 
 def report(seen):
@@ -92,6 +105,8 @@ def report(seen):
                       "fusion.decon_dualview_host_s": sum(bench.host_s("fusion.decon_dualview")),
                       "decon.rl_loop_device_s": sum(bench.device_s("decon.rl_loop"))},
             "k9_kernel_s": tv.kernel_s("reg_stage_kernel"),
+            "to_host_per_call": {a: (v - seen["to_host0"][a]) / calls if calls else None
+                                 for a, v in to_host_counters().items()},
             "idle_s": idle, "idle_python_s": python,
             "idle_python_share": python / idle if idle else None,
             "idle_gaps": gaps[:40]}
